@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`moco_tpu_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Phases; any failure ends the run with a nonzero exit and no result line:
+
+1. build    compile moco_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+2. kernels  each CUDA kernel against its plain PyTorch version on the card,
+            at the shapes the ResNet-50 batch-256 step gives it, with its
+            time, its bound, the plain version's time and one PyTorch
+            library call's time as a yardstick;
+3. slice    a few steps of the `imagenet-moco-v2` preset (ResNet-50, 224 px,
+            bf16, K=65536, MLP head, T=0.2) at batch 256 on synthetic data
+            through `moco_tpu_torch.train`, with the kernels' launch counts;
+4. check    a small f32 ResNet and one BatchNorm on the card against the
+            same on the CPU (where every wrapper takes its plain version).
+
+The last three lines of standard output are the card's name and power
+limit, one JSON object describing the kernels, and the result object.
+Exits 2 without a CUDA device or without the `moco_tpu_torch` package next
+to this script.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+STEPS = 6
+BATCH = 256
+R50_BN_SHAPES = {           # [N*H*W, C] of three R50 BNs at batch 256, 224 px
+    "stem": (256 * 112 * 112, 64),
+    "layer1": (256 * 56 * 56, 256),
+    "layer4": (256 * 7 * 7, 2048),
+}
+SUM_RTOL = 1e-4             # |kernel - plain| <= 1e-4 * sum |term|, per channel
+
+
+def fail(msg: str, code: int = 2) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
+    sys.exit(code)
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of `fn` over `iters` back-to-back calls (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_stats_kernels(stats) -> dict:
+    """channel_sums / channel_grad_sums at the R50 shapes (bf16)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    report = {"channel_sums": {}, "channel_grad_sums": {}}
+    for name, (m, c) in R50_BN_SHAPES.items():
+        x = (torch.randn((m, c), generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+        dy = torch.randn((m, c), generator=gen, device="cuda").bfloat16()
+        xf = x.float()
+        mean = xf.mean(0)
+        rstd = torch.rsqrt(xf.var(0, correction=0) + 1e-5)
+
+        got = stats.channel_sums(x)
+        ref = stats.channel_sums_plain(x)
+        scale = (xf.abs().sum(0), (xf * xf).sum(0))
+        err = 0.0
+        for g, r, s in zip(got, ref, scale):
+            diff = (g - r).abs()
+            if not bool((diff <= SUM_RTOL * s).all()):
+                fail(f"channel_sums[{name}] disagrees: max rel {float((diff / s).max()):.3e}", 1)
+            err = max(err, float(diff.max()))
+        ms = time_ms(lambda: stats.channel_sums(x), 20)
+        plain_ms = time_ms(lambda: stats.channel_sums_plain(x), 5)
+        lib_ms = time_ms(lambda: torch.var_mean(x, dim=0, correction=0), 20)
+        b_ms, b_by = bound(m * c * x.element_size() + 2 * c * 4, 3 * m * c)
+        report["channel_sums"][name] = dict(shape=[m, c], max_abs_err=err, ms=ms,
+                                            plain_ms=plain_ms, library_ms=lib_ms,
+                                            bound_ms=b_ms, bound_by=b_by)
+
+        got = stats.channel_grad_sums(dy, x, mean, rstd)
+        ref = stats.channel_grad_sums_plain(dy, x, mean, rstd)
+        dyf = dy.float()
+        scale = (dyf.abs().sum(0), (dyf * (xf - mean) * rstd).abs().sum(0))
+        err = 0.0
+        for g, r, s in zip(got, ref, scale):
+            diff = (g - r).abs()
+            if not bool((diff <= SUM_RTOL * s).all()):
+                fail(f"channel_grad_sums[{name}] disagrees: max rel "
+                     f"{float((diff / s).max()):.3e}", 1)
+            err = max(err, float(diff.max()))
+        ms = time_ms(lambda: stats.channel_grad_sums(dy, x, mean, rstd), 20)
+        plain_ms = time_ms(lambda: stats.channel_grad_sums_plain(dy, x, mean, rstd), 5)
+        lib_ms = time_ms(lambda: torch.batch_norm_backward_reduce(
+            dy, x, mean, rstd, None, True, False, False), 20)
+        b_ms, b_by = bound(2 * m * c * x.element_size() + 4 * c * 4, 6 * m * c)
+        report["channel_grad_sums"][name] = dict(shape=[m, c], max_abs_err=err, ms=ms,
+                                                 plain_ms=plain_ms, library_ms=lib_ms,
+                                                 bound_ms=b_ms, bound_by=b_by)
+        for kname in report:
+            r = report[kname][name]
+            print(f"kernel {kname} {name} [{m}, {c}] bf16: {r['ms']:.4f} ms "
+                  f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+                  f"max abs err {r['max_abs_err']:.3e})", flush=True)
+        del x, dy, xf, dyf
+    return report
+
+
+def blur_library(images, taps, radius: int):
+    """Yardstick: edge pad + a pair of grouped F.conv2d (one group per
+    sample and channel). The port never calls this."""
+    import torch.nn.functional as F
+
+    b, h, w, _ = images.shape
+    x = images.permute(0, 3, 1, 2).reshape(1, b * 3, h, w)
+    x = F.pad(x, (radius, radius, radius, radius), mode="replicate")
+    k = taps.repeat_interleave(3, dim=0).to(images.dtype)
+    y = F.conv2d(x, k.view(b * 3, 1, -1, 1), groups=b * 3)
+    return F.conv2d(y, k.view(b * 3, 1, 1, -1), groups=b * 3)
+
+
+def check_blur_kernel(blur) -> dict:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    radius = blur.blur_radius(224)
+    images = torch.randn((BATCH, 224, 224, 3), generator=gen, device="cuda").bfloat16()
+    taps = blur.blur_weights(BATCH, radius, (0.1, 2.0), 0.5, gen, "cuda")
+    got = blur.gaussian_blur_batch(images, taps, radius).float()
+    ref = blur.gaussian_blur_batch_plain(images.float(), taps, radius)  # f32, unrounded
+    # one bf16 ulp of the reference (ulp floored at that of 2^-8: f32
+    # reassociation over 23 taps of |x| <= 5 stays below 1e-5)
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=2.0**-8))) - 7)
+    diff = (got - ref).abs()
+    if not bool((diff <= ulp).all()):
+        fail(f"gaussian_blur_batch disagrees: {int((diff > ulp).sum())} values beyond "
+             f"one bf16 ulp (max abs {float(diff.max()):.3e})", 1)
+    ident = taps[:, radius] == 1.0
+    if not torch.equal(got[ident], images[ident].float()):
+        fail("gaussian_blur_batch changed a sample whose taps are the identity", 1)
+    ms = time_ms(lambda: blur.gaussian_blur_batch(images, taps, radius), 20)
+    plain_ms = time_ms(lambda: blur.gaussian_blur_batch_plain(images, taps, radius), 3)
+    lib_ms = time_ms(lambda: blur_library(images, taps, radius), 5)
+    n = images.numel()
+    taps_n = 2 * radius + 1
+    b_ms, b_by = bound(2 * n * images.element_size() + taps.numel() * 4, 4 * taps_n * n)
+    r = dict(shape=list(images.shape), max_abs_err=float(diff.max()), ms=ms,
+             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"kernel gaussian_blur_batch [{BATCH}, 224, 224, 3] bf16 R={radius}: "
+          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms, max abs err {r['max_abs_err']:.3e})", flush=True)
+    return r
+
+
+def run_slice(counters: dict) -> dict:
+    """STEPS steps of imagenet-moco-v2 at batch 256 through the driver."""
+    import torch
+
+    from moco_tpu_torch import train
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+
+    config = get_preset("imagenet-moco-v2").replace(dataset="synthetic", batch_size=BATCH)
+    dataset = SyntheticDataset(num_samples=2 * BATCH, image_size=config.image_size)
+    rows = []
+
+    def on_step(step, metrics, seconds):
+        launches = {name: fn.launches for name, fn in counters.items()}
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        rows.append(dict(step=step, seconds=seconds, launches=launches, **metrics))
+        print(f"slice step {step}: loss {metrics['loss']:.6f} acc1 {metrics['acc1']:.3f} "
+              f"lr {metrics['lr']:.6g} queue_ptr {int(metrics['queue_ptr'])} step_s "
+              f"{seconds:.4f} imgs_s {BATCH / seconds:.1f} max_mem_gib {mem:.2f} "
+              f"launches {launches}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    state, history = train.train(config, max_steps=STEPS, device="cuda", dataset=dataset,
+                                 on_step=on_step)
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    expected = {"channel_sums": 106, "channel_grad_sums": 53, "gaussian_blur_batch": 2}
+    for name, per_step in expected.items():
+        if launches[name] != per_step * STEPS:
+            fail(f"{name} launched {launches[name]} times in {STEPS} steps, expected "
+                 f"{per_step * STEPS}", 1)
+    losses = [h["loss"] for h in history]
+    if len(losses) != STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite or missing losses: {losses}", 1)
+    if state.queue_ptr != STEPS * BATCH % config.num_negatives:
+        fail(f"queue pointer {state.queue_ptr} after {STEPS} steps", 1)
+    norms = state.queue.norm(dim=1)
+    if not bool(torch.isfinite(state.queue).all()) or float((norms - 1).abs().max()) > 1e-5:
+        fail("queue rows are not finite unit vectors", 1)
+    profile_step(config, state, dataset)
+    steady = [r["seconds"] for r in rows[1:]]
+    summary = dict(launches=launches, losses=losses,
+                   steady_step_s=sum(steady) / len(steady),
+                   max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    summary["imgs_per_s"] = BATCH / summary["steady_step_s"]
+    print(f"slice: {STEPS} steps, steady step {summary['steady_step_s']:.4f} s "
+          f"({summary['imgs_per_s']:.1f} imgs/s), peak memory "
+          f"{summary['max_memory_gib']:.2f} GiB, launches {launches}", flush=True)
+    return summary
+
+
+def profile_step(config, state, dataset) -> None:
+    """One more step under torch.profiler: device time by kernel, and the
+    device's busy time against the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from moco_tpu_torch.data.augment import aug_config_for, two_crops
+    from moco_tpu_torch.data.datasets import stage
+    from moco_tpu_torch.train_step import build_train_step
+
+    step_fn = build_train_step(config, steps_per_epoch=2)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    images, _ = dataset.get_batch(list(range(BATCH)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        im_q, im_k = two_crops(stage(images, torch.device("cuda")), aug_config_for(config), gen)
+        float(step_fn(state, im_q, im_k)["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    kernel_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernel_events) / 1e3
+    if busy_ms == 0:
+        print("profile: the profiler recorded no device time (not measured)", flush=True)
+        return
+    print(f"profile: one step, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {len(kernel_events)} kernel names", flush=True)
+    categories = {"port kernels": ("sums_partial", "sum_partials", "blur_tile"),
+                  "convolution": ("conv", "xmma_fprop", "xmma_dgrad", "xmma_wgrad", "cudnn",
+                                  "implicit_gemm", "fprop", "dgrad", "wgrad"),
+                  "matmul": ("gemm", "cublas", "cutlass"),
+                  "elementwise": ("elementwise", "foreach", "multi_tensor"),
+                  "reduction": ("reduce", "softmax", "argsort", "sort", "scan")}
+    totals = dict.fromkeys([*categories, "other"], 0.0)
+    for e in kernel_events:
+        name = e.key.lower()
+        cat = next((c for c, keys in categories.items() if any(k in name for k in keys)),
+                   "other")
+        totals[cat] += e.device_time_total / 1e3
+    print("profile by category (ms): " + ", ".join(
+        f"{c} {t:.2f} ({100 * t / busy_ms:.1f}%)" for c, t in totals.items()), flush=True)
+    top = sorted(kernel_events, key=lambda e: e.device_time_total, reverse=True)[:15]
+    for e in top:
+        print(f"profile kernel {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:110]}", flush=True)
+
+
+def check_against_cpu() -> None:
+    """A 4-stage Bottleneck ResNet (width 16, MLP head) in f32 at 32 px,
+    batch 16, on the card (kernels) and on the CPU (plain versions) from the
+    same weights and inputs: the train-mode forward, the running statistics,
+    and one train step's loss and enqueued keys; then one FastBatchNorm's
+    forward and gradients at a ResNet-50 shape.
+
+    The model's parameter gradients are not compared: a ReLU input within
+    f32 rounding of zero can take the other sign on the other device (one
+    element of 32768 did in a measured run), and the large gradient it
+    gates then moves the upstream gradients by a few percent. A ResNet-50
+    at this size is worse: a 1e-6 nudge of its weights moves its layer-4
+    gradients by ~20%, in the JAX package as well."""
+    import numpy as np
+    import torch
+
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.models import resnet
+    from moco_tpu_torch.models.fast_bn import FastBatchNorm
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_train_step
+
+    config = get_preset("imagenet-moco-v2").replace(
+        compute_dtype="float32", image_size=32, batch_size=16, num_negatives=64)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(16, 32, 32, 3).astype(np.float32))
+    im_q, im_k = (torch.from_numpy(a) for a in rng.randn(2, 16, 32, 32, 3).astype(np.float32))
+    bn_x = torch.from_numpy(rng.randn(32, 64, 28, 28).astype(np.float32) * 2 + 0.5)
+    bn_x = bn_x.contiguous(memory_format=torch.channels_last)
+    bn_ct = torch.from_numpy(rng.randn(32, 64, 28, 28).astype(np.float32))
+
+    def model():
+        return resnet.ResNet((1, 1, 1, 1), resnet.Bottleneck, width=16, num_classes=128,
+                             mlp_head=True, generator=torch.Generator().manual_seed(0))
+
+    res = {}
+    for dev in ("cpu", "cuda"):
+        m = model().to(dev).train()
+        with torch.no_grad():
+            tensors = {"out": m(x.to(dev))}
+        tensors.update({f"buffer:{n}": b for n, b in m.named_buffers()})
+        state = create_train_state(config, model(), dev, seed=0)
+        metrics = build_train_step(config, steps_per_epoch=8)(state, im_q.to(dev), im_k.to(dev))
+        tensors["step_loss"] = metrics["loss"].reshape(1)
+        tensors["enqueued_keys"] = state.queue[:16]
+        bn = FastBatchNorm(64).to(dev)
+        xd = bn_x.to(dev, copy=True).requires_grad_()
+        y = bn(xd)
+        (y * bn_ct.to(dev)).sum().backward()
+        tensors.update({"bn:y": y.detach(), "bn:dx": xd.grad, "bn:dweight": bn.weight.grad,
+                        "bn:dbias": bn.bias.grad, "bn:running_var": bn.running_var})
+        res[dev] = {k: v.detach().cpu() for k, v in tensors.items()}
+    worst = (0.0, "")
+    for key, ref in res["cpu"].items():
+        # f32 sums in another order: ~1e-6 of each tensor's largest entry
+        err = float((res["cuda"][key] - ref).abs().max() / ref.abs().max().clamp(min=1e-12))
+        if err > 1e-4:
+            fail(f"card and CPU disagree on {key}: {err:.3e} of its largest entry", 1)
+        worst = max(worst, (err, key))
+    print(f"check: Bottleneck ResNet f32 32px batch 16 and a [32, 64, 28, 28] BN, card vs "
+          f"cpu over {len(res['cpu'])} tensors, worst {worst[0]:.3e} ({worst[1]}); step "
+          f"loss {float(res['cuda']['step_loss'][0]):.6f} vs "
+          f"{float(res['cpu']['step_loss'][0]):.6f}", flush=True)
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    if not (ROOT / "moco_tpu_torch" / "__init__.py").is_file():
+        fail(f"no moco_tpu_torch package next to {Path(__file__).name}: run it from a "
+             "checkout of the repository")
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
+          f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32} "
+          f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}", flush=True)
+
+    from moco_tpu_torch.ops import _build, blur, stats
+
+    t0 = time.perf_counter()
+    path, log = _build.build()
+    _build.load_library()
+    print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s\n{log}", flush=True)
+
+    report = check_stats_kernels(stats)
+    blur_report = check_blur_kernel(blur)
+    counters = {"channel_sums": stats.channel_sums,
+                "channel_grad_sums": stats.channel_grad_sums,
+                "gaussian_blur_batch": blur.gaussian_blur_batch}
+    summary = run_slice(counters)
+    check_against_cpu()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi)  # the card's name and power limit, as nvidia-smi prints them
+    sources = {"channel_sums": ("moco_tpu_torch/csrc/channel_stats.cu",
+                                "moco_tpu/ops/pallas_stats.py:121"),
+               "channel_grad_sums": ("moco_tpu_torch/csrc/channel_stats.cu",
+                                     "moco_tpu/ops/pallas_stats.py:155"),
+               "gaussian_blur_batch": ("moco_tpu_torch/csrc/blur.cu",
+                                       "moco_tpu/ops/pallas_blur.py:77")}
+    per_kernel = {"channel_sums": report["channel_sums"]["stem"],
+                  "channel_grad_sums": report["channel_grad_sums"]["stem"],
+                  "gaussian_blur_batch": blur_report}
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        r = per_kernel[name]
+        errs = ([v["max_abs_err"] for v in report[name].values()] if name in report
+                else [r["max_abs_err"]])
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            launches=summary["launches"][name], max_abs_err=max(errs),
+                            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r["library_ms"],
+                            shape=r["shape"]))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

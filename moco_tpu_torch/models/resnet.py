@@ -1,0 +1,190 @@
+"""ResNet encoders (port of `moco_tpu/models/resnet.py`).
+
+Same structure and parameter names as the flax modules, so
+`weights.params_from_jax` maps one tree onto the other leaf by leaf:
+
+- `forward` takes NHWC images like the JAX model; inside, activations are
+  channels_last NCHW tensors (an NHWC tensor seen through `permute`).
+- Parameters are f32. A conv casts its input and weight to the compute
+  dtype at use (flax `nn.Conv(dtype=..., param_dtype=float32)`); the pooled
+  features and the head run in f32. Casts are written out, not autocast,
+  which would run the f32 head in bf16.
+- Bottleneck is v1.5 (stride on the 3x3). 3x3 convs pad 1 on both sides,
+  also at stride 2. The stem is the plain 7x7/2 conv with pad 3 (the JAX
+  package's space-to-depth stem is the same convolution re-tiled for the
+  TPU's matrix unit), BN, ReLU, 3x3/2 max-pool; `cifar_stem` is 3x3/1
+  with no pool.
+- Initialization follows flax: convs and dense kernels lecun-normal
+  (truncated), dense biases 0, BN scale 1 and bias 0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from moco_tpu_torch.models.fast_bn import FastBatchNorm
+
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax `lecun_normal`: truncated normal with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+class Conv(nn.Module):
+    """Bias-free conv, f32 OIHW weight cast to the compute dtype at use."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        cout, cin, kh, kw = self.weight.shape
+        lecun_normal_(self.weight, cin * kh * kw, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(self.dtype, memory_format=torch.channels_last)
+        return F.conv2d(x.to(self.dtype), w, None, self.stride, self.padding)
+
+
+class BasicBlock(nn.Module):
+    """2x 3x3 residual block (ResNet-18/34)."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, filters: int, stride: int, dtype):
+        super().__init__()
+        self.conv1 = Conv(cin, filters, 3, stride, 1, dtype)
+        self.bn1 = FastBatchNorm(filters)
+        self.conv2 = Conv(filters, filters, 3, 1, 1, dtype)
+        self.bn2 = FastBatchNorm(filters)
+        self.has_downsample = stride != 1 or cin != filters
+        if self.has_downsample:
+            self.downsample_conv = Conv(cin, filters, 1, stride, 0, dtype)
+            self.downsample_bn = FastBatchNorm(filters)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        res = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
+        return F.relu(res + y)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3(stride) -> 1x1(x4) residual block (ResNet-50/101/152, v1.5)."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, stride: int, dtype):
+        super().__init__()
+        out = filters * self.expansion
+        self.conv1 = Conv(cin, filters, 1, 1, 0, dtype)
+        self.bn1 = FastBatchNorm(filters)
+        self.conv2 = Conv(filters, filters, 3, stride, 1, dtype)
+        self.bn2 = FastBatchNorm(filters)
+        self.conv3 = Conv(filters, out, 1, 1, 0, dtype)
+        self.bn3 = FastBatchNorm(out)
+        self.has_downsample = stride != 1 or cin != out
+        if self.has_downsample:
+            self.downsample_conv = Conv(cin, out, 1, stride, 0, dtype)
+            self.downsample_bn = FastBatchNorm(out)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        res = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
+        return F.relu(res + y)
+
+
+class ResNet(nn.Module):
+    """ResNet encoder of RGB images ending in a `num_classes`-dim `fc` head
+    (the MoCo embedding), or the v2 MLP head `fc_hidden -> ReLU -> fc` with
+    `mlp_head=True`."""
+
+    def __init__(self, stage_sizes, block_cls, num_classes: int = 128,
+                 mlp_head: bool = False, cifar_stem: bool = False, width: int = 64,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.cifar_stem = cifar_stem
+        if cifar_stem:
+            self.conv1 = Conv(3, width, 3, 1, 1, dtype)
+        else:
+            self.conv1 = Conv(3, width, 7, 2, 3, dtype)
+        self.bn1 = FastBatchNorm(width)
+        cin = width
+        self.block_names = []
+        for i, num_blocks in enumerate(stage_sizes):
+            for j in range(num_blocks):
+                stride = 2 if i > 0 and j == 0 else 1
+                name = f"layer{i + 1}_{j}"
+                block = block_cls(cin, width * 2**i, stride, dtype)
+                self.add_module(name, block)
+                self.block_names.append(name)
+                cin = width * 2**i * block_cls.expansion
+        self.mlp_head = mlp_head
+        if mlp_head:
+            self.fc_hidden = nn.Linear(cin, cin)
+        self.fc = nn.Linear(cin, num_classes)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's initializers, drawn in module order from `generator`."""
+        for mod in self.modules():
+            if isinstance(mod, Conv):
+                mod.reset_parameters(generator)
+            elif isinstance(mod, nn.Linear):
+                lecun_normal_(mod.weight, mod.in_features, generator)
+                with torch.no_grad():
+                    mod.bias.zero_()
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images: NHWC [B, H, W, 3] -> [B, num_classes] f32."""
+        x = images.permute(0, 3, 1, 2).to(self.dtype)  # channels_last NCHW view
+        x = F.relu(self.bn1(self.conv1(x)))
+        if not self.cifar_stem:
+            x = F.max_pool2d(x, 3, 2, 1)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        x = x.mean(dim=(2, 3)).float()  # global average pool
+        if self.mlp_head:
+            x = F.relu(self.fc_hidden(x))
+        return self.fc(x)
+
+
+def _resnet(stage_sizes, block_cls, width=64):
+    def build(**kw) -> ResNet:
+        kw.setdefault("width", width)
+        return ResNet(stage_sizes, block_cls, **kw)
+
+    return build
+
+
+ARCHS = {
+    "resnet18": _resnet((2, 2, 2, 2), BasicBlock),
+    "resnet34": _resnet((3, 4, 6, 3), BasicBlock),
+    "resnet50": _resnet((3, 4, 6, 3), Bottleneck),
+    "resnet101": _resnet((3, 4, 23, 3), Bottleneck),
+    "resnet152": _resnet((3, 8, 36, 3), Bottleneck),
+    # 2-stage, width-16 micro-ResNet for tests on the CPU
+    "resnet_tiny": _resnet((1, 1), BasicBlock, width=16),
+}
+
+
+def build_resnet(arch: str, **kwargs) -> ResNet:
+    if arch not in ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; choose from {sorted(ARCHS)}")
+    return ARCHS[arch](**kwargs)

@@ -1,0 +1,55 @@
+"""The MoCo training state (port of `moco_tpu/train_state.py`).
+
+One object holds what the step updates: the query encoder and its SGD
+optimizer, the key encoder (an EMA of the query's parameters, never trained
+by gradients), the negative queue and its pointer, the step count, and the
+generator that draws ShuffleBN's permutations. The step mutates it in place.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from moco_tpu_torch.ops.queue import init_queue
+
+
+@dataclass
+class TrainState:
+    step: int                       # completed steps
+    model_q: nn.Module              # query encoder (trained)
+    model_k: nn.Module              # key encoder (EMA of model_q's parameters)
+    optimizer: torch.optim.Optimizer  # over model_q's parameters only
+    queue: torch.Tensor             # [K, dim] f32 negative keys, unit rows
+    queue_ptr: int                  # ring pointer into the queue
+    generator: torch.Generator      # ShuffleBN permutations, on the device
+
+
+def build_optimizer(config, model_q: nn.Module) -> torch.optim.SGD:
+    """SGD with momentum and weight decay on EVERY parameter (BN included):
+    `d = g + wd*p; buf = m*buf + d; p -= lr*buf`, the same update as the
+    JAX package's `add_decayed_weights` -> `sgd(momentum)` chain. The lr is
+    set each step from the schedule."""
+    return torch.optim.SGD(model_q.parameters(), lr=config.effective_lr,
+                           momentum=config.sgd_momentum,
+                           weight_decay=config.weight_decay)
+
+
+def create_train_state(config, model: nn.Module, device, seed: int = 0) -> TrainState:
+    """Move `model` (the query encoder) to `device`, copy it into the key
+    encoder, and draw the queue from a CPU generator seeded with `seed`, so
+    the state is the same on every device."""
+    device = torch.device(device)
+    model_q = model.to(device).train()
+    model_k = copy.deepcopy(model_q)
+    for p in model_k.parameters():
+        p.requires_grad_(False)
+    queue_gen = torch.Generator().manual_seed(seed)
+    queue = init_queue(config.num_negatives, config.embed_dim, queue_gen).to(device)
+    shuffle_gen = torch.Generator(device=device).manual_seed(seed + 2)
+    return TrainState(step=0, model_q=model_q, model_k=model_k,
+                      optimizer=build_optimizer(config, model_q), queue=queue,
+                      queue_ptr=0, generator=shuffle_gen)

@@ -1,0 +1,60 @@
+"""Carry flax ResNet weights into the port's modules.
+
+`params_from_jax(params, batch_stats)` takes the flax `params` and
+`batch_stats` trees as nested mappings of numpy arrays and returns a
+`state_dict` for `models.resnet.ResNet` (the port keeps flax's module names,
+so a path maps to a dotted name):
+
+    conv   kernel [H, W, I, O]  -> weight [O, I, H, W]
+    dense  kernel [in, out]     -> weight [out, in];  bias -> bias
+    BN     scale / bias         -> weight / bias
+    BN     mean / var           -> running_mean / running_var
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaf(name: str, value) -> tuple[str, np.ndarray]:
+    arr = np.asarray(value, dtype=np.float32)
+    if name == "kernel":
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 2:
+            return "weight", arr.T
+        raise ValueError(f"unexpected kernel rank {arr.ndim}")
+    if name == "scale":
+        return "weight", arr
+    if name == "bias":
+        return "bias", arr
+    raise ValueError(f"unexpected parameter leaf {name!r}")
+
+
+def _walk(tree: Mapping, prefix: str, leaf_fn, out: dict) -> None:
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            _walk(value, f"{prefix}{name}.", leaf_fn, out)
+        else:
+            key, arr = leaf_fn(name, value)
+            out[prefix + key] = torch.tensor(np.ascontiguousarray(arr))  # a copy
+
+
+def _stat(name: str, value) -> tuple[str, np.ndarray]:
+    if name not in _STAT_NAMES:
+        raise ValueError(f"unexpected batch_stats leaf {name!r}")
+    return _STAT_NAMES[name], np.asarray(value, dtype=np.float32)
+
+
+def params_from_jax(params: Mapping, batch_stats: Mapping | None = None) -> dict:
+    """flax (params, batch_stats) trees -> the port's state_dict."""
+    out: dict[str, torch.Tensor] = {}
+    _walk(params, "", _leaf, out)
+    if batch_stats:
+        _walk(batch_stats, "", _stat, out)
+    return out

@@ -1,0 +1,199 @@
+"""The port's augmentation against the JAX package's, piece by piece on the
+same sampled parameters (f32), and the port's samplers by their statistics.
+
+The two frameworks draw different random numbers, so each deterministic
+transform gets identical numpy parameters on both sides; the samplers are
+checked against the distributions they must draw from.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moco_tpu.data import augment as jaug
+from moco_tpu.ops import matmul_resize as jresize
+from moco_tpu_torch.data import augment as aug
+from moco_tpu_torch.ops import matmul_resize as resize
+
+# f32 transforms in the same op order; matmul sums in another order: ~1e-6
+TOL = dict(rtol=1e-5, atol=2e-6)
+
+
+def _crop_params(rng, b, h, w):
+    ch = rng.uniform(4, h, b).astype(np.float32)
+    cw = rng.uniform(4, w, b).astype(np.float32)
+    y0 = (rng.uniform(0, 1, b) * (h - ch)).astype(np.float32)
+    x0 = (rng.uniform(0, 1, b) * (w - cw)).astype(np.float32)
+    return y0, x0, ch, cw
+
+
+def test_interp_matrix_matches_jax():
+    rng = np.random.RandomState(0)
+    y0, _, ch, _ = _crop_params(rng, 5, 40, 40)
+    ch[0] = 10.0  # magnification: the triangle's support stays 1 pixel
+    ref = jax.vmap(lambda s, c: jresize.interp_matrix(40, 16, s, c, True))(y0, ch)
+    got = resize.interp_matrix(40, 16, torch.from_numpy(y0), torch.from_numpy(ch))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_crop_resize_with_flips_matches_jax():
+    rng = np.random.RandomState(1)
+    b, h, w, s = 6, 24, 32, 16
+    img = rng.rand(b, h, w, 3).astype(np.float32)
+    y0, x0, ch, cw = _crop_params(rng, b, h, w)
+    flip = np.array([0, 1, 0, 1, 1, 0], bool)
+    ref = jax.vmap(lambda im, a, c, d, e, f: jresize.crop_resize(
+        im, a, c, d, e, s, True, flip_h=f))(img, y0, x0, ch, cw, flip)
+    t = torch.from_numpy
+    got = resize.crop_resize(t(img), t(y0), t(x0), t(ch), t(cw), s, t(flip))
+    assert got.shape == (b, s, s, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    unflipped = resize.crop_resize(t(img), t(y0), t(x0), t(ch), t(cw), s, t(~flip))
+    np.testing.assert_allclose(got.numpy()[1], unflipped.numpy()[1][:, ::-1], **TOL)
+
+
+def _jitter_params(rng, b):
+    factors = rng.uniform(0.6, 1.4, (b, 3)).astype(np.float32)
+    hue = rng.uniform(-0.4, 0.4, b).astype(np.float32)
+    perm = np.stack([rng.permutation(4) for _ in range(b)]).astype(np.int64)
+    return factors, hue, perm
+
+
+@pytest.mark.parametrize("use_hue", [True, False])
+def test_color_jitter_matches_jax_reference_order(use_hue):
+    """The port's batched jitter equals the JAX package's sequential
+    reference (`_apply_jitter_ops`, one `lax.switch` per slot) for every
+    sample's own op order."""
+    rng = np.random.RandomState(2)
+    b = 24
+    img = rng.rand(b, 8, 8, 3).astype(np.float32)
+    factors, hue, perm = _jitter_params(rng, b)
+    ref = jax.vmap(lambda im, f, hs, p: jaug._apply_jitter_ops(
+        im, (f[0], f[1], f[2]), hs, p, use_hue))(img, factors, hue, perm.astype(np.int32))
+    got = aug.color_jitter(torch.from_numpy(img), torch.from_numpy(factors),
+                           torch.from_numpy(hue), torch.from_numpy(perm), use_hue)
+    # the HSV round trip's divisions and floor: ~1e-6 in f32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_hsv_round_trip_matches_jax():
+    rng = np.random.RandomState(3)
+    rgb = rng.rand(4, 6, 6, 3).astype(np.float32)
+    rgb[0, 0, 0] = [0.5, 0.5, 0.5]  # gray: zero saturation, hue 0
+    rgb[0, 0, 1] = [0.0, 0.0, 0.0]
+    hsv_j = np.asarray(jaug._rgb_to_hsv(jnp.asarray(rgb)))
+    hsv_t = aug.rgb_to_hsv(torch.from_numpy(rgb))
+    np.testing.assert_allclose(hsv_t.numpy(), hsv_j, **TOL)
+    np.testing.assert_allclose(aug.hsv_to_rgb(hsv_t).numpy(),
+                               np.asarray(jaug._hsv_to_rgb(jnp.asarray(hsv_j))), **TOL)
+
+
+def test_grayscale_and_normalize_match_jax():
+    rng = np.random.RandomState(4)
+    img = rng.rand(3, 5, 5, 3).astype(np.float32)
+    np.testing.assert_allclose(aug.grayscale(torch.from_numpy(img)).numpy(),
+                               np.asarray(jaug._grayscale(jnp.asarray(img))), **TOL)
+    ref = (img - jaug.IMAGENET_MEAN) * jaug.IMAGENET_INV_STD
+    np.testing.assert_allclose(aug.normalize(torch.from_numpy(img)).numpy(), ref, **TOL)
+
+
+def test_apply_view_composes_the_jax_pieces():
+    """A whole v2 view from fixed draws equals the same pieces composed from
+    the JAX package's functions: crop (with flip), jitter where applied,
+    grayscale where applied, normalize, blur."""
+    from moco_tpu.ops.pallas_blur import gaussian_blur_batch as jblur
+
+    rng = np.random.RandomState(5)
+    b, size, out = 6, 20, 12
+    u8 = rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8)
+    cfg = aug.v2_aug_config(out)
+    y0, x0, ch, cw = _crop_params(rng, b, size, size)
+    factors, hue, perm = _jitter_params(rng, b)
+    flip = np.array([1, 0, 1, 0, 1, 0], bool)
+    jit_on = np.array([1, 1, 0, 1, 0, 1], bool)
+    gray_on = np.array([0, 1, 1, 0, 0, 0], bool)
+    radius = aug.blur_radius(out)
+    taps = aug.blur_weights(b, radius, cfg.blur_sigma, 0.5, torch.Generator().manual_seed(0))
+    t = torch.from_numpy
+    p = aug.ViewParams(t(y0), t(x0), t(ch), t(cw), t(flip), t(factors), t(hue), t(perm),
+                       t(jit_on), t(gray_on), taps)
+    got = aug.apply_view(t(u8), p, cfg).numpy()
+
+    img = jnp.asarray(u8, jnp.float32) / 255.0
+    img = jax.vmap(lambda im, a, c, d, e, f: jresize.crop_resize(
+        im, a, c, d, e, out, True, flip_h=f))(img, y0, x0, ch, cw, flip)
+    jit = jax.vmap(lambda im, f, hs, pp: jaug._apply_jitter_ops_fast(
+        im, (f[0], f[1], f[2]), hs, pp, True))(img, factors, hue, perm.astype(np.int32))
+    img = jnp.where(jit_on[:, None, None, None], jit, img)
+    gray = jnp.broadcast_to(jaug._grayscale(img)[..., None], img.shape)
+    img = jnp.where(gray_on[:, None, None, None], gray, img)
+    img = (img - jaug.IMAGENET_MEAN) * jaug.IMAGENET_INV_STD
+    ref = np.asarray(jblur(img, jnp.asarray(taps.numpy()), radius, interpret=True))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=2e-5)
+
+
+def test_rrc_sampler_statistics():
+    gen = torch.Generator().manual_seed(0)
+    cfg = aug.v2_aug_config(32)
+    n = 4000
+    ext = torch.full((n,), 64.0)
+    y0, x0, ch, cw = aug.rrc_params(ext, ext, cfg, gen)
+    scale = (ch * cw / (64.0 * 64.0)).numpy()
+    ratio = (cw / ch).numpy()
+    assert scale.min() >= cfg.min_scale - 1e-5 and scale.max() <= cfg.max_scale + 1e-5
+    assert ratio.min() >= 3 / 4 - 1e-5 and ratio.max() <= 4 / 3 + 1e-5
+    assert (y0 >= 0).all() and (x0 >= 0).all()
+    assert (y0 + ch <= 64 + 1e-4).all() and (x0 + cw <= 64 + 1e-4).all()
+    # log-ratio is uniform: about half the boxes are wider than tall
+    assert abs((ratio > 1).mean() - 0.5) < 0.05
+    # mean scale of torchvision's rejection rule, simulated in numpy: draws
+    # too wide or too tall for the square are rejected, so it sits below 0.6
+    rng = np.random.RandomState(0)
+    area = rng.uniform(0.2, 1.0, (200000, 10))
+    r = np.exp(rng.uniform(np.log(3 / 4), np.log(4 / 3), area.shape))
+    fits = (np.sqrt(area * r) <= 1) & (np.sqrt(area / r) <= 1)
+    expected = area[np.arange(len(area)), fits.argmax(1)].mean()  # a fit exists
+    assert abs(scale.mean() - expected) < 0.01  # std of the mean ~0.003
+
+
+def test_rrc_sampler_falls_back_to_centered_clamped_aspect():
+    """A 4x64 strip fits no draw with scale >= 0.2 and ratio <= 4/3: every
+    box is torchvision's fallback, full height and width 4/3 of it, centered."""
+    gen = torch.Generator().manual_seed(1)
+    n = 64
+    h, w = torch.full((n,), 4.0), torch.full((n,), 64.0)
+    y0, x0, ch, cw = aug.rrc_params(h, w, aug.v2_aug_config(16), gen)
+    np.testing.assert_allclose(ch.numpy(), 4.0)
+    np.testing.assert_allclose(cw.numpy(), 4.0 * 4 / 3, rtol=1e-6)
+    np.testing.assert_allclose(x0.numpy(), (64 - 16 / 3) / 2, rtol=1e-6)
+    np.testing.assert_allclose(y0.numpy(), 0.0)
+
+
+def test_sample_view_draws_what_the_recipe_says():
+    gen = torch.Generator().manual_seed(2)
+    cfg = aug.v2_aug_config(16)
+    n = 4000
+    ext = torch.full((n,), 32.0)
+    p = aug.sample_view(ext, ext, cfg, gen)
+    # binomial std at n=4000 is <= 0.008; 0.04 is five of them
+    assert abs(p.flip.float().mean().item() - cfg.flip_prob) < 0.04
+    assert abs(p.jitter_apply.float().mean().item() - cfg.jitter_prob) < 0.04
+    assert abs(p.gray_apply.float().mean().item() - cfg.grayscale_prob) < 0.04
+    f = p.jitter_factors.numpy()
+    assert f.min() >= 0.6 and f.max() <= 1.4
+    assert np.abs(p.hue_shift.numpy()).max() <= cfg.hue
+    assert (np.sort(p.jitter_perm.numpy(), axis=1) == np.arange(4)).all()
+    # every one of the 24 orders shows up
+    assert len({tuple(r) for r in p.jitter_perm.tolist()}) == 24
+
+
+def test_two_crops_shapes_and_dtype():
+    gen = torch.Generator().manual_seed(3)
+    u8 = torch.randint(0, 256, (4, 24, 24, 3), dtype=torch.uint8)
+    cfg = aug.v2_aug_config(16)._replace(dtype="bfloat16")
+    q, k = aug.two_crops(u8, cfg, gen)
+    assert q.shape == k.shape == (4, 16, 16, 3)
+    assert q.dtype == torch.bfloat16 and q.is_contiguous()
+    assert torch.isfinite(q.float()).all() and not torch.equal(q, k)

@@ -1,0 +1,74 @@
+"""Rules every slice of the port keeps: it imports neither JAX nor the JAX
+package, and it never runs on the CPU unless asked to."""
+
+import pkgutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import moco_tpu_torch
+from moco_tpu_torch import train
+
+# Runs in a fresh interpreter: block jax and moco_tpu at import, then import
+# every module of the port and check what got loaded.
+_PROBE = textwrap.dedent("""
+    import importlib, pkgutil, sys
+
+    def banned(name):
+        return (name == "jax" or name.startswith(("jax.", "jaxlib", "flax", "optax"))
+                or name == "moco_tpu" or name.startswith("moco_tpu."))
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if banned(name):
+                raise ImportError(f"the port imported {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import moco_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(moco_tpu_torch.__path__, "moco_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    loaded = sorted(m for m in sys.modules if banned(m))
+    assert not loaded, loaded
+    print(len(names))
+""")
+
+
+def test_port_imports_no_jax_and_nothing_of_moco_tpu():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    expected = list(pkgutil.walk_packages(moco_tpu_torch.__path__, "moco_tpu_torch."))
+    assert int(proc.stdout.strip()) == len(expected) >= 15
+
+
+TINY = ["--preset", "imagenet-moco-v2", "--dataset", "synthetic", "--arch", "resnet_tiny",
+        "--image-size", "32", "--batch-size", "8", "--num-negatives", "32",
+        "--embed-dim", "16", "--max-steps", "1"]
+
+
+def test_driver_runs_one_step_on_the_cpu_when_asked(capsys):
+    train.main(TINY + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "step 1 loss" in out and "queue_ptr 8" in out
+
+
+def test_driver_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        train.main(TINY)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from moco_tpu_torch.ops import blur, stats
+
+    meta = torch.zeros(16, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        stats.channel_sums(meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        blur.gaussian_blur_batch(torch.zeros(1, 4, 4, 3, device="meta"),
+                                 torch.zeros(1, 3, device="meta"), 1)
