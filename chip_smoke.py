@@ -5,16 +5,20 @@
 
 Phases; any failure ends the run with a nonzero exit and no result line:
 
-1. build    compile moco_tpu_torch/csrc/*.cu with nvcc for sm_90a;
-2. kernels  each CUDA kernel against its plain PyTorch version on the card,
+1.  build   compile moco_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+2.  kernels each CUDA kernel against its plain PyTorch version on the card,
             at the shapes the ResNet-50 batch-256 step gives it, with its
             time, its bound, the plain version's time and one PyTorch
-            library call's time as a yardstick;
-3. slice    a few steps of the `imagenet-moco-v2` preset (ResNet-50, 224 px,
+            library call's time as a yardstick (for the fused BN->ReLU->conv
+            kernels: the product alone, on an already-normalized operand);
+3.  slice   a few steps of the `imagenet-moco-v2` preset (ResNet-50, 224 px,
             bf16, K=65536, MLP head, T=0.2) at batch 256 on synthetic data
             through `moco_tpu_torch.train`, with the kernels' launch counts;
-4. check    a small f32 ResNet and one BatchNorm on the card against the
-            same on the CPU (where every wrapper takes its plain version).
+3b. fused   the same with `fused_bn_conv=True` (the blocks' interior
+            bn->relu->conv passes through the fused kernels);
+4.  check   a small f32 ResNet and one BatchNorm on the card against the
+            same on the CPU (where every wrapper takes its plain version);
+4b.         the same small ResNet with `fused_bn_conv=True`.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -34,7 +38,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 dense tensor cores
 STEPS = 6
+FUSED_STEPS = 4             # the fused run: one warm-up step and three more
 BATCH = 256
 R50_BN_SHAPES = {           # [N*H*W, C] of three R50 BNs at batch 256, 224 px
     "stem": (256 * 112 * 112, 64),
@@ -42,6 +48,22 @@ R50_BN_SHAPES = {           # [N*H*W, C] of three R50 BNs at batch 256, 224 px
     "layer4": (256 * 7 * 7, 2048),
 }
 SUM_RTOL = 1e-4             # |kernel - plain| <= 1e-4 * sum |term|, per channel
+# The fused kernels at the R50 batch-256 shapes: 1x1 [M, K, N] (conv3, and
+# its dW), stride-1 3x3 [B, H, W, K] with N = K (conv2 mids, and their dW),
+# stride-2 3x3 inputs [B, H, W, K] with N = K (the stage-first conv2s).
+FUSED_1X1_SHAPES = {"layer1": (BATCH * 56 * 56, 64, 256), "layer2": (BATCH * 28 * 28, 128, 512),
+                    "layer3": (BATCH * 14 * 14, 256, 1024), "layer4": (BATCH * 7 * 7, 512, 2048)}
+FUSED_3X3_SHAPES = {"layer1": (BATCH, 56, 56, 64), "layer2": (BATCH, 28, 28, 128),
+                    "layer3": (BATCH, 14, 14, 256), "layer4": (BATCH, 7, 7, 512)}
+FUSED_S2_SHAPES = {"layer2": (BATCH, 56, 56, 128), "layer3": (BATCH, 28, 28, 256),
+                   "layer4": (BATCH, 14, 14, 512)}
+FUSED_RTOL = 1e-5           # f32 reassociation, relative to sum |z||w| per output
+# launches per imagenet-moco-v2 step: the BN pair and the blur, and the fused family
+# with fused_bn_conv=True (16 Bottlenecks, 3 stride-2; q and k forwards, q
+# backward)
+PER_STEP = {"channel_sums": 106, "channel_grad_sums": 53, "gaussian_blur_batch": 2}
+FUSED_PER_STEP = {"bn_relu_matmul": 32, "bn_relu_matmul_dw": 16, "bn_relu_conv3x3": 26,
+                  "bn_relu_conv3x3_s2": 6, "conv3x3_dw": 13}
 
 
 def fail(msg: str, code: int = 2) -> None:
@@ -66,9 +88,12 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """Least time in ms for the bytes at the HBM rate and the operations at
+    `ops_per_s` (f32 outside the tensor cores unless given), and which of
+    the two it is."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -177,15 +202,136 @@ def check_blur_kernel(blur) -> dict:
     return r
 
 
-def run_slice(counters: dict) -> dict:
-    """STEPS steps of imagenet-moco-v2 at batch 256 through the driver."""
+def _check_fused(name: str, shape_name: str, got, ref, scale, bf16_out: bool) -> float:
+    """|kernel - plain| <= 1e-5 * sum |z||w| per output (f32 reassociation),
+    plus one bf16 ulp of the f32 reference where the kernel rounds its
+    output to bf16; returns the largest absolute difference."""
+    import torch
+
+    tol = FUSED_RTOL * scale
+    if bf16_out:
+        tol = tol + torch.exp2(torch.floor(torch.log2(ref.abs())) - 7)
+    diff = (got.float() - ref).abs()
+    bad = diff > tol
+    if bool(bad.any()):
+        fail(f"{name}[{shape_name}] disagrees: {int(bad.sum())} values beyond the tolerance "
+             f"(max abs {float(diff.max()):.3e})", 1)
+    return float(diff.max())
+
+
+def check_fused_kernels(fc, fc3) -> dict:
+    """The five fused BN->ReLU->conv kernels at the R50 shapes (bf16), each
+    against its plain version computed in f32 from the same bf16 z. The
+    bound counts each input read once and each output written once against
+    the bf16 tensor-core peak; the library call is the product alone, on an
+    already-normalized z ("product only": it leaves out the normalize the
+    kernel fuses)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    report = {k: {} for k in FUSED_PER_STEP}
+
+    def record(name, shape_name, shape, err, ms, plain_ms, lib_ms, nbytes, ops):
+        b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        r = dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        report[name][shape_name] = r
+        print(f"kernel {name} {shape_name} {list(shape)} bf16: {ms:.4f} ms (bound {b_ms:.4f} ms "
+              f"by {b_by}, plain {plain_ms:.4f} ms, library (product only) {lib_ms:.4f} ms, "
+              f"max abs err {err:.3e})", flush=True)
+
+    def affine(k):
+        return (torch.rand(k, generator=gen, device="cuda") + 0.5,
+                torch.randn(k, generator=gen, device="cuda") * 0.5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    for shape_name, (m, k, n) in FUSED_1X1_SHAPES.items():
+        x, w, dy = randn(m, k, scale=1.5), randn(k, n, scale=0.05), randn(m, n)
+        a, b = affine(k)
+        z = fc.normalize_relu(x, a, b, torch.bfloat16)
+        err = _check_fused("bn_relu_matmul", shape_name, fc.bn_relu_matmul(x, a, b, w),
+                           fc.bn_relu_matmul_plain(x, a, b, w, torch.float32),
+                           fc.bn_relu_matmul_plain(x, a, b, w.abs(), torch.float32), True)
+        record("bn_relu_matmul", shape_name, (m, k, n), err,
+               time_ms(lambda: fc.bn_relu_matmul(x, a, b, w), 10),
+               time_ms(lambda: fc.bn_relu_matmul_plain(x, a, b, w), 3),
+               time_ms(lambda: torch.matmul(z, w), 10),
+               2 * (m * k + k * n + m * n) + 8 * k, 2 * m * k * n)
+        err = _check_fused("bn_relu_matmul_dw", shape_name, fc.bn_relu_matmul_dw(x, a, b, dy),
+                           fc.bn_relu_matmul_dw_plain(x, a, b, dy),
+                           fc.bn_relu_matmul_dw_plain(x, a, b, dy.abs()), False)
+        record("bn_relu_matmul_dw", shape_name, (m, k, n), err,
+               time_ms(lambda: fc.bn_relu_matmul_dw(x, a, b, dy), 10),
+               time_ms(lambda: fc.bn_relu_matmul_dw_plain(x, a, b, dy), 3),
+               time_ms(lambda: torch.matmul(z.t(), dy), 10),
+               2 * (m * k + m * n) + 8 * k + 4 * k * n, 2 * m * k * n)
+        del x, w, dy, z
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    for shape_name, (bsz, h, wd, k) in FUSED_3X3_SHAPES.items():
+        n, m = k, bsz * h * wd
+        x, w, dy = randn(bsz, h, wd, k, scale=1.5), randn(3, 3, k, n, scale=0.05), \
+            randn(bsz, h, wd, n)
+        a, b = affine(k)
+        z = nchw(fc.normalize_relu(x, a, b, torch.bfloat16))
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        err = _check_fused("bn_relu_conv3x3", shape_name, fc3.bn_relu_conv3x3(x, a, b, w),
+                           fc3.bn_relu_conv3x3_plain(x, a, b, w, torch.float32),
+                           fc3.bn_relu_conv3x3_plain(x, a, b, w.abs(), torch.float32), True)
+        record("bn_relu_conv3x3", shape_name, (bsz, h, wd, k, n), err,
+               time_ms(lambda: fc3.bn_relu_conv3x3(x, a, b, w), 10),
+               time_ms(lambda: fc3.bn_relu_conv3x3_plain(x, a, b, w), 3),
+               time_ms(lambda: F.conv2d(z, w_oihw, padding=1), 10),
+               2 * (m * k + 9 * k * n + m * n) + 8 * k, 2 * m * 9 * k * n)
+        err = _check_fused("conv3x3_dw", shape_name, fc3.conv3x3_dw(x, a, b, dy),
+                           fc3.conv3x3_dw_plain(x, a, b, dy),
+                           fc3.conv3x3_dw_plain(x, a, b, dy.abs()), False)
+        record("conv3x3_dw", shape_name, (bsz, h, wd, k, n), err,
+               time_ms(lambda: fc3.conv3x3_dw(x, a, b, dy), 10),
+               time_ms(lambda: fc3.conv3x3_dw_plain(x, a, b, dy), 3),
+               time_ms(lambda: torch.nn.grad.conv2d_weight(z, (n, k, 3, 3), nchw(dy),
+                                                           padding=1), 10),
+               2 * (m * k + m * n) + 8 * k + 4 * 9 * k * n, 2 * m * 9 * k * n)
+        del x, w, dy, z, w_oihw
+
+    for shape_name, (bsz, h, wd, k) in FUSED_S2_SHAPES.items():
+        n, m_out = k, bsz * (h // 2) * (wd // 2)
+        x, w = randn(bsz, h, wd, k, scale=1.5), randn(3, 3, k, n, scale=0.05)
+        a, b = affine(k)
+        z = nchw(fc.normalize_relu(x, a, b, torch.bfloat16))
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        err = _check_fused("bn_relu_conv3x3_s2", shape_name, fc3.bn_relu_conv3x3_s2(x, a, b, w),
+                           fc3.bn_relu_conv3x3_s2_plain(x, a, b, w, torch.float32),
+                           fc3.bn_relu_conv3x3_s2_plain(x, a, b, w.abs(), torch.float32), True)
+        record("bn_relu_conv3x3_s2", shape_name, (bsz, h, wd, k, n), err,
+               time_ms(lambda: fc3.bn_relu_conv3x3_s2(x, a, b, w), 10),
+               time_ms(lambda: fc3.bn_relu_conv3x3_s2_plain(x, a, b, w), 3),
+               time_ms(lambda: F.conv2d(z, w_oihw, stride=2, padding=1), 10),
+               2 * (bsz * h * wd * k + 9 * k * n + m_out * n) + 8 * k, 2 * m_out * 9 * k * n)
+        del x, w, z, w_oihw
+    torch.cuda.empty_cache()
+    return report
+
+
+def run_slice(counters: dict, fused: bool = False) -> dict:
+    """Steps of imagenet-moco-v2 at batch 256 through `train.train`: STEPS of
+    the preset as it is, or FUSED_STEPS with `fused_bn_conv=True`. Every
+    kernel's launches must match its count per step (the fused family's are
+    0 when the preset is left as it is)."""
     import torch
 
     from moco_tpu_torch import train
     from moco_tpu_torch.config import get_preset
     from moco_tpu_torch.data.datasets import SyntheticDataset
 
-    config = get_preset("imagenet-moco-v2").replace(dataset="synthetic", batch_size=BATCH)
+    label, steps = ("fused", FUSED_STEPS) if fused else ("slice", STEPS)
+    config = get_preset("imagenet-moco-v2").replace(dataset="synthetic", batch_size=BATCH,
+                                                    fused_bn_conv=fused)
     dataset = SyntheticDataset(num_samples=2 * BATCH, image_size=config.image_size)
     rows = []
 
@@ -193,44 +339,46 @@ def run_slice(counters: dict) -> dict:
         launches = {name: fn.launches for name, fn in counters.items()}
         mem = torch.cuda.max_memory_allocated() / 2**30
         rows.append(dict(step=step, seconds=seconds, launches=launches, **metrics))
-        print(f"slice step {step}: loss {metrics['loss']:.6f} acc1 {metrics['acc1']:.3f} "
+        print(f"{label} step {step}: loss {metrics['loss']:.6f} acc1 {metrics['acc1']:.3f} "
               f"lr {metrics['lr']:.6g} queue_ptr {int(metrics['queue_ptr'])} step_s "
               f"{seconds:.4f} imgs_s {BATCH / seconds:.1f} max_mem_gib {mem:.2f} "
               f"launches {launches}", flush=True)
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    state, history = train.train(config, max_steps=STEPS, device="cuda", dataset=dataset,
+    state, history = train.train(config, max_steps=steps, device="cuda", dataset=dataset,
                                  on_step=on_step)
     launches = {name: fn.launches for name, fn in counters.items()}
 
-    expected = {"channel_sums": 106, "channel_grad_sums": 53, "gaussian_blur_batch": 2}
+    expected = {**PER_STEP, **{name: per_step if fused else 0
+                               for name, per_step in FUSED_PER_STEP.items()}}
     for name, per_step in expected.items():
-        if launches[name] != per_step * STEPS:
-            fail(f"{name} launched {launches[name]} times in {STEPS} steps, expected "
-                 f"{per_step * STEPS}", 1)
+        if launches[name] != per_step * steps:
+            fail(f"{label}: {name} launched {launches[name]} times in {steps} steps, "
+                 f"expected {per_step * steps}", 1)
     losses = [h["loss"] for h in history]
-    if len(losses) != STEPS or not all(math.isfinite(v) for v in losses):
-        fail(f"non-finite or missing losses: {losses}", 1)
-    if state.queue_ptr != STEPS * BATCH % config.num_negatives:
-        fail(f"queue pointer {state.queue_ptr} after {STEPS} steps", 1)
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: non-finite or missing losses: {losses}", 1)
+    if state.queue_ptr != steps * BATCH % config.num_negatives:
+        fail(f"{label}: queue pointer {state.queue_ptr} after {steps} steps", 1)
     norms = state.queue.norm(dim=1)
     if not bool(torch.isfinite(state.queue).all()) or float((norms - 1).abs().max()) > 1e-5:
-        fail("queue rows are not finite unit vectors", 1)
-    profile_step(config, state, dataset)
+        fail(f"{label}: queue rows are not finite unit vectors", 1)
+    profile_step(config, state, dataset, label)
     steady = [r["seconds"] for r in rows[1:]]
     summary = dict(launches=launches, losses=losses,
                    steady_step_s=sum(steady) / len(steady),
                    max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
     summary["imgs_per_s"] = BATCH / summary["steady_step_s"]
-    print(f"slice: {STEPS} steps, steady step {summary['steady_step_s']:.4f} s "
+    print(f"{label}: {steps} steps, steady step {summary['steady_step_s']:.4f} s "
           f"({summary['imgs_per_s']:.1f} imgs/s), peak memory "
           f"{summary['max_memory_gib']:.2f} GiB, launches {launches}", flush=True)
     return summary
 
 
-def profile_step(config, state, dataset) -> None:
+def profile_step(config, state, dataset, label: str) -> None:
     """One more step under torch.profiler: device time by kernel, and the
     device's busy time against the step's wall time."""
     import torch
@@ -253,11 +401,13 @@ def profile_step(config, state, dataset) -> None:
     kernel_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in kernel_events) / 1e3
     if busy_ms == 0:
-        print("profile: the profiler recorded no device time (not measured)", flush=True)
+        print(f"profile {label}: the profiler recorded no device time (not measured)",
+              flush=True)
         return
-    print(f"profile: one step, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+    print(f"profile {label}: one step, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {len(kernel_events)} kernel names", flush=True)
-    categories = {"port kernels": ("sums_partial", "sum_partials", "blur_tile"),
+    categories = {"port kernels": ("sums_partial", "sum_partials", "blur_tile",
+                                   "bn_relu_conv_gemm", "conv_dw_partial", "sum_slabs"),
                   "convolution": ("conv", "xmma_fprop", "xmma_dgrad", "xmma_wgrad", "cudnn",
                                   "implicit_gemm", "fprop", "dgrad", "wgrad"),
                   "matmul": ("gemm", "cublas", "cutlass"),
@@ -269,20 +419,23 @@ def profile_step(config, state, dataset) -> None:
         cat = next((c for c, keys in categories.items() if any(k in name for k in keys)),
                    "other")
         totals[cat] += e.device_time_total / 1e3
-    print("profile by category (ms): " + ", ".join(
+    print(f"profile {label} by category (ms): " + ", ".join(
         f"{c} {t:.2f} ({100 * t / busy_ms:.1f}%)" for c, t in totals.items()), flush=True)
     top = sorted(kernel_events, key=lambda e: e.device_time_total, reverse=True)[:15]
     for e in top:
-        print(f"profile kernel {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+        print(f"profile {label} kernel {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x "
               f"{e.key[:110]}", flush=True)
 
 
-def check_against_cpu() -> None:
+def check_against_cpu(fused: bool = False, counters: dict | None = None) -> None:
     """A 4-stage Bottleneck ResNet (width 16, MLP head) in f32 at 32 px,
     batch 16, on the card (kernels) and on the CPU (plain versions) from the
     same weights and inputs: the train-mode forward, the running statistics,
-    and one train step's loss and enqueued keys; then one FastBatchNorm's
-    forward and gradients at a ResNet-50 shape.
+    and one train step's loss and enqueued keys; then, unfused, one
+    FastBatchNorm's forward and gradients at a ResNet-50 shape. With
+    `fused=True` the model has `fused_bn_conv=True`, so the card side runs
+    the fused kernels (layer 1 at stride 1, layers 2-4 at stride 2), each of
+    which must launch.
 
     The model's parameter gradients are not compared: a ReLU input within
     f32 rounding of zero can take the other sign on the other device (one
@@ -300,7 +453,8 @@ def check_against_cpu() -> None:
     from moco_tpu_torch.train_step import build_train_step
 
     config = get_preset("imagenet-moco-v2").replace(
-        compute_dtype="float32", image_size=32, batch_size=16, num_negatives=64)
+        compute_dtype="float32", image_size=32, batch_size=16, num_negatives=64,
+        fused_bn_conv=fused)
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(16, 32, 32, 3).astype(np.float32))
     im_q, im_k = (torch.from_numpy(a) for a in rng.randn(2, 16, 32, 32, 3).astype(np.float32))
@@ -310,10 +464,12 @@ def check_against_cpu() -> None:
 
     def model():
         return resnet.ResNet((1, 1, 1, 1), resnet.Bottleneck, width=16, num_classes=128,
-                             mlp_head=True, generator=torch.Generator().manual_seed(0))
+                             mlp_head=True, generator=torch.Generator().manual_seed(0),
+                             fused_bn_conv=fused)
 
     res = {}
     for dev in ("cpu", "cuda"):
+        before = {name: fn.launches for name, fn in (counters or {}).items()}
         m = model().to(dev).train()
         with torch.no_grad():
             tensors = {"out": m(x.to(dev))}
@@ -322,24 +478,30 @@ def check_against_cpu() -> None:
         metrics = build_train_step(config, steps_per_epoch=8)(state, im_q.to(dev), im_k.to(dev))
         tensors["step_loss"] = metrics["loss"].reshape(1)
         tensors["enqueued_keys"] = state.queue[:16]
-        bn = FastBatchNorm(64).to(dev)
-        xd = bn_x.to(dev, copy=True).requires_grad_()
-        y = bn(xd)
-        (y * bn_ct.to(dev)).sum().backward()
-        tensors.update({"bn:y": y.detach(), "bn:dx": xd.grad, "bn:dweight": bn.weight.grad,
-                        "bn:dbias": bn.bias.grad, "bn:running_var": bn.running_var})
+        if not fused:
+            bn = FastBatchNorm(64).to(dev)
+            xd = bn_x.to(dev, copy=True).requires_grad_()
+            y = bn(xd)
+            (y * bn_ct.to(dev)).sum().backward()
+            tensors.update({"bn:y": y.detach(), "bn:dx": xd.grad, "bn:dweight": bn.weight.grad,
+                            "bn:dbias": bn.bias.grad, "bn:running_var": bn.running_var})
         res[dev] = {k: v.detach().cpu() for k, v in tensors.items()}
+        idle = [name for name, n in before.items() if counters[name].launches == n]
+        if dev == "cuda" and idle:
+            fail(f"check: the card side never launched {idle}", 1)
     worst = (0.0, "")
     for key, ref in res["cpu"].items():
         # f32 sums in another order: ~1e-6 of each tensor's largest entry
         err = float((res["cuda"][key] - ref).abs().max() / ref.abs().max().clamp(min=1e-12))
         if err > 1e-4:
-            fail(f"card and CPU disagree on {key}: {err:.3e} of its largest entry", 1)
+            fail(f"card and CPU disagree on {key}{' (fused)' if fused else ''}: {err:.3e} of "
+                 f"its largest entry", 1)
         worst = max(worst, (err, key))
-    print(f"check: Bottleneck ResNet f32 32px batch 16 and a [32, 64, 28, 28] BN, card vs "
-          f"cpu over {len(res['cpu'])} tensors, worst {worst[0]:.3e} ({worst[1]}); step "
-          f"loss {float(res['cuda']['step_loss'][0]):.6f} vs "
-          f"{float(res['cpu']['step_loss'][0]):.6f}", flush=True)
+    what = ("fused_bn_conv Bottleneck ResNet f32 32px batch 16" if fused else
+            "Bottleneck ResNet f32 32px batch 16 and a [32, 64, 28, 28] BN")
+    print(f"check: {what}, card vs cpu over {len(res['cpu'])} tensors, worst "
+          f"{worst[0]:.3e} ({worst[1]}); step loss {float(res['cuda']['step_loss'][0]):.6f} "
+          f"vs {float(res['cpu']['step_loss'][0]):.6f}", flush=True)
 
 
 def main() -> None:
@@ -360,7 +522,7 @@ def main() -> None:
           f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}", flush=True)
 
-    from moco_tpu_torch.ops import _build, blur, stats
+    from moco_tpu_torch.ops import _build, blur, fused_conv, fused_conv3x3, stats
 
     t0 = time.perf_counter()
     path, log = _build.build()
@@ -368,33 +530,50 @@ def main() -> None:
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s\n{log}", flush=True)
 
     report = check_stats_kernels(stats)
-    blur_report = check_blur_kernel(blur)
+    report["gaussian_blur_batch"] = {"224px": check_blur_kernel(blur)}
+    report.update(check_fused_kernels(fused_conv, fused_conv3x3))
     counters = {"channel_sums": stats.channel_sums,
                 "channel_grad_sums": stats.channel_grad_sums,
-                "gaussian_blur_batch": blur.gaussian_blur_batch}
+                "gaussian_blur_batch": blur.gaussian_blur_batch,
+                "bn_relu_matmul": fused_conv.bn_relu_matmul,
+                "bn_relu_matmul_dw": fused_conv.bn_relu_matmul_dw,
+                "bn_relu_conv3x3": fused_conv3x3.bn_relu_conv3x3,
+                "bn_relu_conv3x3_s2": fused_conv3x3.bn_relu_conv3x3_s2,
+                "conv3x3_dw": fused_conv3x3.conv3x3_dw}
     summary = run_slice(counters)
+    fused_summary = run_slice(counters, fused=True)
+    print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
+          f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "
+          f"{fused_summary['max_memory_gib']:.2f} GiB", flush=True)
     check_against_cpu()
+    check_against_cpu(fused=True, counters={k: counters[k] for k in FUSED_PER_STEP})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)  # the card's name and power limit, as nvidia-smi prints them
-    sources = {"channel_sums": ("moco_tpu_torch/csrc/channel_stats.cu",
-                                "moco_tpu/ops/pallas_stats.py:121"),
-               "channel_grad_sums": ("moco_tpu_torch/csrc/channel_stats.cu",
-                                     "moco_tpu/ops/pallas_stats.py:155"),
-               "gaussian_blur_batch": ("moco_tpu_torch/csrc/blur.cu",
-                                       "moco_tpu/ops/pallas_blur.py:77")}
-    per_kernel = {"channel_sums": report["channel_sums"]["stem"],
-                  "channel_grad_sums": report["channel_grad_sums"]["stem"],
-                  "gaussian_blur_batch": blur_report}
+    # name: (source, TPU kernel it replaces, shape reported in the line)
+    sources = {
+        "channel_sums": ("channel_stats.cu", "moco_tpu/ops/pallas_stats.py:121", "stem"),
+        "channel_grad_sums": ("channel_stats.cu", "moco_tpu/ops/pallas_stats.py:155", "stem"),
+        "gaussian_blur_batch": ("blur.cu", "moco_tpu/ops/pallas_blur.py:77", "224px"),
+        "bn_relu_matmul": ("fused_conv.cu", "moco_tpu/ops/pallas_fused_conv.py:137", "layer1"),
+        "bn_relu_matmul_dw": ("fused_conv_dw.cu", "moco_tpu/ops/pallas_fused_conv.py:101",
+                              "layer1"),
+        "bn_relu_conv3x3": ("fused_conv.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:237",
+                            "layer1"),
+        "bn_relu_conv3x3_s2": ("fused_conv.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:351",
+                               "layer2"),
+        "conv3x3_dw": ("fused_conv_dw.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:412",
+                       "layer1"),
+    }
     kernels = []
-    for name, (source, replaces) in sources.items():
-        r = per_kernel[name]
-        errs = ([v["max_abs_err"] for v in report[name].values()] if name in report
-                else [r["max_abs_err"]])
-        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=summary["launches"][name], max_abs_err=max(errs),
+    for name, (source, replaces, shape_name) in sources.items():
+        r = report[name][shape_name]
+        run = fused_summary if name in FUSED_PER_STEP else summary
+        kernels.append(dict(name=name, route="cuda", source=f"moco_tpu_torch/csrc/{source}",
+                            replaces=replaces, launches=run["launches"][name],
+                            max_abs_err=max(v["max_abs_err"] for v in report[name].values()),
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
                             shape=r["shape"]))

@@ -31,6 +31,7 @@ class PretrainConfig:
     mlp_head: bool = False            # --mlp
     cifar_stem: bool = False
     compute_dtype: str = "float32"    # "bfloat16" for the ImageNet presets
+    fused_bn_conv: bool = False       # blocks' bn->relu->conv through the fused kernels
     # data
     dataset: str = "synthetic"
     image_size: int = 224

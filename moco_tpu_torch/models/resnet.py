@@ -16,6 +16,11 @@ Same structure and parameter names as the flax modules, so
   with no pool.
 - Initialization follows flax: convs and dense kernels lecun-normal
   (truncated), dense biases 0, BN scale 1 and bias 0.
+- `fused_bn_conv=True` runs the blocks' interior bn->relu->conv passes
+  through the fused kernels (`models/fused_block.py`) with the same
+  parameters. Unlike the JAX package, which fuses on the TPU only, the path
+  is taken wherever it is configured: on the CPU the kernels' wrappers take
+  their plain versions.
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from moco_tpu_torch.models.fast_bn import FastBatchNorm
+from moco_tpu_torch.models.fused_block import (
+    fused_bn_relu_conv2,
+    fused_bn_relu_conv2_s2,
+    fused_bn_relu_conv3,
+)
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
@@ -57,12 +67,14 @@ class Conv(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    """2x 3x3 residual block (ResNet-18/34)."""
+    """2x 3x3 residual block (ResNet-18/34). `fused_tail=True` runs
+    bn1 -> relu -> conv2 (always stride 1) as one fused pass."""
 
     expansion = 1
 
-    def __init__(self, cin: int, filters: int, stride: int, dtype):
+    def __init__(self, cin: int, filters: int, stride: int, dtype, fused_tail: bool = False):
         super().__init__()
+        self.fused_tail = fused_tail
         self.conv1 = Conv(cin, filters, 3, stride, 1, dtype)
         self.bn1 = FastBatchNorm(filters)
         self.conv2 = Conv(filters, filters, 3, 1, 1, dtype)
@@ -73,19 +85,26 @@ class BasicBlock(nn.Module):
             self.downsample_bn = FastBatchNorm(filters)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        y = self.conv1(x)
+        if self.fused_tail:
+            y = fused_bn_relu_conv2(self, y)
+        else:
+            y = self.conv2(F.relu(self.bn1(y)))
+        y = self.bn2(y)
         res = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
         return F.relu(res + y)
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3(stride) -> 1x1(x4) residual block (ResNet-50/101/152, v1.5)."""
+    """1x1 -> 3x3(stride) -> 1x1(x4) residual block (ResNet-50/101/152, v1.5).
+    `fused_tail=True` runs both interior passes fused: bn1 -> relu -> conv2
+    (stride 1 or 2) and bn2 -> relu -> conv3."""
 
     expansion = 4
 
-    def __init__(self, cin: int, filters: int, stride: int, dtype):
+    def __init__(self, cin: int, filters: int, stride: int, dtype, fused_tail: bool = False):
         super().__init__()
+        self.fused_tail = fused_tail
         out = filters * self.expansion
         self.conv1 = Conv(cin, filters, 1, 1, 0, dtype)
         self.bn1 = FastBatchNorm(filters)
@@ -99,9 +118,14 @@ class Bottleneck(nn.Module):
             self.downsample_bn = FastBatchNorm(out)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = self.conv1(x)
+        if self.fused_tail:
+            mid = fused_bn_relu_conv2 if self.conv2.stride == 1 else fused_bn_relu_conv2_s2
+            y = fused_bn_relu_conv3(self, mid(self, y))
+        else:
+            y = self.conv2(F.relu(self.bn1(y)))
+            y = self.conv3(F.relu(self.bn2(y)))
+        y = self.bn3(y)
         res = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
         return F.relu(res + y)
 
@@ -109,12 +133,13 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """ResNet encoder of RGB images ending in a `num_classes`-dim `fc` head
     (the MoCo embedding), or the v2 MLP head `fc_hidden -> ReLU -> fc` with
-    `mlp_head=True`."""
+    `mlp_head=True`. `fused_bn_conv=True` fuses the blocks' interior
+    bn -> relu -> conv passes (`fused_tail`)."""
 
     def __init__(self, stage_sizes, block_cls, num_classes: int = 128,
                  mlp_head: bool = False, cifar_stem: bool = False, width: int = 64,
                  dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, fused_bn_conv: bool = False):
         super().__init__()
         self.dtype = dtype
         self.cifar_stem = cifar_stem
@@ -129,7 +154,7 @@ class ResNet(nn.Module):
             for j in range(num_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 name = f"layer{i + 1}_{j}"
-                block = block_cls(cin, width * 2**i, stride, dtype)
+                block = block_cls(cin, width * 2**i, stride, dtype, fused_tail=fused_bn_conv)
                 self.add_module(name, block)
                 self.block_names.append(name)
                 cin = width * 2**i * block_cls.expansion

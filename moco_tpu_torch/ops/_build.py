@@ -23,7 +23,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("channel_stats.cu", "blur.cu")
+SOURCES = ("channel_stats.cu", "blur.cu", "fused_conv.cu", "fused_conv_dw.cu")
+HEADERS = ("implicit_gemm.cuh",)  # included by the sources; hashed with them
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +38,11 @@ SIGNATURES = {
     "moco_channel_grad_sums": (_P, _P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
     "moco_gaussian_blur": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "moco_blur_max_radius": (),
+    "moco_bn_relu_matmul": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
+    "moco_bn_relu_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "moco_bn_relu_conv3x3_s2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "moco_bn_relu_matmul_dw": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
+    "moco_conv3x3_dw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "moco_error_string": (_I,),
 }
 RESTYPES = {"moco_error_string": ctypes.c_char_p}
@@ -62,7 +68,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update(name.encode())
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libmoco_kernels_{digest.hexdigest()[:16]}.so"

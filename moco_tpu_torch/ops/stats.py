@@ -33,7 +33,7 @@ def channel_grad_sums_plain(dy, x, mean, rstd) -> tuple[torch.Tensor, torch.Tens
     return dyf.sum(0), (dyf * xh).sum(0)
 
 
-def _check_rows(t: torch.Tensor, name: str) -> None:
+def check_rows(t: torch.Tensor, name: str) -> None:
     if t.dim() != 2 or t.shape[0] == 0 or t.shape[1] == 0:
         raise ValueError(f"{name} must be a non-empty [M, C] matrix, got {tuple(t.shape)}")
     if t.dtype not in DTYPE_CODES:
@@ -42,7 +42,7 @@ def _check_rows(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be contiguous (row-major [M, C])")
 
 
-def _check_vec(t: torch.Tensor, c: int, device, name: str) -> None:
+def check_vec(t: torch.Tensor, c: int, device, name: str) -> None:
     if t.shape != (c,) or t.dtype != torch.float32 or t.device != device:
         raise ValueError(f"{name} must be float32 [{c}] on {device}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
@@ -50,7 +50,7 @@ def _check_vec(t: torch.Tensor, c: int, device, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _device_kind(t: torch.Tensor) -> str:
+def device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
@@ -65,8 +65,8 @@ def num_slabs(m: int, c: int) -> int:
 
 def channel_sums(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum x, sum x^2) over the rows of `x` [M, C]; f32 [C] each."""
-    _check_rows(x, "x")
-    if _device_kind(x) == "cpu":
+    check_rows(x, "x")
+    if device_kind(x) == "cpu":
         return channel_sums_plain(x)
     m, c = x.shape
     slabs = num_slabs(m, c)
@@ -91,15 +91,15 @@ def channel_grad_sums(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum dy, sum dy*xhat) over the rows, xhat = (x - mean) * rstd
     recomputed in registers (never stored); f32 [C] each."""
-    _check_rows(dy, "dy")
-    _check_rows(x, "x")
+    check_rows(dy, "dy")
+    check_rows(x, "x")
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy and x must match: {dy.dtype} {tuple(dy.shape)} on "
                          f"{dy.device} vs {x.dtype} {tuple(x.shape)} on {x.device}")
     c = x.shape[1]
-    _check_vec(mean, c, x.device, "mean")
-    _check_vec(rstd, c, x.device, "rstd")
-    if _device_kind(x) == "cpu":
+    check_vec(mean, c, x.device, "mean")
+    check_vec(rstd, c, x.device, "rstd")
+    if device_kind(x) == "cpu":
         return channel_grad_sums_plain(dy, x, mean, rstd)
     m = x.shape[0]
     slabs = num_slabs(m, c)

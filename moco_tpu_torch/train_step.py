@@ -43,7 +43,7 @@ def build_encoder(config, generator: torch.Generator | None = None):
     return build_resnet(
         config.arch, num_classes=config.embed_dim, mlp_head=config.mlp_head,
         cifar_stem=config.cifar_stem, dtype=DTYPES[config.compute_dtype],
-        generator=generator,
+        generator=generator, fused_bn_conv=config.fused_bn_conv,
     )
 
 

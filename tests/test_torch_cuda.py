@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from moco_tpu_torch.models.fast_bn import FastBatchNorm
-from moco_tpu_torch.ops import blur, stats
+from moco_tpu_torch.ops import blur, fused_conv, fused_conv3x3, stats
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +110,137 @@ def test_fast_bn_on_card_matches_cpu(cuda):
                                                  bn.running_mean, bn.running_var)])
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
+
+
+# The fused BN->ReLU->conv kernels. Each is held against its plain version
+# computed in f32 from the same operand-dtype z (out_dtype float32, not
+# rounded): f32 sums of the same products in another order stay within
+# 1e-5 of sum |z||w|, and a bf16 output adds one rounding, at most one bf16
+# ulp (2^-7 of |ref|).
+FUSED_1X1 = [(96, 24, 40), (1000, 64, 256), (300, 128, 72), (4097, 16, 8)]
+FUSED_3X3 = [(2, 7, 7, 8, 8), (2, 8, 8, 16, 24), (3, 14, 14, 64, 64), (1, 5, 6, 24, 40)]
+FUSED_S2 = [(2, 8, 8, 16, 24), (2, 14, 14, 64, 32), (1, 4, 6, 24, 40)]
+
+
+def _assert_fused_close(got, ref, scale, dtype):
+    tol = 1e-5 * scale + 1e-6
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.abs()
+    assert got.shape == ref.shape
+    bad = (got.float() - ref).abs() > tol
+    assert not bool(bad.any()), (int(bad.sum()), float((got.float() - ref).abs().max()))
+
+
+def _fused_inputs(cuda, seed, xshape, k, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(xshape, generator=gen, device=cuda) * 1.5 + 0.2).to(dtype)
+    a = torch.rand(k, generator=gen, device=cuda) + 0.5
+    b = torch.randn(k, generator=gen, device=cuda) * 0.5
+    return gen, x, a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", FUSED_1X1)
+def test_bn_relu_matmul_kernel(cuda, m, k, n, dtype):
+    gen, x, a, b = _fused_inputs(cuda, m + n, (m, k), k, dtype)
+    w = (torch.randn((k, n), generator=gen, device=cuda) * 0.1).to(dtype)
+    got = fused_conv.bn_relu_matmul(x, a, b, w, out_dtype=dtype)
+    ref = fused_conv.bn_relu_matmul_plain(x, a, b, w, torch.float32)
+    scale = fused_conv.bn_relu_matmul_plain(x, a, b, w.abs(), torch.float32)
+    _assert_fused_close(got, ref, scale, dtype)
+
+
+def test_bn_relu_matmul_unaligned_rows_take_narrow_loads(cuda):
+    """A view that starts 2 bytes into its storage cannot use 16-byte loads."""
+    _gen, base, a, b = _fused_inputs(cuda, 5, (1 + 513 * 64,), 64, torch.bfloat16)
+    x = base[1:].view(513, 64)
+    assert x.data_ptr() % 16 != 0
+    w = torch.randn((64, 32), device=cuda).bfloat16()
+    got = fused_conv.bn_relu_matmul(x, a, b, w, out_dtype=torch.float32)
+    ref = fused_conv.bn_relu_matmul_plain(x, a, b, w, torch.float32)
+    scale = fused_conv.bn_relu_matmul_plain(x, a, b, w.abs(), torch.float32)
+    _assert_fused_close(got, ref, scale, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", FUSED_1X1)
+def test_bn_relu_matmul_dw_kernel(cuda, m, k, n, dtype):
+    gen, x, a, b = _fused_inputs(cuda, m * n, (m, k), k, dtype)
+    dy = torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+    got = fused_conv.bn_relu_matmul_dw(x, a, b, dy)
+    _assert_fused_close(got, fused_conv.bn_relu_matmul_dw_plain(x, a, b, dy),
+                        fused_conv.bn_relu_matmul_dw_plain(x, a, b, dy.abs()), torch.float32)
+    assert torch.equal(got, fused_conv.bn_relu_matmul_dw(x, a, b, dy))  # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,h,wd,k,n", FUSED_3X3)
+def test_bn_relu_conv3x3_kernel(cuda, bsz, h, wd, k, n, dtype):
+    gen, x, a, b = _fused_inputs(cuda, h * k + n, (bsz, h, wd, k), k, dtype)
+    w = (torch.randn((3, 3, k, n), generator=gen, device=cuda) * 0.1).to(dtype)
+    got = fused_conv3x3.bn_relu_conv3x3(x, a, b, w, out_dtype=dtype)
+    ref = fused_conv3x3.bn_relu_conv3x3_plain(x, a, b, w, torch.float32)
+    scale = fused_conv3x3.bn_relu_conv3x3_plain(x, a, b, w.abs(), torch.float32)
+    _assert_fused_close(got, ref, scale, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,h,wd,k,n", FUSED_S2)
+def test_bn_relu_conv3x3_s2_kernel(cuda, bsz, h, wd, k, n, dtype):
+    gen, x, a, b = _fused_inputs(cuda, h * k + n + 1, (bsz, h, wd, k), k, dtype)
+    w = (torch.randn((3, 3, k, n), generator=gen, device=cuda) * 0.1).to(dtype)
+    got = fused_conv3x3.bn_relu_conv3x3_s2(x, a, b, w, out_dtype=dtype)
+    ref = fused_conv3x3.bn_relu_conv3x3_s2_plain(x, a, b, w, torch.float32)
+    scale = fused_conv3x3.bn_relu_conv3x3_s2_plain(x, a, b, w.abs(), torch.float32)
+    _assert_fused_close(got, ref, scale, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,h,wd,k,n", FUSED_3X3)
+def test_conv3x3_dw_kernel(cuda, bsz, h, wd, k, n, dtype):
+    gen, x, a, b = _fused_inputs(cuda, h * n + k, (bsz, h, wd, k), k, dtype)
+    dy = torch.randn((bsz, h, wd, n), generator=gen, device=cuda).to(dtype)
+    got = fused_conv3x3.conv3x3_dw(x, a, b, dy)
+    _assert_fused_close(got, fused_conv3x3.conv3x3_dw_plain(x, a, b, dy),
+                        fused_conv3x3.conv3x3_dw_plain(x, a, b, dy.abs()), torch.float32)
+    assert torch.equal(got, fused_conv3x3.conv3x3_dw(x, a, b, dy))  # no atomics
+
+
+def test_fused_kernels_count_card_launches_only(cuda):
+    fns = (fused_conv.bn_relu_matmul, fused_conv3x3.bn_relu_conv3x3, fused_conv3x3.conv3x3_dw)
+    before = [f.launches for f in fns]
+    for dev in ("cpu", cuda):
+        x, a, b = torch.ones(2, 4, 4, 8, device=dev), torch.ones(8, device=dev), \
+            torch.zeros(8, device=dev)
+        fused_conv.bn_relu_matmul(x.view(-1, 8), a, b, torch.ones(8, 8, device=dev))
+        fused_conv3x3.bn_relu_conv3x3(x, a, b, torch.ones(3, 3, 8, 8, device=dev))
+        fused_conv3x3.conv3x3_dw(x, a, b, x)
+    assert [f.launches for f in fns] == [c + 1 for c in before]
+
+
+@pytest.mark.parametrize("arch", ["resnet_tiny", "bottleneck_tiny"])
+def test_fused_resnets_on_card_match_cpu(cuda, arch):
+    """The fused path end to end on the card (kernels) and on the CPU (plain
+    versions), f32: the train-mode forward and the running statistics agree,
+    and the backward gives finite gradients for every parameter."""
+    from moco_tpu_torch.models import resnet
+
+    def build():
+        gen = torch.Generator().manual_seed(0)
+        if arch == "resnet_tiny":  # BasicBlocks: conv2 fused at stride 1
+            return resnet.build_resnet(arch, num_classes=16, cifar_stem=True, generator=gen,
+                                       fused_bn_conv=True)
+        return resnet.ResNet((1, 1), resnet.Bottleneck, width=8, num_classes=16,
+                             mlp_head=True, generator=gen, fused_bn_conv=True)
+
+    images = torch.randn((8, 16, 16, 3), generator=torch.Generator().manual_seed(1))
+    outs = []
+    for dev in ("cpu", cuda):
+        model = build().to(dev).train()
+        out = model(images.to(dev))
+        out.square().sum().backward()
+        assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+        outs.append([out.detach().cpu()] + [b.cpu() for b in model.buffers()])
+    for a, b in zip(*outs):
+        # f32 sums in another order through a few layers
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

@@ -5,6 +5,11 @@ statistics, queue) on the same images.
 On one device ShuffleBN's permutation does not change per-device BN (the
 same samples form the batch), so the two frameworks' shuffle generators need
 not agree; only the order of the sums differs.
+
+`v2_tiny_fused` runs the port with `fused_bn_conv=True` (the fused
+bn->relu->conv functions, their kernels' plain versions on the CPU) against
+the same JAX step: off the TPU the JAX ResNet does not fuse
+(`moco_tpu/models/resnet.py:298`), but it computes the same function.
 """
 
 import jax
@@ -36,6 +41,9 @@ CONFIGS = {
     # tiny v2: Bottleneck blocks, MLP head, T=0.2, cosine lr, 7x7 stem at 32 px
     "v2_tiny": (dict(variant="v2", arch="resnet50", mlp_head=True, temperature=0.2,
                      cos=True), 32, (1, 1)),
+    # the same with the fused bn->relu->conv path: stride-1 and stride-2 mids
+    "v2_tiny_fused": (dict(variant="v2", arch="resnet50", mlp_head=True, temperature=0.2,
+                           cos=True, fused_bn_conv=True), 32, (1, 1)),
 }
 
 
@@ -44,10 +52,11 @@ def _models(name):
     jcfg, tcfg = JaxConfig(**fields, **COMMON), PretrainConfig(**fields, **COMMON)
     if stages is None:
         return jcfg, tcfg, jax_build_encoder(jcfg), build_encoder(tcfg)
+    fused = fields.get("fused_bn_conv", False)
     jmodel = jresnet.ResNet(stage_sizes=stages, block_cls=jresnet.Bottleneck, width=8,
-                            num_classes=DIM, mlp_head=True)
+                            num_classes=DIM, mlp_head=True, fused_bn_conv=fused)
     tmodel = resnet.ResNet(stages, resnet.Bottleneck, width=8, num_classes=DIM,
-                           mlp_head=True)
+                           mlp_head=True, fused_bn_conv=fused)
     return jcfg, tcfg, jmodel, tmodel
 
 
