@@ -5,7 +5,8 @@
 
 Phases; any failure ends the run with a nonzero exit and no result line:
 
-1.  build   compile moco_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+1.  build   compile moco_tpu_torch/csrc/*.cu with nvcc for sm_90a
+            (channel_stats, blur, fused_conv, fused_conv_dw, conv3x3_dw);
 2.  kernels each CUDA kernel against its plain PyTorch version on the card,
             at the shapes the ResNet-50 batch-256 step gives it, with its
             time, its bound, the plain version's time and one PyTorch
@@ -234,12 +235,13 @@ def check_fused_kernels(fc, fc3) -> dict:
 
     def record(name, shape_name, shape, err, ms, plain_ms, lib_ms, nbytes, ops):
         b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        tflops = ops / ms / 1e9  # the useful operations, over the kernel's time
         r = dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, tflops=tflops)
         report[name][shape_name] = r
-        print(f"kernel {name} {shape_name} {list(shape)} bf16: {ms:.4f} ms (bound {b_ms:.4f} ms "
-              f"by {b_by}, plain {plain_ms:.4f} ms, library (product only) {lib_ms:.4f} ms, "
-              f"max abs err {err:.3e})", flush=True)
+        print(f"kernel {name} {shape_name} {list(shape)} bf16: {ms:.4f} ms, {tflops:.1f} TFLOP/s "
+              f"(bound {b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f} ms, library (product only) "
+              f"{lib_ms:.4f} ms, max abs err {err:.3e})", flush=True)
 
     def affine(k):
         return (torch.rand(k, generator=gen, device="cuda") + 0.5,
@@ -407,7 +409,8 @@ def profile_step(config, state, dataset, label: str) -> None:
     print(f"profile {label}: one step, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {len(kernel_events)} kernel names", flush=True)
     categories = {"port kernels": ("sums_partial", "sum_partials", "blur_tile",
-                                   "bn_relu_conv_gemm", "conv_dw_partial", "sum_slabs"),
+                                   "bn_relu_conv_gemm", "conv_dw_partial", "conv3x3_dw_bands",
+                                   "sum_slabs"),
                   "convolution": ("conv", "xmma_fprop", "xmma_dgrad", "xmma_wgrad", "cudnn",
                                   "implicit_gemm", "fprop", "dgrad", "wgrad"),
                   "matmul": ("gemm", "cublas", "cutlass"),
@@ -564,8 +567,7 @@ def main() -> None:
                             "layer1"),
         "bn_relu_conv3x3_s2": ("fused_conv.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:351",
                                "layer2"),
-        "conv3x3_dw": ("fused_conv_dw.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:412",
-                       "layer1"),
+        "conv3x3_dw": ("conv3x3_dw.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:412", "layer1"),
     }
     kernels = []
     for name, (source, replaces, shape_name) in sources.items():

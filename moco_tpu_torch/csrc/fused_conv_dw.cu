@@ -1,10 +1,11 @@
 // Weight gradients of the fused BN->ReLU->conv, for Hopper (sm_90a), bound
 // to Python through ctypes by moco_tpu_torch/ops/fused_conv.py and
-// moco_tpu_torch/ops/fused_conv3x3.py.
-//
-// Replaces two Pallas TPU kernels:
-//   bn_relu_matmul_dw  moco_tpu/ops/pallas_fused_conv.py:84 (pallas_call :101)
-//   conv3x3_dw         moco_tpu/ops/pallas_fused_conv3x3.py:371 (pallas_call :412)
+// moco_tpu_torch/ops/fused_conv3x3.py. It serves
+//   bn_relu_matmul_dw  bf16 and f32, replacing moco_tpu/ops/pallas_fused_conv.py:84
+//                      (pallas_call :101);
+//   conv3x3_dw, f32    the f32 route of moco_tpu/ops/pallas_fused_conv3x3.py:371
+//                      (pallas_call :412), reached only by f32 checks; the bf16
+//                      route, the training path, is csrc/conv3x3_dw.cu.
 //
 // Work: dW[tap, K, N] = sum over output pixels p of z_tap[p, K]^T dy[p, N],
 // with z = relu(x*a + b) recomputed from x (never stored) and z_tap the
@@ -12,22 +13,22 @@
 // x [M, K], dy [M, N]. 3x3 (stride 1, pad 1): nine taps, x [B, H, W, K] and
 // dy [B, H, W, N] NHWC.
 //
-// Bound: one read of x and dy per tap here against a 9*K*N*4-byte output;
-// at the ResNet-50 batch-256 shapes the 1x1 is bound by those bytes
-// (layer 1: x 103 MB + dy 411 MB) and the 3x3 by operations at the bf16
-// tensor-core rate.
+// Bound: one read of x and dy against a taps*K*N*4-byte output; at the
+// ResNet-50 batch-256 shapes the 1x1 is bound by those bytes (layer 1:
+// x 103 MB + dy 411 MB).
 //
 // Design: the TPU kernels carry the sum in a VMEM accumulator across a
-// sequential grid axis over rows (pallas_fused_conv.py:66-80,
-// pallas_fused_conv3x3.py:129-184). Hopper blocks run in no order, so the
-// sum is two passes with no atomics, as csrc/channel_stats.cu does. Pass 1:
-// a block owns one tap, a [128 K x 128 N] tile of dW (64 x 64 in f32) and a
-// slab of rows; it walks its slab 32 rows at a time (16 in f32), builds z
-// for those rows in shared memory with the forward's loader (per-image
-// masks, 16-byte loads along K where possible), loads the matching dy rows,
-// and multiplies z^T dy on the tensor cores (f32: FMA) into f32 fragments,
-// with the next rows' global loads in flight during the product; the
-// slab's partial goes to part[slab, tap, K, N]. Pass 2 sums the slabs of
+// sequential grid axis over rows (pallas_fused_conv.py:66-80). Hopper
+// blocks run in no order, so the sum is two passes with no atomics, as
+// csrc/channel_stats.cu does. Pass 1: a block owns one tap, a
+// [128 K x 128 N] tile of dW (64 x 64 in f32) and a slab of rows; it walks
+// its slab 32 rows at a time (16 in f32), builds z for those rows in shared
+// memory with the forward's loader (per-image masks, 16-byte loads along K
+// where possible), loads the matching dy rows, and multiplies z^T dy on the
+// tensor cores (f32: FMA) into f32 fragments, with the next rows' global
+// loads in flight during the product; the slab's partial goes to
+// part[slab, tap, K, N]. At nine taps each tap's blocks read x and dy
+// again, which is why bf16 3x3 has its own kernel. Pass 2 sums the slabs of
 // each element in slab order, so two runs on the same input give the same
 // bits.
 
@@ -157,11 +158,12 @@ int run(const void* x, const float* a, const float* b, const void* dy, float* pa
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and dy share dtype). part: f32
-// [slabs, taps, K, N] scratch (unused when slabs == 1); out: f32 [taps, K, N].
-// Each returns cudaGetLastError() after the launches (0 = success).
+// part: f32 [slabs, taps, K, N] scratch (unused when slabs == 1); out: f32
+// [taps, K, N]. Each returns cudaGetLastError() after the launches
+// (0 = success).
 
-// dW[K, N] = relu(x[M, K]*a + b)^T @ dy[M, N]
+// dW[K, N] = relu(x[M, K]*a + b)^T @ dy[M, N]; dtype: 0 = float32,
+// 1 = bfloat16 (x and dy share dtype)
 extern "C" int moco_bn_relu_matmul_dw(const void* x, const float* a, const float* b,
                                       const void* dy, float* part, float* out, int dtype,
                                       int64_t m, int k, int n, int slabs, void* stream) {
@@ -176,10 +178,11 @@ extern "C" int moco_bn_relu_matmul_dw(const void* x, const float* a, const float
   return run(x, a, b, dy, part, out, dtype, g, slabs, stream);
 }
 
-// dW[3, 3, K, N] of relu(x*a + b) conv W (stride 1, zero pad 1) against dy
-extern "C" int moco_conv3x3_dw(const void* x, const float* a, const float* b, const void* dy,
-                               float* part, float* out, int dtype, int bsz, int h, int wd,
-                               int k, int n, int slabs, void* stream) {
+// dW[3, 3, K, N] of relu(x*a + b) conv W (stride 1, zero pad 1) against dy,
+// x and dy float32
+extern "C" int moco_conv3x3_dw_f32(const void* x, const float* a, const float* b,
+                                   const void* dy, float* part, float* out, int bsz, int h,
+                                   int wd, int k, int n, int slabs, void* stream) {
   if (bsz <= 0 || h <= 0 || wd <= 0) return (int)cudaErrorInvalidValue;
   ConvGeom g;
   g.bsz = bsz;
@@ -190,5 +193,5 @@ extern "C" int moco_conv3x3_dw(const void* x, const float* a, const float* b, co
   g.stride = 1;
   g.taps = 9;
   g.m = (int64_t)bsz * h * wd;
-  return run(x, a, b, dy, part, out, dtype, g, slabs, stream);
+  return run(x, a, b, dy, part, out, 0, g, slabs, stream);
 }

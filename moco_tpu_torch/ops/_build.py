@@ -23,7 +23,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("channel_stats.cu", "blur.cu", "fused_conv.cu", "fused_conv_dw.cu")
+SOURCES = ("channel_stats.cu", "blur.cu", "fused_conv.cu", "fused_conv_dw.cu", "conv3x3_dw.cu")
 HEADERS = ("implicit_gemm.cuh",)  # included by the sources; hashed with them
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,7 +42,8 @@ SIGNATURES = {
     "moco_bn_relu_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "moco_bn_relu_conv3x3_s2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "moco_bn_relu_matmul_dw": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
-    "moco_conv3x3_dw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "moco_conv3x3_dw_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "moco_conv3x3_dw_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "moco_error_string": (_I,),
 }
 RESTYPES = {"moco_error_string": ctypes.c_char_p}

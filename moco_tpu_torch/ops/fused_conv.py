@@ -24,8 +24,10 @@ import torch
 from moco_tpu_torch.ops import _build
 from moco_tpu_torch.ops.stats import DTYPE_CODES, check_rows, check_vec, device_kind
 
-_TARGET_BLOCKS = 1024  # dW pass-1 blocks to aim for: ~8 per SM of an H100
-_DW_TILE = {torch.bfloat16: 128, torch.float32: 64}  # dW tile side (csrc/fused_conv_dw.cu)
+# csrc/fused_conv_dw.cu's one-tap-per-block dW kernel, which serves
+# bn_relu_matmul_dw (both dtypes) and the f32 route of conv3x3_dw
+_TARGET_BLOCKS = 1024  # its pass-1 blocks to aim for: ~8 per SM of an H100
+_DW_TILE = {torch.bfloat16: 128, torch.float32: 64}  # its dW tile side
 
 
 def normalize_relu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
@@ -62,8 +64,9 @@ def check_out_dtype(out_dtype) -> None:
 
 
 def dw_slabs(m: int, k: int, n: int, taps: int, dtype) -> int:
-    """Row slabs of the dW's first pass: enough blocks to fill the card, at
-    least 256 rows a slab."""
+    """Row slabs of the first pass of `csrc/fused_conv_dw.cu` (the 1x1 dW,
+    and the f32 3x3 dW): enough blocks to fill the card, at least 256 rows a
+    slab."""
     tile = _DW_TILE[dtype]
     blocks = taps * -(-k // tile) * -(-n // tile)
     return max(1, min(-(-m // 256), _TARGET_BLOCKS // blocks))

@@ -1,5 +1,6 @@
 """BatchNorm-normalize -> ReLU fused into a 3x3 conv: the CUDA kernels of
-`csrc/fused_conv.cu` / `csrc/fused_conv_dw.cu` and their plain PyTorch
+`csrc/fused_conv.cu` (forwards), `csrc/conv3x3_dw.cu` (bf16 weight gradient)
+and `csrc/fused_conv_dw.cu` (f32 weight gradient), and their plain PyTorch
 versions.
 
 Port of `moco_tpu/ops/pallas_fused_conv3x3.py`, in its layout: x
@@ -17,9 +18,18 @@ The zero padding applies to z = relu(x*a + b), not to x: a tap outside the
 image contributes 0. A CPU tensor takes the plain version (`F.conv2d` on
 the materialized z); a CUDA tensor launches the kernel or raises. Each
 wrapper counts its kernel launches in `.launches`.
+
+`conv3x3_dw` dispatches by dtype, and both routes count in its `.launches`:
+bf16 (the training path) launches the band kernel of `csrc/conv3x3_dw.cu`
+on the launch plan of `conv3x3_dw_plan`; f32 (reached only by f32 checks)
+launches the one-tap-per-block kernel of `csrc/fused_conv_dw.cu` at nine
+taps. A failed launch on either route raises.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -139,17 +149,133 @@ def conv3x3_dw(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if device_kind(x) == "cpu":
         return conv3x3_dw_plain(x, a, b, dy)
     n = dy.shape[3]
-    slabs = dw_slabs(bsz * h * wd, k, n, 9, x.dtype)
-    part = dw_partials(slabs, 9, k, n, x.device)
+    lib = _build.load_library()
     out = torch.empty((3, 3, k, n), dtype=torch.float32, device=x.device)
-    err = _build.load_library().moco_conv3x3_dw(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), dy.data_ptr(), part.data_ptr(),
-        out.data_ptr(), DTYPE_CODES[x.dtype], bsz, h, wd, k, n, slabs,
-        _build.stream_handle(x.device),
-    )
+    stream = _build.stream_handle(x.device)
+    if x.dtype == torch.bfloat16:
+        plan = conv3x3_dw_plan(bsz, h, wd, k, n)
+        part = dw_partials(plan.slabs, 9, k, n, x.device)
+        err = lib.moco_conv3x3_dw_bf16(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), dy.data_ptr(), part.data_ptr(),
+            out.data_ptr(), bsz, h, wd, k, n, plan.rows, plan.slabs, plan.smem_bytes, stream)
+    else:
+        slabs = dw_slabs(bsz * h * wd, k, n, 9, x.dtype)
+        part = dw_partials(slabs, 9, k, n, x.device)
+        err = lib.moco_conv3x3_dw_f32(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), dy.data_ptr(), part.data_ptr(),
+            out.data_ptr(), bsz, h, wd, k, n, slabs, stream)
     _build.check(err, "conv3x3_dw")
     conv3x3_dw.launches += 1
     return out
 
 
 conv3x3_dw.launches = 0
+
+
+# The bf16 band kernel's geometry (csrc/conv3x3_dw.cu): dW tiles of 64 input
+# x 64 output channels, shared-memory pixel rows of 72 bf16 (64 + 8, so
+# that ldmatrix rows fall in distinct banks), one block per SM of an H100.
+DW_BAND_TILE = 64
+DW_BAND_PITCH = 72
+DW_BAND_STAGES = 3            # bands in shared memory at once
+DW_BAND_SMEM_LIMIT = 232448   # bytes of shared memory one block may use (227 KB)
+DW_BAND_SMS = 132             # SMs of an H100 SXM: the blocks of one full wave
+DW_BAND_SCRATCH_LIMIT = 64 << 20  # bytes of f32 slab partials at most
+
+
+@dataclass(frozen=True)
+class Dw3x3Plan:
+    """Launch plan of the bf16 `conv3x3_dw` band kernel.
+
+    A band is `rows` output rows of one image. Its z lives in shared memory
+    as (rows + 2) x (w + 2) padded pixels of 64 channels (the row above and
+    below and one column either side, zero outside the image), followed by
+    zero pixels up to `z_pix`. Its dy lives beside it at the padded pixels
+    q = r*(w + 2) + c of the output rows, zero for c >= w, up to `q_pad` (a
+    multiple of 16, the depth of one tensor-core product). Tap (di, dj) of
+    pixel q reads z pixel q + `tap_offset(di, dj)`. A block owns one
+    64 x 64 tile of dW for all nine taps and walks the bands of one slab;
+    slab s writes partial s, and a second pass sums them in slab order."""
+
+    bsz: int
+    h: int
+    w: int
+    k: int
+    n: int
+    rows: int
+    slabs: int
+
+    @property
+    def bands_per_image(self) -> int:
+        return -(-self.h // self.rows)
+
+    @property
+    def bands(self) -> int:
+        return self.bsz * self.bands_per_image
+
+    @property
+    def q_pad(self) -> int:
+        return -(-self.rows * (self.w + 2) // 16) * 16
+
+    @property
+    def z_pix(self) -> int:
+        # pixel q_pad - 1 at the largest tap offset is the last one read
+        return self.q_pad + self.tap_offset(1, 1)
+
+    @property
+    def smem_bytes(self) -> int:
+        """a and b (f32), then the stages of z and dy (bf16)."""
+        return 2 * DW_BAND_TILE * 4 + \
+            DW_BAND_STAGES * (self.z_pix + self.q_pad) * DW_BAND_PITCH * 2
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.k // DW_BAND_TILE) * -(-self.n // DW_BAND_TILE)
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.slabs
+
+    def tap_offset(self, di: int, dj: int) -> int:
+        return (1 + di) * (self.w + 2) + (1 + dj)
+
+    def band_origin(self, band: int) -> tuple[int, int]:
+        """(image, first output row) of a band."""
+        return band // self.bands_per_image, band % self.bands_per_image * self.rows
+
+    def slab_bands(self, slab: int) -> range:
+        return range(slab * self.bands // self.slabs, (slab + 1) * self.bands // self.slabs)
+
+
+@functools.lru_cache(maxsize=256)
+def conv3x3_dw_plan(bsz: int, h: int, w: int, k: int, n: int) -> Dw3x3Plan:
+    """Band rows and slabs for x [bsz, h, w, k] and dy [bsz, h, w, n].
+
+    Rows: the count whose z and dy stages fit in a block's shared memory and
+    that gives the least work per image, counted as contracted pixels
+    (q_pad) plus normalized halo pixels, per band; ties go to the taller
+    band. Slabs: the fewest that give at least one full wave of blocks
+    (where there are bands enough) and the least estimated time, waves x
+    bands per slab, with the partials under DW_BAND_SCRATCH_LIMIT."""
+    best = None
+    for r in range(1, h + 1):
+        cand = Dw3x3Plan(bsz, h, w, k, n, r, 1)
+        if cand.smem_bytes > DW_BAND_SMEM_LIMIT:
+            break
+        cost = cand.bands_per_image * (cand.q_pad + (r + 2) * (w + 2))
+        if best is None or cost <= best[0]:
+            best = (cost, cand)
+    if best is None:
+        raise ValueError(f"conv3x3_dw: an image row of width {w} does not fit in shared memory")
+    plan = best[1]
+    best = (None, 1)
+    for s in range(1, plan.bands + 1):
+        if s > 1 and s * 9 * k * n * 4 > DW_BAND_SCRATCH_LIMIT:
+            break
+        blocks = plan.tiles * s
+        if blocks < DW_BAND_SMS and s < plan.bands:
+            continue
+        cost = -(-blocks // DW_BAND_SMS) * -(-plan.bands // s)
+        if best[0] is None or cost < best[0]:
+            best = (cost, s)
+    return Dw3x3Plan(bsz, h, w, k, n, plan.rows, best[1])

@@ -118,7 +118,11 @@ def test_fast_bn_on_card_matches_cpu(cuda):
 # 1e-5 of sum |z||w|, and a bf16 output adds one rounding, at most one bf16
 # ulp (2^-7 of |ref|).
 FUSED_1X1 = [(96, 24, 40), (1000, 64, 256), (300, 128, 72), (4097, 16, 8)]
-FUSED_3X3 = [(2, 7, 7, 8, 8), (2, 8, 8, 16, 24), (3, 14, 14, 64, 64), (1, 5, 6, 24, 40)]
+# FUSED_3X3's last three: the bf16 dW's band ends mid-image (H = 29 in
+# bands of 6 rows), the layer-1 geometry at B = 2, and K, N past one 64-wide
+# tile and not multiples of it
+FUSED_3X3 = [(2, 7, 7, 8, 8), (2, 8, 8, 16, 24), (3, 14, 14, 64, 64), (1, 5, 6, 24, 40),
+             (2, 29, 28, 24, 40), (2, 56, 56, 64, 64), (2, 9, 10, 72, 80)]
 FUSED_S2 = [(2, 8, 8, 16, 24), (2, 14, 14, 64, 32), (1, 4, 6, 24, 40)]
 
 
@@ -200,6 +204,20 @@ def test_bn_relu_conv3x3_s2_kernel(cuda, bsz, h, wd, k, n, dtype):
 def test_conv3x3_dw_kernel(cuda, bsz, h, wd, k, n, dtype):
     gen, x, a, b = _fused_inputs(cuda, h * n + k, (bsz, h, wd, k), k, dtype)
     dy = torch.randn((bsz, h, wd, n), generator=gen, device=cuda).to(dtype)
+    got = fused_conv3x3.conv3x3_dw(x, a, b, dy)
+    _assert_fused_close(got, fused_conv3x3.conv3x3_dw_plain(x, a, b, dy),
+                        fused_conv3x3.conv3x3_dw_plain(x, a, b, dy.abs()), torch.float32)
+    assert torch.equal(got, fused_conv3x3.conv3x3_dw(x, a, b, dy))  # no atomics
+
+
+def test_conv3x3_dw_unaligned_dy_takes_narrow_loads(cuda):
+    """A dy view that starts 2 bytes into its storage cannot use 16-byte
+    copies; the band kernel then loads 2 bytes at a time."""
+    bsz, h, wd, k, n = 2, 9, 10, 24, 40
+    gen, x, a, b = _fused_inputs(cuda, 11, (bsz, h, wd, k), k, torch.bfloat16)
+    base = torch.randn((1 + bsz * h * wd * n,), generator=gen, device=cuda).bfloat16()
+    dy = base[1:].view(bsz, h, wd, n)
+    assert dy.data_ptr() % 16 != 0
     got = fused_conv3x3.conv3x3_dw(x, a, b, dy)
     _assert_fused_close(got, fused_conv3x3.conv3x3_dw_plain(x, a, b, dy),
                         fused_conv3x3.conv3x3_dw_plain(x, a, b, dy.abs()), torch.float32)
