@@ -6,7 +6,8 @@
 Phases; any failure ends the run with a nonzero exit and no result line:
 
 1.  build   compile moco_tpu_torch/csrc/*.cu with nvcc for sm_90a
-            (channel_stats, blur, fused_conv, fused_conv_dw, conv3x3_dw);
+            (channel_stats, blur, fused_conv, fused_conv_dw, conv3x3_dw,
+            conv3x3_fwd);
 2.  kernels each CUDA kernel against its plain PyTorch version on the card,
             at the shapes the ResNet-50 batch-256 step gives it, with its
             time, its bound, the plain version's time and one PyTorch
@@ -410,7 +411,7 @@ def profile_step(config, state, dataset, label: str) -> None:
           f"({100 * busy_ms / wall_ms:.1f}%), {len(kernel_events)} kernel names", flush=True)
     categories = {"port kernels": ("sums_partial", "sum_partials", "blur_tile",
                                    "bn_relu_conv_gemm", "conv_dw_partial", "conv3x3_dw_bands",
-                                   "sum_slabs"),
+                                   "sum_slabs", "conv3x3_fwd_bands"),
                   "convolution": ("conv", "xmma_fprop", "xmma_dgrad", "xmma_wgrad", "cudnn",
                                   "implicit_gemm", "fprop", "dgrad", "wgrad"),
                   "matmul": ("gemm", "cublas", "cutlass"),
@@ -563,9 +564,9 @@ def main() -> None:
         "bn_relu_matmul": ("fused_conv.cu", "moco_tpu/ops/pallas_fused_conv.py:137", "layer1"),
         "bn_relu_matmul_dw": ("fused_conv_dw.cu", "moco_tpu/ops/pallas_fused_conv.py:101",
                               "layer1"),
-        "bn_relu_conv3x3": ("fused_conv.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:237",
+        "bn_relu_conv3x3": ("conv3x3_fwd.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:237",
                             "layer1"),
-        "bn_relu_conv3x3_s2": ("fused_conv.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:351",
+        "bn_relu_conv3x3_s2": ("conv3x3_fwd.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:351",
                                "layer2"),
         "conv3x3_dw": ("conv3x3_dw.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:412", "layer1"),
     }

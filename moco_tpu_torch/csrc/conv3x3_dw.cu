@@ -44,6 +44,7 @@
 //   the epilogue stores only what lies inside. 16-byte copies need K and N
 //   multiples of 8 and 16-byte aligned x and dy; otherwise 2-byte loads.
 
+#include "band_mma.cuh"
 #include "implicit_gemm.cuh"
 
 #include <limits.h>
@@ -51,6 +52,7 @@
 namespace {
 
 using moco_gemm::Pack;
+using namespace moco_band;
 
 constexpr int kTile = 64;                // dW tile: kTile input x kTile output channels
 constexpr int kPitch = kTile + 8;        // bf16 per pixel row in shared memory
@@ -67,58 +69,6 @@ struct BandGeom {
   int tiles_n, tiles;  // dW tiles along N, and in all
   int bands_per_img, slabs;
   int64_t bands;
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-template <int VEC>
-__device__ __forceinline__ void copy_in(__nv_bfloat16* dst, const __nv_bfloat16* src) {
-  if constexpr (VEC == 8) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-                 "l"(src));
-  } else {
-    *dst = *src;
-  }
-}
-
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void copy_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A thread's walk over the pixels of a width-w grid: pixel p0 first, then
-// every dp-th, as row j and column c, with no division after the start.
-struct PixelWalk {
-  int j, c, w, dj, dc;
-  __device__ __forceinline__ PixelWalk(int p0, int dp, int width)
-      : j(p0 / width), c(p0 % width), w(width), dj(dp / width), dc(dp % width) {}
-  __device__ __forceinline__ void step() {
-    c += dc;
-    j += dj;
-    if (c >= w) {
-      c -= w;
-      ++j;
-    }
-  }
 };
 
 // Start the copies of one band's x rows (image rows row0 - 1 .. row0 + R,

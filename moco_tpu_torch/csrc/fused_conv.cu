@@ -6,6 +6,8 @@
 //   bn_relu_matmul      moco_tpu/ops/pallas_fused_conv.py:121 (pallas_call :137)
 //   bn_relu_conv3x3     moco_tpu/ops/pallas_fused_conv3x3.py:199 (pallas_call :237)
 //   bn_relu_conv3x3_s2  moco_tpu/ops/pallas_fused_conv3x3.py:318 (pallas_call :351)
+// the 1x1 in bf16 and f32, the two 3x3 in f32 only (reached by f32 checks);
+// the bf16 3x3 forwards are conv3x3_fwd.cu's band kernel.
 //
 // Work: y = relu(x*a + b) (*) W with a = gamma*rstd, b = beta - mean*a, the
 // ResNet Bottleneck's bn->relu->conv interior. x is NHWC [B, H, W, K] (a
@@ -172,19 +174,20 @@ extern "C" int moco_bn_relu_matmul(const void* x, const float* a, const float* b
   return run(x, a, b, w, y, dtype, out_dtype, g, stream);
 }
 
-// y[B, H, W, N] = relu(x*a + b) conv w[3, 3, K, N], stride 1, zero pad 1
-extern "C" int moco_bn_relu_conv3x3(const void* x, const float* a, const float* b,
-                                    const void* w, void* y, int dtype, int out_dtype, int bsz,
-                                    int h, int wd, int k, int n, void* stream) {
+// y[B, H, W, N] = relu(x*a + b) conv w[3, 3, K, N], stride 1, zero pad 1;
+// x and w f32
+extern "C" int moco_bn_relu_conv3x3_f32(const void* x, const float* a, const float* b,
+                                        const void* w, void* y, int out_dtype, int bsz, int h,
+                                        int wd, int k, int n, void* stream) {
   if (bsz <= 0 || h <= 0 || wd <= 0) return (int)cudaErrorInvalidValue;
-  return run(x, a, b, w, y, dtype, out_dtype, conv3x3_geom(bsz, h, wd, k, n, 1), stream);
+  return run(x, a, b, w, y, 0, out_dtype, conv3x3_geom(bsz, h, wd, k, n, 1), stream);
 }
 
 // y[B, H/2, W/2, N]: the same at stride 2, symmetric pad 1 (H and W even)
-extern "C" int moco_bn_relu_conv3x3_s2(const void* x, const float* a, const float* b,
-                                       const void* w, void* y, int dtype, int out_dtype,
-                                       int bsz, int h, int wd, int k, int n, void* stream) {
+extern "C" int moco_bn_relu_conv3x3_s2_f32(const void* x, const float* a, const float* b,
+                                           const void* w, void* y, int out_dtype, int bsz,
+                                           int h, int wd, int k, int n, void* stream) {
   if (bsz <= 0 || h <= 0 || wd <= 0 || h % 2 != 0 || wd % 2 != 0)
     return (int)cudaErrorInvalidValue;
-  return run(x, a, b, w, y, dtype, out_dtype, conv3x3_geom(bsz, h, wd, k, n, 2), stream);
+  return run(x, a, b, w, y, 0, out_dtype, conv3x3_geom(bsz, h, wd, k, n, 2), stream);
 }

@@ -23,8 +23,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("channel_stats.cu", "blur.cu", "fused_conv.cu", "fused_conv_dw.cu", "conv3x3_dw.cu")
-HEADERS = ("implicit_gemm.cuh",)  # included by the sources; hashed with them
+SOURCES = ("channel_stats.cu", "blur.cu", "fused_conv.cu", "fused_conv_dw.cu", "conv3x3_dw.cu",
+           "conv3x3_fwd.cu")
+HEADERS = ("implicit_gemm.cuh", "band_mma.cuh")  # included by the sources; hashed with them
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,8 +40,10 @@ SIGNATURES = {
     "moco_gaussian_blur": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "moco_blur_max_radius": (),
     "moco_bn_relu_matmul": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
-    "moco_bn_relu_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "moco_bn_relu_conv3x3_s2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "moco_bn_relu_conv3x3_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "moco_bn_relu_conv3x3_s2_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "moco_conv3x3_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P),
     "moco_bn_relu_matmul_dw": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
     "moco_conv3x3_dw_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "moco_conv3x3_dw_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

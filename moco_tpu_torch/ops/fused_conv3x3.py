@@ -1,7 +1,7 @@
 """BatchNorm-normalize -> ReLU fused into a 3x3 conv: the CUDA kernels of
-`csrc/fused_conv.cu` (forwards), `csrc/conv3x3_dw.cu` (bf16 weight gradient)
-and `csrc/fused_conv_dw.cu` (f32 weight gradient), and their plain PyTorch
-versions.
+`csrc/conv3x3_fwd.cu` (bf16 forwards), `csrc/fused_conv.cu` (f32 forwards),
+`csrc/conv3x3_dw.cu` (bf16 weight gradient) and `csrc/fused_conv_dw.cu`
+(f32 weight gradient), and their plain PyTorch versions.
 
 Port of `moco_tpu/ops/pallas_fused_conv3x3.py`, in its layout: x
 `[B, H, W, K]` NHWC, w `[3, 3, K, N]`, a = gamma*rstd and b = beta - mean*a
@@ -19,16 +19,19 @@ image contributes 0. A CPU tensor takes the plain version (`F.conv2d` on
 the materialized z); a CUDA tensor launches the kernel or raises. Each
 wrapper counts its kernel launches in `.launches`.
 
-`conv3x3_dw` dispatches by dtype, and both routes count in its `.launches`:
-bf16 (the training path) launches the band kernel of `csrc/conv3x3_dw.cu`
-on the launch plan of `conv3x3_dw_plan`; f32 (reached only by f32 checks)
-launches the one-tap-per-block kernel of `csrc/fused_conv_dw.cu` at nine
-taps. A failed launch on either route raises.
+Each wrapper dispatches by dtype, and both routes count in its `.launches`:
+bf16 (the training path) launches a band kernel on a launch plan, the
+forwards' of `csrc/conv3x3_fwd.cu` (`conv3x3_fwd_plan`) and the weight
+gradient's of `csrc/conv3x3_dw.cu` (`conv3x3_dw_plan`); f32 (reached only
+by f32 checks) launches the implicit GEMM of `csrc/fused_conv.cu` or the
+one-tap-per-block kernel of `csrc/fused_conv_dw.cu` at nine taps. A failed
+launch on either route raises.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 
 import torch
@@ -90,13 +93,25 @@ def _check_conv(x, a, b, w, out_dtype) -> None:
     check_out_dtype(out_dtype)
 
 
-def _launch_conv(fn, name: str, x, a, b, w, out_dtype, stride: int) -> torch.Tensor:
+def _launch_conv(name: str, x, a, b, w, out_dtype, stride: int,
+                 plan: "Fwd3x3Plan | None" = None) -> torch.Tensor:
+    """bf16: the band kernel on `plan` (by default `conv3x3_fwd_plan`'s);
+    f32: the implicit GEMM of `csrc/fused_conv.cu`."""
     bsz, h, wd, k = x.shape
     n = w.shape[3]
+    lib = _build.load_library()
     y = torch.empty((bsz, h // stride, wd // stride, n), dtype=out_dtype, device=x.device)
-    err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), y.data_ptr(),
-             DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype], bsz, h, wd, k, n,
-             _build.stream_handle(x.device))
+    args = (x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), y.data_ptr(),
+            DTYPE_CODES[out_dtype], bsz, h, wd, k, n)
+    stream = _build.stream_handle(x.device)
+    if x.dtype == torch.bfloat16:
+        plan = plan or conv3x3_fwd_plan(bsz, h, wd, k, n, stride)
+        err = lib.moco_conv3x3_fwd_bf16(*args, stride, plan.bn, plan.bk, plan.band_rows,
+                                        plan.smem_bytes, stream)
+    elif stride == 1:
+        err = lib.moco_bn_relu_conv3x3_f32(*args, stream)
+    else:
+        err = lib.moco_bn_relu_conv3x3_s2_f32(*args, stream)
     _build.check(err, name)
     return y
 
@@ -107,8 +122,7 @@ def bn_relu_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, w: torch.
     _check_conv(x, a, b, w, out_dtype)
     if device_kind(x) == "cpu":
         return bn_relu_conv3x3_plain(x, a, b, w, out_dtype)
-    y = _launch_conv(_build.load_library().moco_bn_relu_conv3x3, "bn_relu_conv3x3",
-                     x, a, b, w, out_dtype, 1)
+    y = _launch_conv("bn_relu_conv3x3", x, a, b, w, out_dtype, 1)
     bn_relu_conv3x3.launches += 1
     return y
 
@@ -125,8 +139,7 @@ def bn_relu_conv3x3_s2(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, w: tor
         raise ValueError(f"bn_relu_conv3x3_s2 needs even H and W, got {tuple(x.shape)}")
     if device_kind(x) == "cpu":
         return bn_relu_conv3x3_s2_plain(x, a, b, w, out_dtype)
-    y = _launch_conv(_build.load_library().moco_bn_relu_conv3x3_s2, "bn_relu_conv3x3_s2",
-                     x, a, b, w, out_dtype, 2)
+    y = _launch_conv("bn_relu_conv3x3_s2", x, a, b, w, out_dtype, 2)
     bn_relu_conv3x3_s2.launches += 1
     return y
 
@@ -279,3 +292,180 @@ def conv3x3_dw_plan(bsz: int, h: int, w: int, k: int, n: int) -> Dw3x3Plan:
         if best[0] is None or cost < best[0]:
             best = (cost, s)
     return Dw3x3Plan(bsz, h, w, k, n, plan.rows, best[1])
+
+
+# The bf16 forward band kernel's geometry (csrc/conv3x3_fwd.cu): 8 warps of
+# 64 x 32 outputs, K-chunks of 64 or 32 channels, shared-memory band pixels
+# of bk + 8 bf16 (so that ldmatrix rows fall in distinct banks), two W
+# stages, and a 16 x 36 f32 epilogue staging per warp that overlays them.
+FWD_WARPS = 8
+FWD_W_STAGES = 2
+FWD_STAGING_BYTES = FWD_WARPS * 16 * 36 * 4
+FWD_SM_SMEM = 233472          # bytes of shared memory per SM of an H100
+
+
+@dataclass(frozen=True)
+class Fwd3x3Plan:
+    """Launch plan of the bf16 forward band kernel (`bn_relu_conv3x3` at
+    stride 1, `bn_relu_conv3x3_s2` at stride 2).
+
+    A block owns `bm` consecutive output pixels (image-major: an M tile,
+    which may span several images) and `bn` output channels, and walks the
+    K-chunks of `bk` channels. The band of an M tile holds, per image it
+    touches, the padded input rows its output rows read (image rows
+    S*r_lo - 1 .. S*r_hi + 1; row -1 and row H are zero), each `wp` = W + 2
+    pixels of one K-chunk. At stride 1 slot s of a band row is padded column
+    s; at stride 2 the even padded columns come first (slots 0 .. half - 1),
+    then the odd ones. Output pixel m reads band pixel
+    `bases(tile)[m] + tap_offset(di, dj)` at tap (di, dj). `band_rows` is
+    what the largest M tile needs."""
+
+    bsz: int
+    h: int
+    w: int
+    k: int
+    n: int
+    stride: int
+    bn: int
+    bk: int
+    band_rows: int
+
+    @property
+    def bm(self) -> int:
+        return 64 * (FWD_WARPS // (self.bn // 32))
+
+    @property
+    def ho(self) -> int:
+        return self.h // self.stride
+
+    @property
+    def wo(self) -> int:
+        return self.w // self.stride
+
+    @property
+    def m(self) -> int:
+        return self.bsz * self.ho * self.wo
+
+    @property
+    def tiles_m(self) -> int:
+        return -(-self.m // self.bm)
+
+    @property
+    def tiles_n(self) -> int:
+        return -(-self.n // self.bn)
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    @property
+    def k_chunks(self) -> int:
+        return -(-self.k // self.bk)
+
+    @property
+    def pitch(self) -> int:
+        """bf16 per band pixel."""
+        return self.bk + 8
+
+    @property
+    def wp(self) -> int:
+        return self.w + 2
+
+    @property
+    def half(self) -> int:
+        return self.wp // 2
+
+    @property
+    def smem_bytes(self) -> int:
+        """The band and the W stages (or the epilogue staging, which
+        overlays them, if larger), then the row and base tables (int32)."""
+        stages = self.band_rows * self.wp * self.pitch * 2 + \
+            FWD_W_STAGES * self.bk * (self.bn + 8) * 2
+        return max(stages, FWD_STAGING_BYTES) + 4 * (self.band_rows + self.bm)
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks one SM holds by shared memory (1 KB reserved per block);
+        the registers allow two."""
+        return min(2, FWD_SM_SMEM // (self.smem_bytes + 1024))
+
+    def slot(self, col: int) -> int:
+        """Band slot of padded column `col` (0 .. W + 1)."""
+        if self.stride == 1:
+            return col
+        return col // 2 if col % 2 == 0 else self.half + col // 2
+
+    def tap_offset(self, di: int, dj: int) -> int:
+        """Band pixels from an output pixel's base (tap (0, 0)) to tap (di, dj)."""
+        return di * self.wp + self.slot(1 + dj) - self.slot(1)
+
+    def tile_span(self, tile: int) -> tuple[int, int, int, int, int]:
+        """(first pixel, last pixel, first image, its first output row, band
+        rows of its segment) of an M tile."""
+        hw = self.ho * self.wo
+        p0 = tile * self.bm
+        p1 = min(p0 + self.bm, self.m) - 1
+        img0, img1 = p0 // hw, p1 // hw
+        rlo0 = p0 % hw // self.wo
+        rhi0 = p1 % hw // self.wo if img1 == img0 else self.ho - 1
+        return p0, p1, img0, rlo0, self.stride * (rhi0 - rlo0) + 3
+
+    def row_sources(self, tile: int) -> list[tuple[int, int]]:
+        """(image, image row) of every band row an M tile uses, in band
+        order; a row outside the image (-1 or H) is zero in the band."""
+        p0, p1, img0, rlo0, rows0 = self.tile_span(tile)
+        hw = self.ho * self.wo
+        out = [(img0, self.stride * rlo0 - 1 + j) for j in range(rows0)]
+        for img in range(img0 + 1, p1 // hw + 1):
+            rhi = p1 % hw // self.wo if img == p1 // hw else self.ho - 1
+            out += [(img, ir) for ir in range(-1, self.stride * rhi + 2)]
+        return out
+
+    def bases(self, tile: int) -> list[int]:
+        """Band pixel of each M row's tap (0, 0); rows past the last output
+        pixel repeat it."""
+        p0, p1, img0, rlo0, rows0 = self.tile_span(tile)
+        hw = self.ho * self.wo
+        full = self.stride * (self.ho - 1) + 3
+        out = []
+        for m in range(self.bm):
+            p = min(p0 + m, p1)
+            img, r, c = p // hw, p % hw // self.wo, p % self.wo
+            seg = 0 if img == img0 else rows0 + (img - img0 - 1) * full
+            rlo = rlo0 if img == img0 else 0
+            out.append((seg + self.stride * (r - rlo) + 1) * self.wp +
+                       self.slot(self.stride * c + 1))
+        return out
+
+
+def _fwd_band_rows(bsz: int, h: int, w: int, k: int, n: int, stride: int, bn: int) -> int:
+    """Band rows of the largest M tile. A tile's span depends only on its
+    first pixel's place in its image, so the first hw / gcd(bm, hw) tiles
+    cover every span (the last tile included where there are fewer)."""
+    plan = Fwd3x3Plan(bsz, h, w, k, n, stride, bn, 64, 0)
+    hw = plan.ho * plan.wo
+    period = hw // math.gcd(plan.bm, hw)
+    return max(len(plan.row_sources(t)) for t in range(min(plan.tiles_m, period)))
+
+
+@functools.lru_cache(maxsize=256)
+def conv3x3_fwd_plan(bsz: int, h: int, w: int, k: int, n: int, stride: int) -> Fwd3x3Plan:
+    """Tile, K-chunk depth and band rows for x [bsz, h, w, k] and
+    w [3, 3, k, n].
+
+    The tile follows N: 256 x 64 where N <= 64 (no half-empty N tiles), else
+    128 x 128. K-chunks of 64 channels, or of 32 where only those let two
+    blocks share an SM (the stride-2 bands, which read about four input
+    pixels per output pixel)."""
+    if stride not in (1, 2) or (stride == 2 and (h % 2 or w % 2)):
+        raise ValueError(f"conv3x3_fwd: stride {stride} on a {h} x {w} image")
+    bn = 64 if n <= 64 else 128
+    rows = _fwd_band_rows(bsz, h, w, k, n, stride, bn)
+    deep, shallow = (Fwd3x3Plan(bsz, h, w, k, n, stride, bn, bk, rows) for bk in (64, 32))
+    if deep.blocks_per_sm < 2 and shallow.blocks_per_sm == 2:
+        return shallow
+    for plan in (deep, shallow):
+        if plan.smem_bytes <= DW_BAND_SMEM_LIMIT:
+            return plan
+    raise ValueError(f"conv3x3_fwd: the band of a {deep.bm}-pixel tile of {h} x {w} images "
+                     f"({rows} rows) does not fit in shared memory")

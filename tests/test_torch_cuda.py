@@ -118,12 +118,17 @@ def test_fast_bn_on_card_matches_cpu(cuda):
 # 1e-5 of sum |z||w|, and a bf16 output adds one rounding, at most one bf16
 # ulp (2^-7 of |ref|).
 FUSED_1X1 = [(96, 24, 40), (1000, 64, 256), (300, 128, 72), (4097, 16, 8)]
-# FUSED_3X3's last three: the bf16 dW's band ends mid-image (H = 29 in
-# bands of 6 rows), the layer-1 geometry at B = 2, and K, N past one 64-wide
-# tile and not multiples of it
+# FUSED_3X3 from the fifth: the bf16 dW's band ends mid-image (H = 29 in
+# bands of 6 rows; the forward's M tiles end mid-row and mid-image), the
+# layer-1 geometry at B = 2, K, N past one 64-wide tile and not multiples of
+# it, and 7x7 images packed 2.6 to a 128 x 128 forward tile with a partial
+# last tile. FUSED_S2 from the fourth: a forward M tile that ends
+# mid-image, the layer-2 geometry at B = 2, K and N past one tile (N = 200:
+# two 128-wide tiles), and layer 4's 14x14 -> 7x7 at B = 3 (images packed).
 FUSED_3X3 = [(2, 7, 7, 8, 8), (2, 8, 8, 16, 24), (3, 14, 14, 64, 64), (1, 5, 6, 24, 40),
-             (2, 29, 28, 24, 40), (2, 56, 56, 64, 64), (2, 9, 10, 72, 80)]
-FUSED_S2 = [(2, 8, 8, 16, 24), (2, 14, 14, 64, 32), (1, 4, 6, 24, 40)]
+             (2, 29, 28, 24, 40), (2, 56, 56, 64, 64), (2, 9, 10, 72, 80), (6, 7, 7, 16, 72)]
+FUSED_S2 = [(2, 8, 8, 16, 24), (2, 14, 14, 64, 32), (1, 4, 6, 24, 40), (2, 30, 28, 8, 16),
+            (2, 56, 56, 128, 128), (1, 10, 12, 72, 200), (3, 14, 14, 512, 512)]
 
 
 def _assert_fused_close(got, ref, scale, dtype):
@@ -186,6 +191,7 @@ def test_bn_relu_conv3x3_kernel(cuda, bsz, h, wd, k, n, dtype):
     ref = fused_conv3x3.bn_relu_conv3x3_plain(x, a, b, w, torch.float32)
     scale = fused_conv3x3.bn_relu_conv3x3_plain(x, a, b, w.abs(), torch.float32)
     _assert_fused_close(got, ref, scale, dtype)
+    assert torch.equal(got, fused_conv3x3.bn_relu_conv3x3(x, a, b, w, out_dtype=dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -197,6 +203,60 @@ def test_bn_relu_conv3x3_s2_kernel(cuda, bsz, h, wd, k, n, dtype):
     ref = fused_conv3x3.bn_relu_conv3x3_s2_plain(x, a, b, w, torch.float32)
     scale = fused_conv3x3.bn_relu_conv3x3_s2_plain(x, a, b, w.abs(), torch.float32)
     _assert_fused_close(got, ref, scale, dtype)
+    assert torch.equal(got, fused_conv3x3.bn_relu_conv3x3_s2(x, a, b, w, out_dtype=dtype))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv3x3_forward_unaligned_x_takes_narrow_loads(cuda, stride):
+    """An x view that starts 2 bytes into its storage cannot use 16-byte
+    copies; the band kernel then loads 2 bytes at a time. The output is f32
+    and bf16 from the same launch plan."""
+    bsz, h, wd, k, n = 2, 10, 12, 24, 40
+    gen, base, a, b = _fused_inputs(cuda, 13 + stride, (1 + bsz * h * wd * k,), k,
+                                    torch.bfloat16)
+    x = base[1:].view(bsz, h, wd, k)
+    assert x.data_ptr() % 16 != 0
+    w = (torch.randn((3, 3, k, n), generator=gen, device=cuda) * 0.1).bfloat16()
+    fn, plain = (fused_conv3x3.bn_relu_conv3x3, fused_conv3x3.bn_relu_conv3x3_plain) \
+        if stride == 1 else (fused_conv3x3.bn_relu_conv3x3_s2,
+                             fused_conv3x3.bn_relu_conv3x3_s2_plain)
+    ref, scale = plain(x, a, b, w, torch.float32), plain(x, a, b, w.abs(), torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = fn(x, a, b, w, out_dtype=dtype)
+        _assert_fused_close(got, ref, scale, dtype)
+        assert torch.equal(got, fn(x, a, b, w, out_dtype=dtype))
+
+
+@pytest.mark.parametrize("bk", [64, 32])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv3x3_forward_chunk_depths(cuda, stride, bk):
+    """Both K-chunk depths of the band kernel, forced through the launch
+    plan, at K = 72 (the last chunk 8 deep) and N = 200 (two N tiles)."""
+    import dataclasses
+
+    bsz, h, wd, k, n = 2, 10, 12, 72, 200
+    gen, x, a, b = _fused_inputs(cuda, 17 + stride + bk, (bsz, h, wd, k), k, torch.bfloat16)
+    w = (torch.randn((3, 3, k, n), generator=gen, device=cuda) * 0.1).bfloat16()
+    plan = dataclasses.replace(fused_conv3x3.conv3x3_fwd_plan(bsz, h, wd, k, n, stride), bk=bk)
+    got = fused_conv3x3._launch_conv("fwd", x, a, b, w, torch.bfloat16, stride, plan)
+    plain = fused_conv3x3.bn_relu_conv3x3_plain if stride == 1 else \
+        fused_conv3x3.bn_relu_conv3x3_s2_plain
+    _assert_fused_close(got, plain(x, a, b, w, torch.float32),
+                        plain(x, a, b, w.abs(), torch.float32), torch.bfloat16)
+
+
+def test_conv3x3_forwards_count_both_routes(cuda):
+    """bf16 launches the band kernel and f32 the implicit GEMM; each counts
+    one launch per call."""
+    fns = (fused_conv3x3.bn_relu_conv3x3, fused_conv3x3.bn_relu_conv3x3_s2)
+    before = [f.launches for f in fns]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.ones(2, 4, 4, 8, device=cuda, dtype=dtype)
+        a, b = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+        w = torch.ones(3, 3, 8, 8, device=cuda, dtype=dtype)
+        for f in fns:
+            f(x, a, b, w)
+    assert [f.launches for f in fns] == [c + 2 for c in before]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
