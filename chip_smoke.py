@@ -7,7 +7,7 @@ Phases; any failure ends the run with a nonzero exit and no result line:
 
 1.  build   compile moco_tpu_torch/csrc/*.cu with nvcc for sm_90a
             (channel_stats, blur, fused_conv, fused_conv_dw, conv3x3_dw,
-            conv3x3_fwd);
+            conv3x3_fwd, matmul_fwd, matmul_dw);
 2.  kernels each CUDA kernel against its plain PyTorch version on the card,
             at the shapes the ResNet-50 batch-256 step gives it, with its
             time, its bound, the plain version's time and one PyTorch
@@ -411,7 +411,8 @@ def profile_step(config, state, dataset, label: str) -> None:
           f"({100 * busy_ms / wall_ms:.1f}%), {len(kernel_events)} kernel names", flush=True)
     categories = {"port kernels": ("sums_partial", "sum_partials", "blur_tile",
                                    "bn_relu_conv_gemm", "conv_dw_partial", "conv3x3_dw_bands",
-                                   "sum_slabs", "conv3x3_fwd_bands"),
+                                   "sum_slabs", "conv3x3_fwd_bands", "matmul_fwd_panel",
+                                   "matmul_dw_rows", "sum_groups"),
                   "convolution": ("conv", "xmma_fprop", "xmma_dgrad", "xmma_wgrad", "cudnn",
                                   "implicit_gemm", "fprop", "dgrad", "wgrad"),
                   "matmul": ("gemm", "cublas", "cutlass"),
@@ -561,9 +562,8 @@ def main() -> None:
         "channel_sums": ("channel_stats.cu", "moco_tpu/ops/pallas_stats.py:121", "stem"),
         "channel_grad_sums": ("channel_stats.cu", "moco_tpu/ops/pallas_stats.py:155", "stem"),
         "gaussian_blur_batch": ("blur.cu", "moco_tpu/ops/pallas_blur.py:77", "224px"),
-        "bn_relu_matmul": ("fused_conv.cu", "moco_tpu/ops/pallas_fused_conv.py:137", "layer1"),
-        "bn_relu_matmul_dw": ("fused_conv_dw.cu", "moco_tpu/ops/pallas_fused_conv.py:101",
-                              "layer1"),
+        "bn_relu_matmul": ("matmul_fwd.cu", "moco_tpu/ops/pallas_fused_conv.py:137", "layer1"),
+        "bn_relu_matmul_dw": ("matmul_dw.cu", "moco_tpu/ops/pallas_fused_conv.py:101", "layer1"),
         "bn_relu_conv3x3": ("conv3x3_fwd.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:237",
                             "layer1"),
         "bn_relu_conv3x3_s2": ("conv3x3_fwd.cu", "moco_tpu/ops/pallas_fused_conv3x3.py:351",

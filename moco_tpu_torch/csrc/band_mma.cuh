@@ -1,8 +1,9 @@
-// Device helpers shared by the band kernels of the fused BN->ReLU->3x3 conv
-// (conv3x3_dw.cu, the bf16 weight gradient, and conv3x3_fwd.cu, the bf16
-// forwards): cp.async copies into shared memory, ldmatrix fragment loads,
-// the bf16 mma.sync.m16n8k16 product with f32 accumulation, and a
-// division-free walk over the pixels of a grid.
+// Device helpers shared by the bf16 tensor-core kernels of the fused
+// BN->ReLU->conv family (conv3x3_dw.cu and conv3x3_fwd.cu, the 3x3 weight
+// gradient and forwards; matmul_fwd.cu and matmul_dw.cu, the 1x1 pair):
+// cp.async copies into shared memory, ldmatrix fragment loads, the bf16
+// mma.sync.m16n8k16 product with f32 accumulation, a division-free walk
+// over the pixels of a grid, and the in-place normalize of a row tile.
 
 #pragma once
 
@@ -78,5 +79,48 @@ struct PixelWalk {
     }
   }
 };
+
+struct alignas(16) Bf16x8 {
+  __nv_bfloat16 v[8];
+};
+
+// z = relu(x*a + b) in place over a ROWS x COLS tile of channels
+// k0 .. k0+COLS-1 (row pitch PITCH bf16): x*a + b rounded twice (no FMA
+// contraction), then to bf16, as the plain version does. Rows at or past
+// `valid` and channels at or past k hold 0 afterwards, whatever was there:
+// channels by index, not by value, since stale shared memory may hold a
+// NaN and 0*NaN is NaN. Each thread keeps one 8-channel vector.
+template <int ROWS, int COLS, int PITCH, int THREADS>
+__device__ __forceinline__ void normalize_tile(__nv_bfloat16* z, int valid, int k0, int k,
+                                               const float* __restrict__ a,
+                                               const float* __restrict__ b) {
+  constexpr int CV = COLS / 8, RS = THREADS / CV;
+  static_assert(COLS % 8 == 0 && THREADS % CV == 0, "a thread keeps one channel vector");
+  const int v = threadIdx.x % CV;
+  const int kv = k - (k0 + v * 8);  // channels of this vector inside K
+  float av[8], bv[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    av[i] = i < kv ? __ldg(a + k0 + v * 8 + i) : 0.f;
+    bv[i] = i < kv ? __ldg(b + k0 + v * 8 + i) : 0.f;
+  }
+#pragma unroll 4
+  for (int r = threadIdx.x / CV; r < ROWS; r += RS) {
+    Bf16x8* ptr = reinterpret_cast<Bf16x8*>(z + r * PITCH) + v;
+    Bf16x8 val;
+    if (r < valid) {
+      val = *ptr;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float t = __fadd_rn(__fmul_rn(__bfloat162float(val.v[i]), av[i]), bv[i]);
+        val.v[i] = __float2bfloat16(i < kv && t > 0.f ? t : 0.f);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) val.v[i] = __float2bfloat16(0.f);
+    }
+    *ptr = val;
+  }
+}
 
 }  // namespace moco_band

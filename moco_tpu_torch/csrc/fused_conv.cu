@@ -1,41 +1,38 @@
-// BatchNorm-normalize -> ReLU fused into a convolution, for Hopper (sm_90a),
-// bound to Python through ctypes by moco_tpu_torch/ops/fused_conv.py and
-// moco_tpu_torch/ops/fused_conv3x3.py.
+// BatchNorm-normalize -> ReLU fused into a convolution in f32, for Hopper
+// (sm_90a), bound to Python through ctypes by moco_tpu_torch/ops/fused_conv.py
+// and moco_tpu_torch/ops/fused_conv3x3.py.
 //
-// Replaces three Pallas TPU kernels:
+// Serves the f32 routes, reached only by f32 checks, of three Pallas TPU
+// kernels:
 //   bn_relu_matmul      moco_tpu/ops/pallas_fused_conv.py:121 (pallas_call :137)
 //   bn_relu_conv3x3     moco_tpu/ops/pallas_fused_conv3x3.py:199 (pallas_call :237)
 //   bn_relu_conv3x3_s2  moco_tpu/ops/pallas_fused_conv3x3.py:318 (pallas_call :351)
-// the 1x1 in bf16 and f32, the two 3x3 in f32 only (reached by f32 checks);
-// the bf16 3x3 forwards are conv3x3_fwd.cu's band kernel.
+// Their bf16 routes, the training path, are other kernels: the 1x1 is
+// matmul_fwd.cu's panel kernel, the two 3x3 are conv3x3_fwd.cu's band kernel.
 //
 // Work: y = relu(x*a + b) (*) W with a = gamma*rstd, b = beta - mean*a, the
 // ResNet Bottleneck's bn->relu->conv interior. x is NHWC [B, H, W, K] (a
 // channels_last activation), W is [taps, K, N] (the 1x1 [K, N], or the 3x3
-// [3, 3, K, N]), y is NHWC [B, Ho, Wo, N]; bf16 or f32 in, f32 accumulate,
-// bf16 or f32 out. The 3x3 convs pad 1 on every side, at stride 1 or 2.
+// [3, 3, K, N]), y is NHWC [B, Ho, Wo, N]; f32 in, f32 accumulate, bf16 or
+// f32 out. The 3x3 convs pad 1 on every side, at stride 1 or 2.
 //
-// Bound: at the ResNet-50 batch-256 shapes in bf16 the 1x1 moves more bytes
-// than the tensor cores need time for (layer 1: x 103 MB + y 411 MB against
-// 26 GFLOP, ~0.15 ms by bytes at 3.35 TB/s, ~0.03 ms by operations at
-// 989 TFLOP/s); the 3x3 does nine times the operations on the same bytes
-// and sits near the line. The fusion's point is that z = relu(x*a + b) is
-// never written: the unfused block writes z and reads it back.
+// Bound: f32 moves twice the bytes of bf16 and runs outside the tensor
+// cores (67 TFLOP/s), so the operations bound the 3x3 and, at wide K and N,
+// the 1x1. The fusion's point is that z = relu(x*a + b) is never written:
+// the unfused block writes z and reads it back.
 //
-// Design: one implicit-GEMM template for all three. A block owns 128 output
-// pixels x 128 output channels (64 x 64 in f32) and loops over taps x
-// K-chunks of 32 (16 in f32). The block decodes once which input pixel
-// every output row reads (per image, so no halo crosses an image, and
-// stride 2 reads rows 2r-1, 2r, 2r+1); each chunk, it loads x with 16-byte
-// loads along K where K and the pointers allow (element loads otherwise),
-// applies x*a+b and the ReLU in registers, zeroes out-of-image taps AFTER
-// the normalize (an out-of-image tap contributes 0, not relu(b)), and
-// stores z in the operand type to shared memory beside the matching
-// [32, 128] slice of W. The next chunk's global loads start into
+// Design: one implicit-GEMM template for all three. A block owns 64 output
+// pixels x 64 output channels and loops over taps x K-chunks of 16. The
+// block decodes once which input pixel every output row reads (per image,
+// so no halo crosses an image, and stride 2 reads rows 2r-1, 2r, 2r+1);
+// each chunk, it loads x with 16-byte loads along K where K and the
+// pointers allow (element loads otherwise), applies x*a+b and the ReLU in
+// registers, zeroes out-of-image taps AFTER the normalize (an out-of-image
+// tap contributes 0, not relu(b)), and stores z to shared memory beside the
+// matching [16, 64] slice of W. The next chunk's global loads start into
 // registers before this chunk's product, so their latency hides behind it.
-// bf16 multiplies on the tensor cores (WMMA m16n16k16 -> mma.sync) into f32
-// fragments; f32 uses plain FMA, never TF32. The epilogue casts to the
-// output type and stores 16 bytes at a time. No wgmma or TMA yet.
+// The product is plain FMA, never TF32. The epilogue casts to the output
+// type and stores 16 bytes at a time.
 
 #include "implicit_gemm.cuh"
 
@@ -47,11 +44,6 @@ using namespace moco_gemm;
 
 template <typename T>
 struct FwdTile;
-template <>
-struct FwdTile<__nv_bfloat16> {
-  static constexpr int BK = 32, LDA = BK + 8, LDB = 128 + 8;
-  using Acc = WmmaAcc<true, BK, LDA, LDB>;
-};
 template <>
 struct FwdTile<float> {
   static constexpr int BK = 16, LDA = BK + 8, LDB = 64 + 8;
@@ -68,7 +60,6 @@ bn_relu_conv_gemm(const T* __restrict__ x, const float* __restrict__ a,
   constexpr int BM = Acc::BM, BN = Acc::BN, BK = Tile::BK;
   __shared__ __align__(128) T sa[BM * Tile::LDA];
   __shared__ __align__(128) T sb[BK * Tile::LDB];
-  __shared__ __align__(128) float scratch[8 * 256];
   __shared__ int s_img[BM], s_ih[BM], s_iw[BM];
 
   const int64_t p0 = (int64_t)blockIdx.x * BM;
@@ -103,7 +94,7 @@ bn_relu_conv_gemm(const T* __restrict__ x, const float* __restrict__ a,
     }
     acc.mma(sa, sb);
   }
-  acc.store(scratch, [&](int r, int c, const float* v, int count) {
+  acc.store([&](int r, int c, const float* v, int count) {
     const int64_t row = p0 + r;
     const int col = n0 + c;
     if (row < g.m && col < g.n) {
@@ -134,8 +125,8 @@ int run(const void* x, const float* a, const float* b, const void* w, void* y, i
   if (g.m <= 0 || g.m > INT_MAX || g.k <= 0 || g.n <= 0 || (out_dtype != 0 && out_dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // bf16 (dtype 1) is matmul_fwd.cu's and conv3x3_fwd.cu's
   if (dtype == 0) return launch<float>(x, a, b, w, y, out_dtype, g, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, a, b, w, y, out_dtype, g, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -156,10 +147,12 @@ ConvGeom conv3x3_geom(int bsz, int h, int wd, int k, int n, int stride) {
 
 }  // namespace
 
-// dtype / out_dtype: 0 = float32, 1 = bfloat16 (x and w share dtype).
-// Each returns cudaGetLastError() after the launch (0 = success).
+// out_dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError()
+// after the launch (0 = success).
 
-// y[M, N] = relu(x[M, K]*a + b) @ w[K, N]
+// y[M, N] = relu(x[M, K]*a + b) @ w[K, N]; dtype (of x and w) must be 0 =
+// float32: bfloat16 (1) is moco_matmul_fwd_bf16's and returns
+// cudaErrorInvalidValue here
 extern "C" int moco_bn_relu_matmul(const void* x, const float* a, const float* b,
                                    const void* w, void* y, int dtype, int out_dtype,
                                    int64_t m, int k, int n, void* stream) {

@@ -1,34 +1,31 @@
-// Weight gradients of the fused BN->ReLU->conv, for Hopper (sm_90a), bound
-// to Python through ctypes by moco_tpu_torch/ops/fused_conv.py and
-// moco_tpu_torch/ops/fused_conv3x3.py. It serves
-//   bn_relu_matmul_dw  bf16 and f32, replacing moco_tpu/ops/pallas_fused_conv.py:84
-//                      (pallas_call :101);
-//   conv3x3_dw, f32    the f32 route of moco_tpu/ops/pallas_fused_conv3x3.py:371
-//                      (pallas_call :412), reached only by f32 checks; the bf16
-//                      route, the training path, is csrc/conv3x3_dw.cu.
+// Weight gradients of the fused BN->ReLU->conv in f32, for Hopper (sm_90a),
+// bound to Python through ctypes by moco_tpu_torch/ops/fused_conv.py and
+// moco_tpu_torch/ops/fused_conv3x3.py. It serves the f32 routes, reached
+// only by f32 checks, of
+//   bn_relu_matmul_dw  moco_tpu/ops/pallas_fused_conv.py:84 (pallas_call :101)
+//   conv3x3_dw         moco_tpu/ops/pallas_fused_conv3x3.py:371 (pallas_call :412)
+// Their bf16 routes, the training path, are matmul_dw.cu (the 1x1) and
+// conv3x3_dw.cu (the 3x3).
 //
 // Work: dW[tap, K, N] = sum over output pixels p of z_tap[p, K]^T dy[p, N],
 // with z = relu(x*a + b) recomputed from x (never stored) and z_tap the
-// tap-shifted z under the forward's zero padding; f32 out. 1x1: one tap,
-// x [M, K], dy [M, N]. 3x3 (stride 1, pad 1): nine taps, x [B, H, W, K] and
-// dy [B, H, W, N] NHWC.
+// tap-shifted z under the forward's zero padding; f32 in and out. 1x1: one
+// tap, x [M, K], dy [M, N]. 3x3 (stride 1, pad 1): nine taps,
+// x [B, H, W, K] and dy [B, H, W, N] NHWC.
 //
-// Bound: one read of x and dy against a taps*K*N*4-byte output; at the
-// ResNet-50 batch-256 shapes the 1x1 is bound by those bytes (layer 1:
-// x 103 MB + dy 411 MB).
+// Bound: one read of x and dy against a taps*K*N*4-byte output, and the
+// operations at the f32 rate outside the tensor cores (67 TFLOP/s).
 //
 // Design: the TPU kernels carry the sum in a VMEM accumulator across a
 // sequential grid axis over rows (pallas_fused_conv.py:66-80). Hopper
 // blocks run in no order, so the sum is two passes with no atomics, as
 // csrc/channel_stats.cu does. Pass 1: a block owns one tap, a
-// [128 K x 128 N] tile of dW (64 x 64 in f32) and a slab of rows; it walks
-// its slab 32 rows at a time (16 in f32), builds z for those rows in shared
-// memory with the forward's loader (per-image masks, 16-byte loads along K
-// where possible), loads the matching dy rows, and multiplies z^T dy on the
-// tensor cores (f32: FMA) into f32 fragments, with the next rows' global
-// loads in flight during the product; the slab's partial goes to
-// part[slab, tap, K, N]. At nine taps each tap's blocks read x and dy
-// again, which is why bf16 3x3 has its own kernel. Pass 2 sums the slabs of
+// [64 K x 64 N] tile of dW and a slab of rows; it walks its slab 16 rows at
+// a time, builds z for those rows in shared memory with the forward's
+// loader (per-image masks, 16-byte loads along K where possible), loads
+// the matching dy rows, and multiplies z^T dy with FMA into f32 registers,
+// with the next rows' global loads in flight during the product; the
+// slab's partial goes to part[slab, tap, K, N]. Pass 2 sums the slabs of
 // each element in slab order, so two runs on the same input give the same
 // bits.
 
@@ -42,11 +39,6 @@ using namespace moco_gemm;
 
 template <typename T>
 struct DwTile;
-template <>
-struct DwTile<__nv_bfloat16> {
-  static constexpr int BR = 32, LDZ = 128 + 8, LDD = 128 + 8;
-  using Acc = WmmaAcc<false, BR, LDZ, LDD>;
-};
 template <>
 struct DwTile<float> {
   static constexpr int BR = 16, LDZ = 64 + 8, LDD = 64 + 8;
@@ -63,7 +55,6 @@ conv_dw_partial(const T* __restrict__ x, const float* __restrict__ a,
   constexpr int BKO = Acc::BM, BN = Acc::BN, BR = Tile::BR;
   __shared__ __align__(128) T sz[BR * Tile::LDZ];
   __shared__ __align__(128) T sd[BR * Tile::LDD];
-  __shared__ __align__(128) float scratch[8 * 256];
   // row decodes of the current and the next chunk, alternating
   __shared__ int s_img[2][BR], s_ih[2][BR], s_iw[2][BR];
 
@@ -99,7 +90,7 @@ conv_dw_partial(const T* __restrict__ x, const float* __restrict__ a,
     acc.mma(sz, sd);  // z^T dy: z is the column-major A operand
   }
   float* out = part + ((int64_t)blockIdx.z * g.taps + tap) * g.k * g.n;
-  acc.store(scratch, [&](int r, int c, const float* v, int count) {
+  acc.store([&](int r, int c, const float* v, int count) {
     const int k = k0 + r;
     const int n = n0 + c;
     if (k < g.k && n < g.n) {
@@ -151,8 +142,8 @@ int run(const void* x, const float* a, const float* b, const void* dy, float* pa
   if (g.m <= 0 || g.m > INT_MAX || g.k <= 0 || g.n <= 0 || slabs <= 0 || slabs > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // bf16 (dtype 1) is matmul_dw.cu's and conv3x3_dw.cu's
   if (dtype == 0) return launch<float>(x, a, b, dy, part, out, g, slabs, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, a, b, dy, part, out, g, slabs, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -162,8 +153,9 @@ int run(const void* x, const float* a, const float* b, const void* dy, float* pa
 // [taps, K, N]. Each returns cudaGetLastError() after the launches
 // (0 = success).
 
-// dW[K, N] = relu(x[M, K]*a + b)^T @ dy[M, N]; dtype: 0 = float32,
-// 1 = bfloat16 (x and dy share dtype)
+// dW[K, N] = relu(x[M, K]*a + b)^T @ dy[M, N]; dtype (of x and dy) must be
+// 0 = float32: bfloat16 (1) is moco_matmul_dw_bf16's and returns
+// cudaErrorInvalidValue here
 extern "C" int moco_bn_relu_matmul_dw(const void* x, const float* a, const float* b,
                                       const void* dy, float* part, float* out, int dtype,
                                       int64_t m, int k, int n, int slabs, void* stream) {

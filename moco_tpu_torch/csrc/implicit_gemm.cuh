@@ -1,5 +1,6 @@
-// Building blocks shared by the fused BN->ReLU->conv kernels
-// (fused_conv.cu, forward) and their weight-gradient twins (fused_conv_dw.cu).
+// Building blocks shared by the f32 fused BN->ReLU->conv kernels
+// (fused_conv.cu, forward) and their weight-gradient twins (fused_conv_dw.cu);
+// the bf16 kernels take `Pack`, `store_out` and `wide_stores` from here.
 //
 // Both are implicit GEMMs over an NHWC activation x [B, H, W, K]. A "row" is
 // one pixel of the GEMM's M axis; a "tap" (di, dj) in {-1, 0, 1}^2 of a 3x3
@@ -13,26 +14,19 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 namespace moco_gemm {
 
 constexpr int kThreads = 256;  // threads per block, 8 warps
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
@@ -232,70 +226,10 @@ __device__ __forceinline__ void store_out(void* y, bool bf16, bool vec, int64_t 
   }
 }
 
-// acc[128 x 128] += A[128 x BK] * B[BK x 128] on the tensor cores (bf16 in,
-// f32 accumulate, m16n16k16 fragments). A(m, k) is sa[m * LDA + k] when
+// acc[64 x 64] += A[64 x BK] * B[BK x 64] with plain FMA (never TF32),
+// 16 x 16 threads of 4 x 4 outputs each. A(m, k) is sa[m * LDA + k] when
 // A_ROW, else sa[k * LDA + m] (the weight gradient's transposed operand);
-// B(k, n) is sb[k * LDB + n]. 8 warps in a 2 x 4 grid, 64 x 32 each.
-template <bool A_ROW, int BK, int LDA, int LDB>
-struct WmmaAcc {
-  static constexpr int BM = 128, BN = 128, RUN = 8;  // RUN: values per emit
-  using ALayout = std::conditional_t<A_ROW, nvcuda::wmma::row_major, nvcuda::wmma::col_major>;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[4][2];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(c[i][j], 0.f);
-  }
-
-  __device__ __forceinline__ void mma(const __nv_bfloat16* sa, const __nv_bfloat16* sb) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
-    const int wm = warp / 4, wn = warp % 4;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = wm * 64 + i * 16;
-        wmma::load_matrix_sync(fa[i], A_ROW ? sa + m * LDA + kk : sa + kk * LDA + m, LDA);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], sb + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], fa[i], fb[j], c[i][j]);
-    }
-  }
-
-  // emit(row, col, values, 8) for every run of 8 consecutive elements of a
-  // row of the tile, in tile coordinates; `scratch` is this block's
-  // 8 x 256 floats of shared memory.
-  template <typename Emit>
-  __device__ __forceinline__ void store(float* scratch, Emit emit) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int wm = warp / 4, wn = warp % 4;
-    float* mine = scratch + warp * 256;
-    const int r = lane / 2, c0 = (lane % 2) * 8;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(mine, c[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        emit(wm * 64 + i * 16 + r, wn * 32 + j * 16 + c0, mine + r * 16 + c0, 8);
-        __syncwarp();
-      }
-  }
-};
-
-// The f32 twin: acc[64 x 64] += A[64 x BK] * B[BK x 64] with plain FMA
-// (never TF32), 16 x 16 threads of 4 x 4 outputs each.
+// B(k, n) is sb[k * LDB + n].
 template <bool A_ROW, int BK, int LDA, int LDB>
 struct FmaAcc {
   static constexpr int BM = 64, BN = 64, RUN = 4;
@@ -327,7 +261,7 @@ struct FmaAcc {
   }
 
   template <typename Emit>
-  __device__ __forceinline__ void store(float* /*scratch*/, Emit emit) {
+  __device__ __forceinline__ void store(Emit emit) {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
     for (int i = 0; i < 4; ++i) emit(ty * 4 + i, tx * 4, c[i], 4);

@@ -24,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("channel_stats.cu", "blur.cu", "fused_conv.cu", "fused_conv_dw.cu", "conv3x3_dw.cu",
-           "conv3x3_fwd.cu")
+           "conv3x3_fwd.cu", "matmul_fwd.cu", "matmul_dw.cu")
 HEADERS = ("implicit_gemm.cuh", "band_mma.cuh")  # included by the sources; hashed with them
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,7 +44,9 @@ SIGNATURES = {
     "moco_bn_relu_conv3x3_s2_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "moco_conv3x3_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _P),
+    "moco_matmul_fwd_bf16": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P),
     "moco_bn_relu_matmul_dw": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
+    "moco_matmul_dw_bf16": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
     "moco_conv3x3_dw_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "moco_conv3x3_dw_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "moco_error_string": (_I,),

@@ -172,7 +172,7 @@ def conv3x3_dw(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             x.data_ptr(), a.data_ptr(), b.data_ptr(), dy.data_ptr(), part.data_ptr(),
             out.data_ptr(), bsz, h, wd, k, n, plan.rows, plan.slabs, plan.smem_bytes, stream)
     else:
-        slabs = dw_slabs(bsz * h * wd, k, n, 9, x.dtype)
+        slabs = dw_slabs(bsz * h * wd, k, n, 9)
         part = dw_partials(slabs, 9, k, n, x.device)
         err = lib.moco_conv3x3_dw_f32(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), dy.data_ptr(), part.data_ptr(),

@@ -117,7 +117,13 @@ def test_fast_bn_on_card_matches_cpu(cuda):
 # rounded): f32 sums of the same products in another order stay within
 # 1e-5 of sum |z||w|, and a bf16 output adds one rounding, at most one bf16
 # ulp (2^-7 of |ref|).
-FUSED_1X1 = [(96, 24, 40), (1000, 64, 256), (300, 128, 72), (4097, 16, 8)]
+# FUSED_1X1 from the fifth: K and N past one tile and not multiples of it
+# (the dW plan: five clusters of 2, four partials added to the first), a
+# layer-4-like K = 512, N = 2048 at a small ragged M, an M whose dW plan
+# adds 7 cluster partials, and K = 640, past the forward's resident panel
+# (three streaming slots).
+FUSED_1X1 = [(96, 24, 40), (1000, 64, 256), (300, 128, 72), (4097, 16, 8), (4097, 72, 200),
+             (777, 512, 2048), (20000, 256, 512), (300, 640, 136)]
 # FUSED_3X3 from the fifth: the bf16 dW's band ends mid-image (H = 29 in
 # bands of 6 rows; the forward's M tiles end mid-row and mid-image), the
 # layer-1 geometry at B = 2, K, N past one 64-wide tile and not multiples of
@@ -157,6 +163,7 @@ def test_bn_relu_matmul_kernel(cuda, m, k, n, dtype):
     ref = fused_conv.bn_relu_matmul_plain(x, a, b, w, torch.float32)
     scale = fused_conv.bn_relu_matmul_plain(x, a, b, w.abs(), torch.float32)
     _assert_fused_close(got, ref, scale, dtype)
+    assert torch.equal(got, fused_conv.bn_relu_matmul(x, a, b, w, out_dtype=dtype))
 
 
 def test_bn_relu_matmul_unaligned_rows_take_narrow_loads(cuda):
@@ -171,6 +178,41 @@ def test_bn_relu_matmul_unaligned_rows_take_narrow_loads(cuda):
     _assert_fused_close(got, ref, scale, torch.float32)
 
 
+def test_bn_relu_matmul_unaligned_x_takes_narrow_loads_bf16(cuda):
+    """The bf16 panel kernel on an x view 2 bytes into its storage (2-byte
+    loads), K and N past one tile; f32 and bf16 out from the same plan."""
+    m, k, n = 517, 72, 200
+    gen, base, a, b = _fused_inputs(cuda, 19, (1 + m * k,), k, torch.bfloat16)
+    x = base[1:].view(m, k)
+    assert x.data_ptr() % 16 != 0
+    w = (torch.randn((k, n), generator=gen, device=cuda) * 0.1).bfloat16()
+    ref = fused_conv.bn_relu_matmul_plain(x, a, b, w, torch.float32)
+    scale = fused_conv.bn_relu_matmul_plain(x, a, b, w.abs(), torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = fused_conv.bn_relu_matmul(x, a, b, w, out_dtype=dtype)
+        _assert_fused_close(got, ref, scale, dtype)
+        assert torch.equal(got, fused_conv.bn_relu_matmul(x, a, b, w, out_dtype=dtype))
+
+
+@pytest.mark.parametrize("slots,span", [(6, 128), (6, 256), (4, 128), (5, 384)])
+def test_bn_relu_matmul_panel_plans(cuda, slots, span):
+    """The panel kernel on forced plans at K = 328 (six chunks, the last 8
+    deep) and N = 300 (three 128-wide tiles): a resident panel (6 slots)
+    swept over spans of one and two N tiles, and four or five streaming
+    slots (the plan streams in three)."""
+    import dataclasses
+
+    m, k, n = 1111, 328, 300
+    gen, x, a, b = _fused_inputs(cuda, slots * span, (m, k), k, torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=cuda) * 0.1).bfloat16()
+    plan = dataclasses.replace(fused_conv.matmul_fwd_plan(m, k, n), span=span, slots=slots)
+    assert plan.resident == (slots == 6)
+    got = fused_conv._launch_matmul(x, a, b, w, torch.bfloat16, plan)
+    _assert_fused_close(got, fused_conv.bn_relu_matmul_plain(x, a, b, w, torch.float32),
+                        fused_conv.bn_relu_matmul_plain(x, a, b, w.abs(), torch.float32),
+                        torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", FUSED_1X1)
 def test_bn_relu_matmul_dw_kernel(cuda, m, k, n, dtype):
@@ -180,6 +222,70 @@ def test_bn_relu_matmul_dw_kernel(cuda, m, k, n, dtype):
     _assert_fused_close(got, fused_conv.bn_relu_matmul_dw_plain(x, a, b, dy),
                         fused_conv.bn_relu_matmul_dw_plain(x, a, b, dy.abs()), torch.float32)
     assert torch.equal(got, fused_conv.bn_relu_matmul_dw(x, a, b, dy))  # no atomics
+
+
+@pytest.mark.parametrize("which", ["x", "dy"])
+def test_bn_relu_matmul_dw_unaligned_takes_narrow_loads(cuda, which):
+    """The bf16 row-walk kernel with x or dy 2 bytes into its storage."""
+    m, k, n = 1000, 72, 200
+    gen, x, a, b = _fused_inputs(cuda, 23, (m, k), k, torch.bfloat16)
+    dy = torch.randn((m, n), generator=gen, device=cuda).bfloat16()
+    if which == "x":
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(m, k)
+    else:
+        dy = torch.cat([dy.new_zeros(1), dy.flatten()])[1:].view(m, n)
+    assert (x if which == "x" else dy).data_ptr() % 16 != 0
+    got = fused_conv.bn_relu_matmul_dw(x, a, b, dy)
+    _assert_fused_close(got, fused_conv.bn_relu_matmul_dw_plain(x, a, b, dy),
+                        fused_conv.bn_relu_matmul_dw_plain(x, a, b, dy.abs()), torch.float32)
+    assert torch.equal(got, fused_conv.bn_relu_matmul_dw(x, a, b, dy))
+
+
+@pytest.mark.parametrize("bko,slabs,cluster", [(64, 1, 1), (64, 8, 8), (128, 6, 2), (128, 12, 4),
+                                               (128, 7, 7)])
+def test_bn_relu_matmul_dw_plans(cuda, bko, slabs, cluster):
+    """The row-walk kernel on forced plans at K = 72 and N = 200: both
+    tiles, one slab, one cluster of 7 or 8 (the sum on chip alone), and
+    clusters of 2 and 4 with two partials added to the first's sum."""
+    m, k, n = 3001, 72, 200
+    gen, x, a, b = _fused_inputs(cuda, slabs * 10 + cluster, (m, k), k, torch.bfloat16)
+    dy = torch.randn((m, n), generator=gen, device=cuda).bfloat16()
+    plan = fused_conv.MatmulDwPlan(m, k, n, bko, slabs, cluster)
+    got = fused_conv._launch_matmul_dw(x, a, b, dy, plan)
+    _assert_fused_close(got, fused_conv.bn_relu_matmul_dw_plain(x, a, b, dy),
+                        fused_conv.bn_relu_matmul_dw_plain(x, a, b, dy.abs()), torch.float32)
+    assert torch.equal(got, fused_conv._launch_matmul_dw(x, a, b, dy, plan))
+
+
+def test_matmul_pair_counts_both_routes(cuda):
+    """bf16 launches the panel and row-walk kernels and f32 the implicit
+    GEMM templates; each counts one launch per call."""
+    fns = (fused_conv.bn_relu_matmul, fused_conv.bn_relu_matmul_dw)
+    before = [f.launches for f in fns]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.ones(40, 8, device=cuda, dtype=dtype)
+        a, b = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+        y = fused_conv.bn_relu_matmul(x, a, b, torch.ones(8, 16, device=cuda, dtype=dtype),
+                                      out_dtype=torch.float32)
+        dw = fused_conv.bn_relu_matmul_dw(x, a, b, torch.ones(40, 16, device=cuda, dtype=dtype))
+        assert bool((y == 8).all()) and bool((dw == 40).all())
+    assert [f.launches for f in fns] == [c + 2 for c in before]
+
+
+def test_matmul_pair_raises_on_a_failed_launch(cuda):
+    """A plan the C entry point refuses (shared memory that does not match)
+    raises; nothing falls back to the plain version."""
+    import dataclasses
+
+    x = torch.ones(64, 200, device=cuda, dtype=torch.bfloat16)
+    a, b = torch.ones(200, device=cuda), torch.zeros(200, device=cuda)
+    w = torch.ones(200, 16, device=cuda, dtype=torch.bfloat16)
+    bad = dataclasses.replace(fused_conv.matmul_fwd_plan(64, 200, 16), slots=2)  # streams in 2
+    with pytest.raises(RuntimeError):
+        fused_conv._launch_matmul(x, a, b, w, torch.bfloat16, bad)
+    bad_dw = fused_conv.MatmulDwPlan(64, 200, 16, 128, 3, 2)  # 3 slabs in clusters of 2
+    with pytest.raises(RuntimeError):
+        fused_conv._launch_matmul_dw(x, a, b, torch.ones_like(w[:64]), bad_dw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
