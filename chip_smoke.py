@@ -13,9 +13,13 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             time, its bound, the plain version's time and one PyTorch
             library call's time as a yardstick (for the fused BN->ReLU->conv
             kernels: the product alone, on an already-normalized operand);
+            the BN reduction pair at all 12 ResNet-50 BN shapes, each run
+            twice with the same bits, timed as eager calls and as a CUDA
+            graph of the same calls (device time), inputs rotated past L2;
 3.  slice   a few steps of the `imagenet-moco-v2` preset (ResNet-50, 224 px,
             bf16, K=65536, MLP head, T=0.2) at batch 256 on synthetic data
-            through `moco_tpu_torch.train`, with the kernels' launch counts;
+            through `moco_tpu_torch.train`, with the kernels' launch counts,
+            then one profiled step (the BN pair: one launch per call);
 3b. fused   the same with `fused_bn_conv=True` (the blocks' interior
             bn->relu->conv passes through the fused kernels);
 4.  check   a small f32 ResNet and one BatchNorm on the card against the
@@ -30,6 +34,7 @@ to this script.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -44,11 +49,20 @@ BF16_OPS_PER_S = 989e12     # H100 SXM bf16 dense tensor cores
 STEPS = 6
 FUSED_STEPS = 4             # the fused run: one warm-up step and three more
 BATCH = 256
-R50_BN_SHAPES = {           # [N*H*W, C] of three R50 BNs at batch 256, 224 px
-    "stem": (256 * 112 * 112, 64),
-    "layer1": (256 * 56 * 56, 256),
-    "layer4": (256 * 7 * 7, 2048),
+# [N*H*W, C] of every R50 BN at batch 256, 224 px, and how many BNs of that
+# shape one encoder has (53 in all); channel_sums runs twice a BN a step (q
+# and k forwards), channel_grad_sums once (q backward)
+R50_BN_SHAPES = {
+    "stem": ((BATCH * 112 * 112, 64), 1), "l1_64": ((BATCH * 56 * 56, 64), 6),
+    "l1_128": ((BATCH * 56 * 56, 128), 1), "l1_256": ((BATCH * 56 * 56, 256), 4),
+    "l2_128": ((BATCH * 28 * 28, 128), 7), "l2_256": ((BATCH * 28 * 28, 256), 1),
+    "l2_512": ((BATCH * 28 * 28, 512), 5), "l3_256": ((BATCH * 14 * 14, 256), 11),
+    "l3_512": ((BATCH * 14 * 14, 512), 1), "l3_1024": ((BATCH * 14 * 14, 1024), 7),
+    "l4_512": ((BATCH * 7 * 7, 512), 5), "l4_2048": ((BATCH * 7 * 7, 2048), 4),
 }
+BN_LAUNCHES = {"channel_sums": 2, "channel_grad_sums": 1}  # per BN per step
+ROTATE_BYTES = 100e6        # inputs up to this size rotate through copies, so
+                            # that a timed loop reads twice the 50 MB L2
 SUM_RTOL = 1e-4             # |kernel - plain| <= 1e-4 * sum |term|, per channel
 # The fused kernels at the R50 batch-256 shapes: 1x1 [M, K, N] (conv3, and
 # its dW), stride-1 3x3 [B, H, W, K] with N = K (conv2 mids, and their dW),
@@ -99,62 +113,128 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> t
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def graph_ms(fn, iters: int, replays: int = 3) -> float:
+    """Mean device time of `fn` over `iters` calls captured in one CUDA
+    graph and replayed (CUDA events around the replays): the kernels' time
+    with no host in between."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up on the capture stream
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def _copies(tensors: tuple, nbytes: float) -> list:
+    """The inputs of one call (`nbytes` in all) and enough copies of them
+    that a loop over the copies reads more than ROTATE_BYTES; inputs larger
+    than that alone."""
+    n = math.ceil(ROTATE_BYTES / nbytes) if nbytes <= ROTATE_BYTES else 1
+    return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def _sums_close(kname: str, shape_name: str, got, ref, scale) -> float:
+    err = 0.0
+    for g, r, s in zip(got, ref, scale):
+        diff = (g - r).abs()
+        if not bool((diff <= SUM_RTOL * s).all()):
+            fail(f"{kname}[{shape_name}] disagrees: max rel {float((diff / s).max()):.3e}", 1)
+        err = max(err, float(diff.max()))
+    return err
+
+
 def check_stats_kernels(stats) -> dict:
-    """channel_sums / channel_grad_sums at the R50 shapes (bf16)."""
+    """channel_sums / channel_grad_sums at all 12 R50 BN shapes (bf16):
+    each against its plain version, twice with the same bits; its time in
+    eager back-to-back calls ("call ms") and in a CUDA graph of the same
+    calls ("device ms"), with inputs of 100 MB or less rotated through
+    copies; the library call's the same two ways; and the sums over one
+    step's launches."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = {"channel_sums": {}, "channel_grad_sums": {}}
-    for name, (m, c) in R50_BN_SHAPES.items():
+    for name, ((m, c), n_bn) in R50_BN_SHAPES.items():
         x = (torch.randn((m, c), generator=gen, device="cuda") * 2 + 0.5).bfloat16()
         dy = torch.randn((m, c), generator=gen, device="cuda").bfloat16()
         xf = x.float()
         mean = xf.mean(0)
         rstd = torch.rsqrt(xf.var(0, correction=0) + 1e-5)
-
-        got = stats.channel_sums(x)
-        ref = stats.channel_sums_plain(x)
-        scale = (xf.abs().sum(0), (xf * xf).sum(0))
-        err = 0.0
-        for g, r, s in zip(got, ref, scale):
-            diff = (g - r).abs()
-            if not bool((diff <= SUM_RTOL * s).all()):
-                fail(f"channel_sums[{name}] disagrees: max rel {float((diff / s).max()):.3e}", 1)
-            err = max(err, float(diff.max()))
-        ms = time_ms(lambda: stats.channel_sums(x), 20)
-        plain_ms = time_ms(lambda: stats.channel_sums_plain(x), 5)
-        lib_ms = time_ms(lambda: torch.var_mean(x, dim=0, correction=0), 20)
-        b_ms, b_by = bound(m * c * x.element_size() + 2 * c * 4, 3 * m * c)
-        report["channel_sums"][name] = dict(shape=[m, c], max_abs_err=err, ms=ms,
-                                            plain_ms=plain_ms, library_ms=lib_ms,
-                                            bound_ms=b_ms, bound_by=b_by)
-
-        got = stats.channel_grad_sums(dy, x, mean, rstd)
-        ref = stats.channel_grad_sums_plain(dy, x, mean, rstd)
         dyf = dy.float()
-        scale = (dyf.abs().sum(0), (dyf * (xf - mean) * rstd).abs().sum(0))
-        err = 0.0
-        for g, r, s in zip(got, ref, scale):
-            diff = (g - r).abs()
-            if not bool((diff <= SUM_RTOL * s).all()):
-                fail(f"channel_grad_sums[{name}] disagrees: max rel "
-                     f"{float((diff / s).max()):.3e}", 1)
-            err = max(err, float(diff.max()))
-        ms = time_ms(lambda: stats.channel_grad_sums(dy, x, mean, rstd), 20)
-        plain_ms = time_ms(lambda: stats.channel_grad_sums_plain(dy, x, mean, rstd), 5)
-        lib_ms = time_ms(lambda: torch.batch_norm_backward_reduce(
-            dy, x, mean, rstd, None, True, False, False), 20)
-        b_ms, b_by = bound(2 * m * c * x.element_size() + 4 * c * 4, 6 * m * c)
-        report["channel_grad_sums"][name] = dict(shape=[m, c], max_abs_err=err, ms=ms,
-                                                 plain_ms=plain_ms, library_ms=lib_ms,
-                                                 bound_ms=b_ms, bound_by=b_by)
-        for kname in report:
-            r = report[kname][name]
-            print(f"kernel {kname} {name} [{m}, {c}] bf16: {r['ms']:.4f} ms "
-                  f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-                  f"max abs err {r['max_abs_err']:.3e})", flush=True)
-        del x, dy, xf, dyf
+        cases = {
+            "channel_sums": dict(
+                run=lambda a: stats.channel_sums(a[0]),
+                plain=lambda a: stats.channel_sums_plain(a[0]),
+                library=lambda a: torch.var_mean(a[0], dim=0, correction=0),
+                inputs=_copies((x,), m * c * x.element_size()),
+                scale=(xf.abs().sum(0), (xf * xf).sum(0)),
+                bound=bound(m * c * x.element_size() + 2 * c * 4, 3 * m * c)),
+            "channel_grad_sums": dict(
+                run=lambda a: stats.channel_grad_sums(a[0], a[1], mean, rstd),
+                plain=lambda a: stats.channel_grad_sums_plain(a[0], a[1], mean, rstd),
+                library=lambda a: torch.batch_norm_backward_reduce(
+                    a[0], a[1], mean, rstd, None, True, False, False),
+                inputs=_copies((dy, x), 2 * m * c * x.element_size()),
+                scale=(dyf.abs().sum(0), (dyf * (xf - mean) * rstd).abs().sum(0)),
+                bound=bound(2 * m * c * x.element_size() + 4 * c * 4, 6 * m * c)),
+        }
+        del xf, dyf
+        for kname, k in cases.items():
+            inputs = k["inputs"]
+            got = k["run"](inputs[0])
+            again = k["run"](inputs[0])
+            err = _sums_close(kname, name, got, k["plain"](inputs[0]), k["scale"])
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                fail(f"{kname}[{name}] gave other bits on a second run", 1)
+            n = len(inputs)
+            iters = n * math.ceil(20 / n)
+            cycle = itertools.cycle(inputs)
+
+            def each(fn):  # each call on the next copy
+                return lambda: fn(next(cycle))
+
+            r = dict(shape=[m, c], bns=n_bn, copies=n, max_abs_err=err,
+                     ms=time_ms(each(k["run"]), iters),
+                     device_ms=graph_ms(each(k["run"]), iters),
+                     plain_ms=time_ms(each(k["plain"]), 3),
+                     library_ms=time_ms(each(k["library"]), iters),
+                     library_device_ms=graph_ms(each(k["library"]), iters),
+                     bound_ms=k["bound"][0], bound_by=k["bound"][1])
+            report[kname][name] = r
+            print(f"kernel {kname} {name} [{m}, {c}] bf16 x{n_bn}: call {r['ms']:.4f} ms, "
+                  f"device {r['device_ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+                  f"{r['bound_by']}, {100 * r['bound_ms'] / r['device_ms']:.0f}% of it; plain "
+                  f"{r['plain_ms']:.4f} ms; library call {r['library_ms']:.4f} ms, device "
+                  f"{r['library_device_ms']:.4f} ms; {n} input copies; max abs err "
+                  f"{err:.3e})", flush=True)
+        del x, dy, cases
+        torch.cuda.empty_cache()
+    for kname, rows in report.items():
+        per = BN_LAUNCHES[kname]
+        launches = sum(per * r["bns"] for r in rows.values())
+        total = {key: sum(per * r["bns"] * r[key] for r in rows.values())
+                 for key in ("device_ms", "ms", "bound_ms", "library_device_ms")}
+        print(f"kernel {kname} per step: {launches} launches, device {total['device_ms']:.4f} ms "
+              f"(call {total['ms']:.4f} ms), bound {total['bound_ms']:.4f} ms "
+              f"({total['device_ms'] / total['bound_ms']:.2f}x), library device "
+              f"{total['library_device_ms']:.4f} ms", flush=True)
     return report
 
 
@@ -409,7 +489,7 @@ def profile_step(config, state, dataset, label: str) -> None:
         return
     print(f"profile {label}: one step, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {len(kernel_events)} kernel names", flush=True)
-    categories = {"port kernels": ("sums_partial", "sum_partials", "blur_tile",
+    categories = {"port kernels": ("channel_sums_rows", "channel_grad_sums_rows", "blur_tile",
                                    "bn_relu_conv_gemm", "conv_dw_partial", "conv3x3_dw_bands",
                                    "sum_slabs", "conv3x3_fwd_bands", "matmul_fwd_panel",
                                    "matmul_dw_rows", "sum_groups"),
@@ -424,6 +504,20 @@ def profile_step(config, state, dataset, label: str) -> None:
         cat = next((c for c, keys in categories.items() if any(k in name for k in keys)),
                    "other")
         totals[cat] += e.device_time_total / 1e3
+    # the BN pair: one launch per call ("channel_sums_rows" is not part of
+    # "channel_grad_sums_rows"), and no second pass
+    pair = {name: [e for e in kernel_events if f"{name}_rows" in e.key]
+            for name in ("channel_sums", "channel_grad_sums")}
+    pair = {name: (sum(e.count for e in ev), sum(e.device_time_total for e in ev) / 1e3)
+            for name, ev in pair.items()}
+    print(f"profile {label} BN pair: " + ", ".join(
+        f"{name}_rows {n} launches {ms:.3f} ms" for name, (n, ms) in pair.items()), flush=True)
+    for name, (n, _) in pair.items():
+        if n != PER_STEP[name]:
+            fail(f"profile {label}: {name}_rows launched {n} times in one step, expected "
+                 f"{PER_STEP[name]}", 1)
+    if any("sum_partials" in e.key for e in kernel_events):
+        fail(f"profile {label}: a second pass (sum_partials) ran", 1)
     print(f"profile {label} by category (ms): " + ", ".join(
         f"{c} {t:.2f} ({100 * t / busy_ms:.1f}%)" for c, t in totals.items()), flush=True)
     top = sorted(kernel_events, key=lambda e: e.device_time_total, reverse=True)[:15]
@@ -579,7 +673,8 @@ def main() -> None:
                             max_abs_err=max(v["max_abs_err"] for v in report[name].values()),
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
-                            shape=r["shape"]))
+                            shape=r["shape"],
+                            **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -35,8 +35,8 @@ _L = ctypes.c_int64
 # C entry points and their argument types (every pointer and the stream as
 # c_void_p, or ctypes would pass them as 32-bit ints)
 SIGNATURES = {
-    "moco_channel_sums": (_P, _I, _L, _I, _I, _P, _P, _P, _P, _P),
-    "moco_channel_grad_sums": (_P, _P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
+    "moco_channel_sums": (_P, _I, _L, _I, _I, _I, _I, _I, _L, _P, _P, _P),
+    "moco_channel_grad_sums": (_P, _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _L, _P, _P, _P),
     "moco_gaussian_blur": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     "moco_blur_max_radius": (),
     "moco_bn_relu_matmul": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),

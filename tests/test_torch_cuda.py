@@ -56,16 +56,143 @@ def test_channel_grad_sums_kernel(cuda, m, c, dtype):
     dyf = dy.float()
     scale = (dyf.abs().sum(0), (dyf * (x.float() - mean) * rstd).abs().sum(0))
     _close_sums(got, stats.channel_grad_sums_plain(dy, x, mean, rstd), scale, 1e-5)
+    again = stats.channel_grad_sums(dy, x, mean, rstd)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: same bits
+
+
+def _grad_inputs(cuda, m, c, seed, dtype=torch.bfloat16):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn((m, c), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+    dy = torch.randn((m, c), generator=gen, device=cuda).to(dtype)
+    mean = x.float().mean(0)
+    rstd = torch.rsqrt(x.float().var(0, correction=0) + 1e-5)
+    return dy, x, mean, rstd
+
+
+def _check_pair(dy, x, mean, rstd):
+    """Both kernels against their plain versions, and a second run of each
+    with the same bits."""
+    xf, dyf = x.float(), dy.float()
+    got = stats.channel_sums(x)
+    _close_sums(got, stats.channel_sums_plain(x), (xf.abs().sum(0), (xf * xf).sum(0)), 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, stats.channel_sums(x)))
+    got = stats.channel_grad_sums(dy, x, mean, rstd)
+    scale = (dyf.abs().sum(0), (dyf * (xf - mean) * rstd).abs().sum(0))
+    _close_sums(got, stats.channel_grad_sums_plain(dy, x, mean, rstd), scale, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, stats.channel_grad_sums(dy, x, mean, rstd)))
+
+
+# [N*H*W, C] of the 12 ResNet-50 BN shapes at batch 256, 224 px
+R50_BN_SHAPES = [(3211264, 64), (802816, 64), (802816, 128), (802816, 256), (200704, 128),
+                 (200704, 256), (200704, 512), (50176, 256), (50176, 512), (50176, 1024),
+                 (12544, 512), (12544, 2048)]
+
+
+@pytest.mark.parametrize("m,c", R50_BN_SHAPES)
+def test_bn_pair_at_r50_shapes(cuda, m, c):
+    _check_pair(*_grad_inputs(cuda, m, c, m + c))
+
+
+@pytest.mark.parametrize("variant", ["lanes", "slabs", "one_slab"])
+def test_bn_pair_forced_plans(cuda, variant):
+    """Any plan that covers [M, C] gives the sums: one-lane tiles, a few
+    slabs, one slab (the block is its own last block)."""
+    import dataclasses
+
+    dy, x, mean, rstd = _grad_inputs(cuda, 4097, 64, 3)
+    xf, dyf = x.float(), dy.float()
+    for operands in (1, 2):
+        plan = stats.stats_plan(4097, 64, 2, operands)
+        plan = {"lanes": dataclasses.replace(plan, lanes=1),
+                "slabs": dataclasses.replace(plan, slabs=3),
+                "one_slab": dataclasses.replace(plan, slabs=1)}[variant]
+        if operands == 1:
+            got = stats._launch_sums(x, plan)
+            ref, scale = stats.channel_sums_plain(x), (xf.abs().sum(0), (xf * xf).sum(0))
+        else:
+            got = stats._launch_grad_sums(dy, x, mean, rstd, plan)
+            ref = stats.channel_grad_sums_plain(dy, x, mean, rstd)
+            scale = (dyf.abs().sum(0), (dyf * (xf - mean) * rstd).abs().sum(0))
+        _close_sums(got, ref, scale, 1e-5)
+
+
+def test_bn_pair_entry_points_refuse_plans_that_do_not_cover(cuda):
+    """The C entry points return cudaErrorInvalidValue (1) for slabs that
+    miss rows or leave one empty, an unsupported pack, odd lanes, or a
+    batch the kernel does not take, and launch nothing."""
+    from moco_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    x = torch.ones(1000, 64, device=cuda).bfloat16()
+    ws = torch.empty(4096, device=cuda)
+    tk = stats.tickets(x.device, _build.stream_handle(x.device), 64)
+    stream = _build.stream_handle(x.device)
+    for vec, lanes, batch, slabs, rps in [(8, 4, 8, 4, 200), (8, 4, 8, 6, 200), (16, 4, 8, 4, 250),
+                                          (8, 3, 8, 4, 250), (8, 4, 4, 4, 250)]:
+        assert lib.moco_channel_sums(x.data_ptr(), 1, 1000, 64, vec, lanes, batch, slabs, rps,
+                                     ws.data_ptr(), tk.data_ptr(), stream) == 1
+    mean, rstd = torch.zeros(64, device=cuda), torch.ones(64, device=cuda)
+    for batch in (8, 2):  # two operands: 4 rows a batch
+        assert lib.moco_channel_grad_sums(x.data_ptr(), x.data_ptr(), 1, mean.data_ptr(),
+                                          rstd.data_ptr(), 1000, 64, 8, 4, batch, 4, 250,
+                                          ws.data_ptr(), tk.data_ptr(), stream) == 1
+    torch.cuda.synchronize()
+    assert not bool(tk.any())
+
+
+def test_bn_pair_replays_in_a_cuda_graph(cuda):
+    """One call of each captured in a CUDA graph and replayed three times:
+    the same bits each time, and the tickets back at 0."""
+    dy, x, mean, rstd = _grad_inputs(cuda, 50176, 256, 4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # plans, tickets and library made before capture
+        eager = (stats.channel_sums(x), stats.channel_grad_sums(dy, x, mean, rstd))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = (stats.channel_sums(x), stats.channel_grad_sums(dy, x, mean, rstd))
+    for _ in range(3):
+        for t in out:
+            for v in t:
+                v.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, ref in zip(out, eager):
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        for held in stats._TICKETS.values():
+            assert not bool(held[-1].any())
+
+
+def test_bn_pair_on_two_streams_at_once(cuda):
+    """Two streams, each with its own tickets, reducing different inputs at
+    the same time."""
+    inputs = [_grad_inputs(cuda, 200704, 256, seed) for seed in (5, 6)]
+    want = [(stats.channel_sums(x), stats.channel_grad_sums(dy, x, mean, rstd))
+            for dy, x, mean, rstd in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(8):
+        for i, (s, (dy, x, mean, rstd)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(s):
+                got[i].append((stats.channel_sums(x), stats.channel_grad_sums(dy, x, mean, rstd)))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for out in got[i]:
+            for g, w in zip(out, want[i]):
+                assert all(torch.equal(a, b) for a, b in zip(g, w))
 
 
 def test_unaligned_rows_take_narrow_loads(cuda):
-    """A view that starts 2 bytes into its storage cannot use 16-byte loads."""
+    """A view that starts 2 bytes into its storage cannot use 16-byte loads:
+    channel_sums on it, and channel_grad_sums with it as x and as dy."""
     base = torch.randn(1 + 513 * 64, device=cuda).bfloat16()
-    x = base[1:].view(513, 64)
-    assert x.data_ptr() % 16 != 0
-    got = stats.channel_sums(x)
-    xf = x.float()
-    _close_sums(got, stats.channel_sums_plain(x), (xf.abs().sum(0), (xf * xf).sum(0)), 1e-5)
+    view = base[1:].view(513, 64)
+    assert view.data_ptr() % 16 != 0
+    dy, x, mean, rstd = _grad_inputs(cuda, 513, 64, 7)
+    _check_pair(dy, view, mean, rstd)
+    _check_pair(view, x, mean, rstd)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
