@@ -13,13 +13,15 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             time, its bound, the plain version's time and one PyTorch
             library call's time as a yardstick (for the fused BN->ReLU->conv
             kernels: the product alone, on an already-normalized operand);
-            the BN reduction pair at all 12 ResNet-50 BN shapes, each run
-            twice with the same bits, timed as eager calls and as a CUDA
-            graph of the same calls (device time), inputs rotated past L2;
+            the BN reduction pair at all 12 ResNet-50 BN shapes and the
+            blur at the step's [256, 224, 224, 3], each run twice with the
+            same bits, timed as eager calls and as a CUDA graph of the same
+            calls (device time), inputs rotated past L2;
 3.  slice   a few steps of the `imagenet-moco-v2` preset (ResNet-50, 224 px,
             bf16, K=65536, MLP head, T=0.2) at batch 256 on synthetic data
-            through `moco_tpu_torch.train`, with the kernels' launch counts,
-            then one profiled step (the BN pair: one launch per call);
+            through `moco_tpu_torch.train`, with the kernels' launch counts
+            (the blur's on its R = 11 route), then one profiled step (the
+            BN pair and the blur: one launch per call);
 3b. fused   the same with `fused_bn_conv=True` (the blocks' interior
             bn->relu->conv passes through the fused kernels);
 4.  check   a small f32 ResNet and one BatchNorm on the card against the
@@ -252,13 +254,27 @@ def blur_library(images, taps, radius: int):
 
 
 def check_blur_kernel(blur) -> dict:
+    """gaussian_blur_batch at the step's shape ([256, 224, 224, 3] bf16,
+    R = 11, on the R = 11 instantiation): within one bf16 ulp of the f32
+    plain version, identity samples unchanged, the same bits twice; its
+    time in eager calls ("call ms") and in a CUDA graph of the same calls
+    ("device ms"), inputs rotated past L2; the library yardstick the same
+    two ways; the share of the bound reached and the sum over one step's
+    launches."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     radius = blur.blur_radius(224)
     images = torch.randn((BATCH, 224, 224, 3), generator=gen, device="cuda").bfloat16()
     taps = blur.blur_weights(BATCH, radius, (0.1, 2.0), 0.5, gen, "cuda")
-    got = blur.gaussian_blur_batch(images, taps, radius).float()
+    fixed = blur.gaussian_blur_batch.routes["fixed"]
+    got = blur.gaussian_blur_batch(images, taps, radius)
+    again = blur.gaussian_blur_batch(images, taps, radius)
+    if blur.gaussian_blur_batch.routes["fixed"] != fixed + 2:
+        fail("gaussian_blur_batch at R = 11 did not take the R = 11 instantiation", 1)
+    if not torch.equal(got, again):
+        fail("gaussian_blur_batch gave other bits on a second run", 1)
+    got = got.float()
     ref = blur.gaussian_blur_batch_plain(images.float(), taps, radius)  # f32, unrounded
     # one bf16 ulp of the reference (ulp floored at that of 2^-8: f32
     # reassociation over 23 taps of |x| <= 5 stays below 1e-5)
@@ -270,17 +286,40 @@ def check_blur_kernel(blur) -> dict:
     ident = taps[:, radius] == 1.0
     if not torch.equal(got[ident], images[ident].float()):
         fail("gaussian_blur_batch changed a sample whose taps are the identity", 1)
-    ms = time_ms(lambda: blur.gaussian_blur_batch(images, taps, radius), 20)
-    plain_ms = time_ms(lambda: blur.gaussian_blur_batch_plain(images, taps, radius), 3)
-    lib_ms = time_ms(lambda: blur_library(images, taps, radius), 5)
+    err = float(diff.max())
+    del got, again, ref, ulp, diff
     n = images.numel()
-    taps_n = 2 * radius + 1
-    b_ms, b_by = bound(2 * n * images.element_size() + taps.numel() * 4, 4 * taps_n * n)
-    r = dict(shape=list(images.shape), max_abs_err=float(diff.max()), ms=ms,
-             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"kernel gaussian_blur_batch [{BATCH}, 224, 224, 3] bf16 R={radius}: "
-          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f} ms, "
-          f"library {lib_ms:.4f} ms, max abs err {r['max_abs_err']:.3e})", flush=True)
+    inputs = _copies((images,), n * images.element_size())
+    iters = len(inputs) * math.ceil(20 / len(inputs))
+    cycle = itertools.cycle(inputs)
+
+    def each(fn):  # each call on the next copy
+        return lambda: fn(next(cycle)[0])
+
+    def kernel(x):
+        return blur.gaussian_blur_batch(x, taps, radius)
+
+    def library(x):
+        return blur_library(x, taps, radius)
+
+    b_ms, b_by = bound(2 * n * images.element_size() + taps.numel() * 4, 4 * (2 * radius + 1) * n)
+    r = dict(shape=list(images.shape), copies=len(inputs), max_abs_err=err,
+             ms=time_ms(each(kernel), iters), device_ms=graph_ms(each(kernel), iters),
+             plain_ms=time_ms(lambda: blur.gaussian_blur_batch_plain(images, taps, radius), 3),
+             library_ms=time_ms(each(library), 6), library_device_ms=graph_ms(each(library), 6),
+             bound_ms=b_ms, bound_by=b_by)
+    per = PER_STEP["gaussian_blur_batch"]
+    print(f"kernel gaussian_blur_batch [{BATCH}, 224, 224, 3] bf16 R={radius}: call "
+          f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+          f"{100 * b_ms / r['device_ms']:.0f}% of it; plain {r['plain_ms']:.4f} ms; library "
+          f"call {r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f} ms; "
+          f"{len(inputs)} input copies; max abs err {err:.3e})", flush=True)
+    print(f"kernel gaussian_blur_batch per step: {per} launches, device "
+          f"{per * r['device_ms']:.4f} ms (call {per * r['ms']:.4f} ms), bound "
+          f"{per * b_ms:.4f} ms, library device {per * r['library_device_ms']:.4f} ms",
+          flush=True)
+    del inputs, cycle
+    torch.cuda.empty_cache()
     return r
 
 
@@ -429,11 +468,16 @@ def run_slice(counters: dict, fused: bool = False) -> dict:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    blur_routes = counters["gaussian_blur_batch"].routes
+    blur_routes.update(fixed=0, generic=0)
     for fn in counters.values():
         fn.launches = 0
     state, history = train.train(config, max_steps=steps, device="cuda", dataset=dataset,
                                  on_step=on_step)
     launches = {name: fn.launches for name, fn in counters.items()}
+    # 224 px views blur at R = 11: every launch on the taps-in-registers route
+    if blur_routes != {"fixed": PER_STEP["gaussian_blur_batch"] * steps, "generic": 0}:
+        fail(f"{label}: blur routes {blur_routes} in {steps} steps", 1)
 
     expected = {**PER_STEP, **{name: per_step if fused else 0
                                for name, per_step in FUSED_PER_STEP.items()}}
@@ -489,7 +533,7 @@ def profile_step(config, state, dataset, label: str) -> None:
         return
     print(f"profile {label}: one step, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {len(kernel_events)} kernel names", flush=True)
-    categories = {"port kernels": ("channel_sums_rows", "channel_grad_sums_rows", "blur_tile",
+    categories = {"port kernels": ("channel_sums_rows", "channel_grad_sums_rows", "blur_rows",
                                    "bn_relu_conv_gemm", "conv_dw_partial", "conv3x3_dw_bands",
                                    "sum_slabs", "conv3x3_fwd_bands", "matmul_fwd_panel",
                                    "matmul_dw_rows", "sum_groups"),
@@ -518,6 +562,13 @@ def profile_step(config, state, dataset, label: str) -> None:
                  f"{PER_STEP[name]}", 1)
     if any("sum_partials" in e.key for e in kernel_events):
         fail(f"profile {label}: a second pass (sum_partials) ran", 1)
+    blur_ev = [e for e in kernel_events if "blur_rows" in e.key]
+    blur_n = sum(e.count for e in blur_ev)
+    print(f"profile {label} blur: blur_rows {blur_n} launches "
+          f"{sum(e.device_time_total for e in blur_ev) / 1e3:.3f} ms", flush=True)
+    if blur_n != PER_STEP["gaussian_blur_batch"]:
+        fail(f"profile {label}: blur_rows launched {blur_n} times in one step, expected "
+             f"{PER_STEP['gaussian_blur_batch']}", 1)
     print(f"profile {label} by category (ms): " + ", ".join(
         f"{c} {t:.2f} ({100 * t / busy_ms:.1f}%)" for c, t in totals.items()), flush=True)
     top = sorted(kernel_events, key=lambda e: e.device_time_total, reverse=True)[:15]

@@ -37,8 +37,7 @@ _L = ctypes.c_int64
 SIGNATURES = {
     "moco_channel_sums": (_P, _I, _L, _I, _I, _I, _I, _I, _L, _P, _P, _P),
     "moco_channel_grad_sums": (_P, _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _L, _P, _P, _P),
-    "moco_gaussian_blur": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
-    "moco_blur_max_radius": (),
+    "moco_gaussian_blur": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "moco_bn_relu_matmul": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     "moco_bn_relu_conv3x3_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "moco_bn_relu_conv3x3_s2_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

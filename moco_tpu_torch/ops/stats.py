@@ -203,7 +203,8 @@ def check_plan(plan: StatsPlan, m: int, c: int, *tensors: torch.Tensor) -> None:
 
 
 @functools.cache
-def _sms(index: int) -> int:
+def sm_count(index: int) -> int:
+    """SMs of the card at CUDA device `index`."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -236,7 +237,7 @@ def _launch(name: str, inputs: tuple[torch.Tensor, ...], plan: StatsPlan | None,
     m, c = x.shape
     if plan is None:
         plan = stats_plan(m, c, x.element_size(), len(inputs), _align(*inputs),
-                          _sms(x.device.index))
+                          sm_count(x.device.index))
     else:
         check_plan(plan, m, c, *inputs)
     ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=x.device)

@@ -5,6 +5,8 @@ device. Run on a GPU machine (no JAX needed) with:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -195,6 +197,33 @@ def test_unaligned_rows_take_narrow_loads(cuda):
     _check_pair(view, x, mean, rstd)
 
 
+def _check_blur(images, taps, radius, plan=None):
+    """The kernel (on its own plan, or on `plan`) against the f32 plain
+    version; identity samples bit for bit; a second launch with the same
+    bits. Returns the output."""
+    got = blur._launch_blur(images, taps, radius, plan)
+    ref = blur.gaussian_blur_batch_plain(images.float(), taps, radius)
+    # f32: FMA contraction only; bf16: one rounding of the f32 result
+    tol = 1e-5 if images.dtype == torch.float32 else 2.0 ** -7 * ref.abs() + 1e-5
+    diff = (got.float() - ref).abs()
+    assert bool((diff <= tol).all()), float(diff.max())
+    ident = taps[:, radius] == 1.0
+    assert torch.equal(got[ident], images[ident])
+    assert torch.equal(got, blur._launch_blur(images, taps, radius, plan))
+    return got
+
+
+def _blur_inputs(cuda, b, h, w, radius, dtype, seed, offset=0):
+    """Images [b, h, w, 3] starting `offset` elements into their storage, and
+    taps with every other sample the identity."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    base = torch.randn(offset + b * h * w * 3, generator=gen, device=cuda).to(dtype)
+    images = base[offset:].view(b, h, w, 3)
+    sigma = torch.rand(b, generator=gen, device=cuda) * 1.9 + 0.1
+    apply = torch.arange(b, device=cuda) % 2 == 0
+    return images, blur.blur_taps(sigma, apply, radius)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("radius,b,h,w", [(1, 3, 37, 53), (2, 2, 32, 32), (11, 4, 64, 40),
                                           (11, 2, 5, 7)])
@@ -207,6 +236,81 @@ def test_blur_kernel(cuda, radius, b, h, w, dtype):
     # f32: reassociation only; bf16: one rounding of the f32 result
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * ref.abs() + 1e-5
     assert bool(((got - ref).abs() <= tol).all()), float((got - ref).abs().max())
+    ident = taps[:, radius] == 1.0
+    assert torch.equal(got[ident], images[ident].float())  # identity samples untouched
+    assert torch.equal(got, blur.gaussian_blur_batch(images, taps, radius).float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["three_bands", "one_band", "generic_at_11", "row_bands"])
+def test_blur_forced_plans(cuda, variant, dtype):
+    """Other bandings than the plan's own, and the run-time-radius
+    instantiation at R = 11, give the plain version's values."""
+    b, h, w = 2, 64, 40
+    images, taps = _blur_inputs(cuda, b, h, w, 11, dtype, seed=5)
+    plan = blur.blur_plan(b, h, w, 11, images.element_size())
+    forced = {"three_bands": dataclasses.replace(plan, bands=3, rows_per_band=24),
+              "one_band": dataclasses.replace(plan, bands=1, rows_per_band=h),
+              "generic_at_11": dataclasses.replace(plan, fixed=False),
+              "row_bands": dataclasses.replace(plan, bands=8, rows_per_band=8)}[variant]
+    _check_blur(images, taps, 11, forced)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset,w", [(1, 53), (3, 40), (1, 224), (0, 7)])
+def test_blur_unaligned_rows_and_sample_base(cuda, offset, w, dtype):
+    """Rows of an odd width, and batches that start 2, 4, 6 or 12 bytes
+    into a granule, take the same granule copy; stores are packed only
+    where the output rows allow it."""
+    images, taps = _blur_inputs(cuda, 3, 21, w, 2, dtype, seed=w + offset, offset=offset)
+    assert (images.data_ptr() % 16 != 0) == (offset != 0)
+    _check_blur(images, taps, 2)
+
+
+def test_blur_grid_past_65535_blocks(cuda):
+    """70000 samples of 2x2 are 70000 blocks on the grid's x axis."""
+    images, taps = _blur_inputs(cuda, 70000, 2, 2, 1, torch.bfloat16, seed=7)
+    assert blur.blur_plan(70000, 2, 2, 1, 2).blocks == 70000
+    _check_blur(images, taps, 1)
+
+
+def test_blur_counts_both_radius_routes(cuda):
+    """R = 11 launches blur_rows<T, 11>, any other radius blur_rows<T, 0>;
+    each call counts one launch and its route."""
+    before = (blur.gaussian_blur_batch.launches, dict(blur.gaussian_blur_batch.routes))
+    for radius in (11, 3):
+        images, taps = _blur_inputs(cuda, 2, 16, 16, radius, torch.bfloat16, seed=radius)
+        blur.gaussian_blur_batch(images, taps, radius)
+    assert blur.gaussian_blur_batch.launches == before[0] + 2
+    assert blur.gaussian_blur_batch.routes == {"fixed": before[1]["fixed"] + 1,
+                                               "generic": before[1]["generic"] + 1}
+
+
+def test_blur_replays_in_a_cuda_graph(cuda):
+    """Captured launches replay with the same bits as eager ones."""
+    images, taps = _blur_inputs(cuda, 4, 48, 56, 11, torch.bfloat16, seed=11)
+    want = blur.gaussian_blur_batch(images, taps, 11)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        blur.gaussian_blur_batch(images, taps, 11)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = blur.gaussian_blur_batch(images, taps, 11)
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_blur_refuses_a_row_too_wide(cuda):
+    images, taps = _blur_inputs(cuda, 1, 8, 2000, 11, torch.bfloat16, seed=1)
+    before = blur.gaussian_blur_batch.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        blur.gaussian_blur_batch(images, taps, 11)
+    assert blur.gaussian_blur_batch.launches == before
 
 
 def test_launch_counters_count_card_launches_only(cuda):
