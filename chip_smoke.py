@@ -19,14 +19,23 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             calls (device time), inputs rotated past L2;
 3.  slice   a few steps of the `imagenet-moco-v2` preset (ResNet-50, 224 px,
             bf16, K=65536, MLP head, T=0.2) at batch 256 on synthetic data
-            through `moco_tpu_torch.train`, with the kernels' launch counts
-            (the blur's on its R = 11 route), then one profiled step (the
-            BN pair and the blur: one launch per call);
+            through `moco_tpu_torch.train`, fed by `epoch_loader` (4 staging
+            workers, depth 2; its first two batches held bit for bit against
+            `get_batch` and a plain copy), with the kernels' launch counts
+            (the blur's on its R = 11 route), then one profiled steady step
+            (the BN pair and the blur: one launch per call; device busy and
+            idle against the step's wall time);
 3b. fused   the same with `fused_bn_conv=True` (the blocks' interior
             bn->relu->conv passes through the fused kernels);
-4.  check   a small f32 ResNet and one BatchNorm on the card against the
+4.  imagefolder  the same unfused step from a generated JPEG tree (576
+            images, 8 classes, ImageNet-like sizes in both orientations)
+            through `ImageFolder` at stage size 512 and the Prefetcher, its
+            first two batches (rot-staged samples among them) held bit for
+            bit against a plain copy; run twice, with `h2d_trim` off and on;
+            imgs/s, peak memory, staging and decode time, credit stalls;
+5.  check   a small f32 ResNet and one BatchNorm on the card against the
             same on the CPU (where every wrapper takes its plain version);
-4b.         the same small ResNet with `fused_bn_conv=True`.
+5b.         the same small ResNet with `fused_bn_conv=True`.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -50,6 +59,15 @@ F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 dense tensor cores
 STEPS = 6
 FUSED_STEPS = 4             # the fused run: one warm-up step and three more
+IMAGEFOLDER_STEPS = 5       # phase 4, each of its two runs (2 batches an epoch)
+IMAGEFOLDER_IMAGES = 2 * 256 + 64
+# (h, w) of the generated JPEGs: ImageNet-like sizes, landscape and portrait;
+# 683x1024 is fit-downscaled into the 512x1024 canvas
+IMAGEFOLDER_SIZES = ((375, 500), (500, 375), (480, 640), (500, 333), (683, 1024))
+# The card's machine has PIL but no libjpeg headers (jpeglib.h), so the
+# native stager cannot be built there: phase 4 decodes with PIL. The stager
+# is held against the JAX package's build on the CPU (tests/test_torch_data.py).
+IMAGEFOLDER_BACKEND = "pil"
 BATCH = 256
 # [N*H*W, C] of every R50 BN at batch 256, 224 px, and how many BNs of that
 # shape one encoder has (53 in all); channel_sums runs twice a BN a step (q
@@ -82,6 +100,12 @@ FUSED_RTOL = 1e-5           # f32 reassociation, relative to sum |z||w| per outp
 PER_STEP = {"channel_sums": 106, "channel_grad_sums": 53, "gaussian_blur_batch": 2}
 FUSED_PER_STEP = {"bn_relu_matmul": 32, "bn_relu_matmul_dw": 16, "bn_relu_conv3x3": 26,
                   "bn_relu_conv3x3_s2": 6, "conv3x3_dw": 13}
+# the device records of the kernels the profile holds against the wrappers'
+# launch counts ("channel_sums_rows" is not part of "channel_grad_sums_rows")
+PORT_RECORDS = {"channel_sums": "channel_sums_rows",
+                "channel_grad_sums": "channel_grad_sums_rows",
+                "gaussian_blur_batch": "blur_rows"}
+PROFILE_TRIES = 3
 
 
 def fail(msg: str, code: int = 2) -> None:
@@ -440,21 +464,65 @@ def check_fused_kernels(fc, fc3) -> dict:
     return report
 
 
-def run_slice(counters: dict, fused: bool = False) -> dict:
-    """Steps of imagenet-moco-v2 at batch 256 through `train.train`: STEPS of
-    the preset as it is, or FUSED_STEPS with `fused_bn_conv=True`. Every
-    kernel's launches must match its count per step (the fused family's are
-    0 when the preset is left as it is)."""
+def check_prefetched(dataset, label: str, trim_h2d: bool = False) -> dict:
+    """The first two batches the Prefetcher delivers on the card (4 staging
+    workers, depth 2), held while it stages on and recycles its canvases,
+    against `get_batch` of the same indices and a plain `.to("cuda")`, bit
+    for bit: canvas (its trimmed prefix with `trim_h2d`), labels, extents.
+    Returns the count of rot-staged samples and the seconds of each plain
+    `get_batch` (one call, the dataset's own decode threads)."""
+    import torch
+
+    from moco_tpu_torch.data.loader import epoch_loader, epoch_permutation, trim_extent
+
+    loader = epoch_loader(dataset, 0, 0, BATCH, "cuda", depth=2, workers=4,
+                          trim_h2d=trim_h2d)
+    try:
+        it = iter(loader)
+        held = [next(it) for _ in range(2)]
+        deadline = time.time() + 120
+        while loader.qsize() < min(2, len(loader) - 2) and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        loader.close_quietly()
+    torch.cuda.synchronize()
+    order = epoch_permutation(len(dataset), 0, 0, BATCH)
+    rot, get_batch_s = 0, []
+    for b, (imgs, labels, extents) in enumerate(held):
+        t0 = time.perf_counter()
+        ref_imgs, ref_labels, ref_extents = dataset.get_batch(order[b * BATCH:(b + 1) * BATCH])
+        get_batch_s.append(time.perf_counter() - t0)
+        want = torch.from_numpy(ref_imgs).to("cuda")
+        if trim_h2d:
+            th, tw = trim_extent(ref_imgs.shape, ref_extents)
+            if tuple(imgs.shape[1:3]) != (th, tw):
+                fail(f"{label}: batch {b} trimmed to {tuple(imgs.shape[1:3])}, expected "
+                     f"{(th, tw)}", 1)
+            want = want[:, :th, :tw]
+        if not (imgs.is_cuda and torch.equal(imgs, want)
+                and torch.equal(labels, torch.from_numpy(ref_labels).to("cuda"))
+                and torch.equal(extents, torch.from_numpy(ref_extents).to("cuda"))):
+            fail(f"{label}: prefetched batch {b} differs from get_batch + .to('cuda')", 1)
+        rot += int((extents[:, 2] > 0).sum())
+    print(f"{label}: the first 2 prefetched batches {list(held[0][0].shape)} equal "
+          f"get_batch + .to('cuda') bit for bit ({rot} rot-staged samples; get_batch "
+          f"{', '.join(f'{1e3 * t:.1f}' for t in get_batch_s)} ms)", flush=True)
+    return dict(rot=rot, get_batch_s=get_batch_s)
+
+
+def run_slice(counters: dict, label: str, config, dataset, steps: int) -> dict:
+    """`steps` steps of `config` at batch 256 through `train.train`, fed by
+    `epoch_loader` (4 staging workers, depth 2, metrics on the host every
+    step); then one profiled step. Every kernel's launches must match its
+    count per step (the fused family's are 0 unless `fused_bn_conv`)."""
     import torch
 
     from moco_tpu_torch import train
-    from moco_tpu_torch.config import get_preset
-    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.data.stats import InputPipelineStats
 
-    label, steps = ("fused", FUSED_STEPS) if fused else ("slice", STEPS)
-    config = get_preset("imagenet-moco-v2").replace(dataset="synthetic", batch_size=BATCH,
-                                                    fused_bn_conv=fused)
-    dataset = SyntheticDataset(num_samples=2 * BATCH, image_size=config.image_size)
+    config = config.replace(batch_size=BATCH, staging_workers=4, prefetch_depth=2,
+                            print_freq=1)
+    per_epoch = len(dataset) // BATCH
     rows = []
 
     def on_step(step, metrics, seconds):
@@ -472,14 +540,15 @@ def run_slice(counters: dict, fused: bool = False) -> dict:
     blur_routes.update(fixed=0, generic=0)
     for fn in counters.values():
         fn.launches = 0
+    stats = InputPipelineStats()
     state, history = train.train(config, max_steps=steps, device="cuda", dataset=dataset,
-                                 on_step=on_step)
+                                 on_step=on_step, stats=stats)
     launches = {name: fn.launches for name, fn in counters.items()}
     # 224 px views blur at R = 11: every launch on the taps-in-registers route
     if blur_routes != {"fixed": PER_STEP["gaussian_blur_batch"] * steps, "generic": 0}:
         fail(f"{label}: blur routes {blur_routes} in {steps} steps", 1)
 
-    expected = {**PER_STEP, **{name: per_step if fused else 0
+    expected = {**PER_STEP, **{name: per_step if config.fused_bn_conv else 0
                                for name, per_step in FUSED_PER_STEP.items()}}
     for name, per_step in expected.items():
         if launches[name] != per_step * steps:
@@ -493,46 +562,112 @@ def run_slice(counters: dict, fused: bool = False) -> dict:
     norms = state.queue.norm(dim=1)
     if not bool(torch.isfinite(state.queue).all()) or float((norms - 1).abs().max()) > 1e-5:
         fail(f"{label}: queue rows are not finite unit vectors", 1)
-    profile_step(config, state, dataset, label)
+    max_memory_gib = torch.cuda.max_memory_allocated() / 2**30
+    snap = stats.snapshot()
+    busy_ms, wall_ms = profile_step(config, state, dataset, label, counters, expected)
     steady = [r["seconds"] for r in rows[1:]]
-    summary = dict(launches=launches, losses=losses,
-                   steady_step_s=sum(steady) / len(steady),
-                   max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    # steps whose batch the loader staged while an earlier step ran (not an
+    # epoch's first batch, which each new epoch's loader stages from cold)
+    in_epoch = [r["seconds"] for r in rows[1:] if (r["step"] - 1) % per_epoch]
+    summary = dict(launches=launches, losses=losses, steady_step_s=sum(steady) / len(steady),
+                   in_epoch_step_s=sum(in_epoch) / len(in_epoch) if in_epoch else None,
+                   max_memory_gib=max_memory_gib, busy_ms=busy_ms, wall_ms=wall_ms,
+                   input=snap)
     summary["imgs_per_s"] = BATCH / summary["steady_step_s"]
+    busy_s = snap["worker_busy_frac"] * snap["workers"] * snap["wall_s"]
+    in_epoch_text = (f"{BATCH / summary['in_epoch_step_s']:.1f} imgs/s over the "
+                     f"{len(in_epoch)} steps fed from a staged-ahead batch"
+                     if in_epoch else "no step fed from a staged-ahead batch")
     print(f"{label}: {steps} steps, steady step {summary['steady_step_s']:.4f} s "
-          f"({summary['imgs_per_s']:.1f} imgs/s), peak memory "
-          f"{summary['max_memory_gib']:.2f} GiB, launches {launches}", flush=True)
+          f"({summary['imgs_per_s']:.1f} imgs/s; {in_epoch_text}), peak memory "
+          f"{max_memory_gib:.2f} GiB, launches {launches}", flush=True)
+    print(f"{label} input: {snap['staged_batches']} batches staged, staging "
+          f"{1e3 * snap['staged_batch_s_p50']:.1f} ms p50 / "
+          f"{1e3 * snap['staged_batch_s_p95']:.1f} ms p95 a batch, worker decode "
+          f"{1e3 * busy_s / max(snap['staged_batches'], 1):.1f} ms a batch (summed over "
+          f"{snap['workers']} workers), credit stall {snap['credit_stall_s']:.3f} s, queue "
+          f"depth mean {snap['queue_depth_mean']}", flush=True)
     return summary
 
 
-def profile_step(config, state, dataset, label: str) -> None:
-    """One more step under torch.profiler: device time by kernel, and the
-    device's busy time against the step's wall time."""
+def profile_step(config, state, dataset, label: str, counters: dict,
+                 expected: dict) -> tuple[float, float]:
+    """One steady step under torch.profiler, fed by `epoch_loader` with the
+    next batch already staged (one unprofiled step first): device time by
+    kernel, and the device's busy time against the step's wall time, from
+    taking the batch to the metrics on the host. Returns (busy ms, wall ms).
+
+    The wrappers' launch counts of the profiled step must equal `expected`,
+    and the device must have run each of the BN pair's and the blur's
+    kernels once a launch. More device records than launches (a second
+    pass) fail at once. Fewer are a profiler that lost records: one run kept
+    57 of a step's 106 `channel_sums_rows` records while the wrappers
+    counted 106. Such a trace is reported and another step profiled, up to
+    PROFILE_TRIES times; a run with no complete trace fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from moco_tpu_torch.data.augment import aug_config_for, two_crops
-    from moco_tpu_torch.data.datasets import stage
+    from moco_tpu_torch.data.loader import epoch_loader
+    from moco_tpu_torch.train import host_metrics
     from moco_tpu_torch.train_step import build_train_step
 
     step_fn = build_train_step(config, steps_per_epoch=2)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    images, _ = dataset.get_batch(list(range(BATCH)))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        im_q, im_k = two_crops(stage(images, torch.device("cuda")), aug_config_for(config), gen)
-        float(step_fn(state, im_q, im_k)["loss"])
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    aug_cfg = aug_config_for(config)
+    cuda = torch.autograd.DeviceType.CUDA
+    for attempt in range(1, PROFILE_TRIES + 1):
+        loader = epoch_loader(dataset, 98 + attempt, config.seed, BATCH, "cuda",
+                              depth=config.prefetch_depth, workers=config.staging_workers,
+                              trim_h2d=config.h2d_trim)
+        try:
+            batches = iter(loader)
+            images, _, extents = next(batches)
+            host_metrics(step_fn(state, *two_crops(images, aug_cfg, gen, extents)))
+            deadline = time.time() + 120
+            while loader.qsize() == 0 and time.time() < deadline:
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                images, _, extents = next(batches)
+                im_q, im_k = two_crops(images, aug_cfg, gen, extents)
+                host_metrics(step_fn(state, im_q, im_k))
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            loader.close_quietly()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if launches != expected:
+            fail(f"profile {label}: the profiled step launched {launches}, expected {expected}",
+                 1)
+        records = [e for e in prof.events() if e.device_type == cuda]
+        seen = {name: sum(1 for e in records if kernel in e.name)
+                for name, kernel in PORT_RECORDS.items()}
+        want = {name: launches[name] for name in PORT_RECORDS}
+        print(f"profile {label}: attempt {attempt}: {len(records)} device records; port "
+              f"kernel records {seen}, launched {want}", flush=True)
+        more = {name: n for name, n in seen.items() if n > want[name]}
+        if more:
+            fail(f"profile {label}: the device ran more port kernels than the wrappers "
+                 f"launched: {more} against {want}", 1)
+        if seen == want:
+            break
+        print(f"profile {label}: the profiler lost device records; profiling another step",
+              flush=True)
+    else:
+        if not records:
+            print(f"profile {label}: the profiler recorded no device time (not measured)",
+                  flush=True)
+            return float("nan"), wall_ms
+        fail(f"profile {label}: no complete trace in {PROFILE_TRIES} profiled steps", 1)
     events = [e for e in prof.key_averages() if e.device_time_total > 0]
     kernel_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in kernel_events) / 1e3
-    if busy_ms == 0:
-        print(f"profile {label}: the profiler recorded no device time (not measured)",
-              flush=True)
-        return
     print(f"profile {label}: one step, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {len(kernel_events)} kernel names", flush=True)
+          f"({100 * busy_ms / wall_ms:.1f}%), idle {wall_ms - busy_ms:.2f} ms, "
+          f"{len(kernel_events)} kernel names", flush=True)
     categories = {"port kernels": ("channel_sums_rows", "channel_grad_sums_rows", "blur_rows",
                                    "bn_relu_conv_gemm", "conv_dw_partial", "conv3x3_dw_bands",
                                    "sum_slabs", "conv3x3_fwd_bands", "matmul_fwd_panel",
@@ -575,6 +710,71 @@ def profile_step(config, state, dataset, label: str) -> None:
     for e in top:
         print(f"profile {label} kernel {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x "
               f"{e.key[:110]}", flush=True)
+    return busy_ms, wall_ms
+
+
+def write_jpeg_tree(root: Path, seed: int = 0) -> None:
+    """IMAGEFOLDER_IMAGES seeded JPEGs over 8 class directories at
+    ImageNet-like sizes, both orientations: a smooth random field per image
+    (a coarse grid upsampled, as photos are mostly low-frequency) plus
+    pixel noise, saved at quality 90."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    jobs = []
+    for i in range(IMAGEFOLDER_IMAGES):
+        h, w = IMAGEFOLDER_SIZES[i % len(IMAGEFOLDER_SIZES)]
+        jobs.append((root / f"n{i % 8:08d}" / f"img_{i:05d}.JPEG", h, w,
+                     rng.randint(0, 2**31 - 1)))
+    for cls in range(8):
+        (root / f"n{cls:08d}").mkdir(parents=True)
+
+    def one(job):
+        path, h, w, s = job
+        r = np.random.RandomState(s)
+        coarse = Image.fromarray((r.rand(h // 32 + 2, w // 32 + 2, 3) * 255).astype(np.uint8))
+        img = np.asarray(coarse.resize((w, h), Image.BICUBIC), np.int16)
+        img = np.clip(img + r.randint(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(str(path), quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, jobs))
+
+
+def run_imagefolder(counters: dict) -> dict:
+    """Phase 4: imagenet-moco-v2 at batch 256, 224 px, from a generated JPEG
+    tree through `ImageFolder` (stage size 512, a [256, 512, 1024, 3] uint8
+    canvas a batch) and the Prefetcher; with `h2d_trim` off, then on. Each
+    run first holds the first two prefetched batches against a plain copy,
+    with rot-staged samples among them."""
+    import tempfile
+
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.data.datasets import ImageFolder
+
+    config = get_preset("imagenet-moco-v2")
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="moco_imagefolder_") as tmp:
+        t0 = time.perf_counter()
+        write_jpeg_tree(Path(tmp))
+        print(f"imagefolder: wrote {IMAGEFOLDER_IMAGES} JPEGs over 8 classes in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        dataset = ImageFolder(tmp, stage_size=512, backend=IMAGEFOLDER_BACKEND)
+        for trim in (False, True):
+            label = "imagefolder_trim" if trim else "imagefolder"
+            check = check_prefetched(dataset, label, trim_h2d=trim)
+            if check["rot"] == 0:
+                fail(f"{label}: no rot-staged sample in the first two batches", 1)
+            summary = run_slice(counters, label, config.replace(h2d_trim=trim), dataset,
+                                IMAGEFOLDER_STEPS)
+            summary["get_batch_s"] = check["get_batch_s"]
+            results[label] = summary
+        if dataset.decode_failures:
+            fail(f"imagefolder: {dataset.decode_failures} decode failures", 1)
+    return results
 
 
 def check_against_cpu(fused: bool = False, counters: dict | None = None) -> None:
@@ -690,11 +890,31 @@ def main() -> None:
                 "bn_relu_conv3x3": fused_conv3x3.bn_relu_conv3x3,
                 "bn_relu_conv3x3_s2": fused_conv3x3.bn_relu_conv3x3_s2,
                 "conv3x3_dw": fused_conv3x3.conv3x3_dw}
-    summary = run_slice(counters)
-    fused_summary = run_slice(counters, fused=True)
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+
+    # one epoch holds every step of phases 3 and 3b: each step's batch is
+    # staged while the one before it runs
+    dataset = SyntheticDataset(num_samples=STEPS * BATCH, image_size=224)
+    config = get_preset("imagenet-moco-v2").replace(dataset="synthetic")
+    check_prefetched(dataset, "slice")
+    summary = run_slice(counters, "slice", config, dataset, STEPS)
+    fused_summary = run_slice(counters, "fused", config.replace(fused_bn_conv=True), dataset,
+                              FUSED_STEPS)
+    del dataset
     print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
           f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "
           f"{fused_summary['max_memory_gib']:.2f} GiB", flush=True)
+    folder = run_imagefolder(counters)
+    # the profiler's own host time a step lengthens the profiled step's wall;
+    # the steady step (host clock, not profiled) less the profiled device busy
+    # time estimates the device's idle time in a step without it
+    for label, r in (("slice", summary), ("fused", fused_summary), *folder.items()):
+        print(f"input path {label}: {r['imgs_per_s']:.1f} imgs/s, peak memory "
+              f"{r['max_memory_gib']:.2f} GiB, profiled step device busy/wall "
+              f"{r['busy_ms']:.2f}/{r['wall_ms']:.2f} ms, steady step less busy "
+              f"{1e3 * r['steady_step_s'] - r['busy_ms']:.2f} ms, in-epoch step less busy "
+              f"{1e3 * (r['in_epoch_step_s'] or math.nan) - r['busy_ms']:.2f} ms", flush=True)
     check_against_cpu()
     check_against_cpu(fused=True, counters={k: counters[k] for k in FUSED_PER_STEP})
 

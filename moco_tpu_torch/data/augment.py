@@ -18,6 +18,13 @@ taps are symmetric and sum to 1, so it commutes with flip and normalize):
 the TPU program's order when its Pallas blur is on. The pipeline runs in
 `AugConfig.dtype` (bf16 for the ImageNet preset); contrast's mean and the
 HSV round trip run in f32.
+
+Staging extents: a batch may carry `extents` [B, 3] `(valid_h, valid_w,
+rot)` (the ImageFolder canvas): the image fills the top-left `[valid_h,
+valid_w]` of the canvas, and `rot = 1` marks a portrait image staged
+transposed. The crop is drawn and resampled in staged coordinates over the
+valid area and the output transposed back; a horizontal flip of the final
+image is a flip of the staged H axis for such samples.
 """
 
 from __future__ import annotations
@@ -84,6 +91,9 @@ class ViewParams:
     jitter_apply: torch.Tensor    # [B] bool
     gray_apply: torch.Tensor      # [B] bool
     blur_taps: torch.Tensor       # [B, 2R+1] f32 (identity where skipped)
+    valid_h: torch.Tensor | None = None  # [B] staged content extent (None: the canvas)
+    valid_w: torch.Tensor | None = None
+    rot: torch.Tensor | None = None      # [B] bool, portrait staged transposed
 
 
 def _uniform(shape, lo, hi, generator, device) -> torch.Tensor:
@@ -120,9 +130,11 @@ def rrc_params(ext_h: torch.Tensor, ext_w: torch.Tensor, cfg: AugConfig,
 
 
 def sample_view(ext_h: torch.Tensor, ext_w: torch.Tensor, cfg: AugConfig,
-                generator: torch.Generator) -> ViewParams:
+                generator: torch.Generator, rot: torch.Tensor | None = None
+                ) -> ViewParams:
     """Draw one view's parameters for a batch whose images have extents
-    (ext_h, ext_w) [B], on the generator's device."""
+    (ext_h, ext_w) [B] (and `rot` [B] bool, staged transposed), on the
+    generator's device. The extents ride along in the parameters."""
     b, dev = ext_h.shape[0], ext_h.device
     y0, x0, ch, cw = rrc_params(ext_h, ext_w, cfg, generator)
     flip = torch.rand(b, device=dev, generator=generator) < cfg.flip_prob
@@ -139,7 +151,7 @@ def sample_view(ext_h: torch.Tensor, ext_w: torch.Tensor, cfg: AugConfig,
     taps = blur_weights(b, blur_radius(cfg.out_size), cfg.blur_sigma, cfg.blur_prob,
                         generator, dev)
     return ViewParams(y0, x0, ch, cw, flip, factors, hue_shift, perm, jitter_apply,
-                      gray_apply, taps)
+                      gray_apply, taps, ext_h, ext_w, rot)
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +250,15 @@ def normalize(img: torch.Tensor) -> torch.Tensor:
 def apply_view(images_u8: torch.Tensor, p: ViewParams, cfg: AugConfig) -> torch.Tensor:
     """uint8 [B, H, W, 3] -> [B, S, S, 3] in `cfg.dtype`, given the draws."""
     img = images_u8.to(_DTYPES[cfg.dtype]) / 255.0
-    img = crop_resize(img, p.y0, p.x0, p.crop_h, p.crop_w, cfg.out_size, p.flip)
+    flip_h, flip_v = p.flip, None
+    if p.rot is not None:
+        # a horizontal flip of the final image flips the staged H axis of a
+        # sample staged transposed
+        flip_h, flip_v = p.flip & ~p.rot, p.flip & p.rot
+    img = crop_resize(img, p.y0, p.x0, p.crop_h, p.crop_w, cfg.out_size, flip_h, flip_v,
+                      p.valid_h, p.valid_w)
+    if p.rot is not None:
+        img = torch.where(_per_sample(p.rot), img.transpose(1, 2), img).contiguous()
 
     def jitter(x):
         out = color_jitter(x, p.jitter_factors, p.hue_shift, p.jitter_perm, cfg.hue > 0)
@@ -259,11 +279,17 @@ def apply_view(images_u8: torch.Tensor, p: ViewParams, cfg: AugConfig) -> torch.
     return img
 
 
-def two_crops(images_u8: torch.Tensor, cfg: AugConfig,
-              generator: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
-    """Two independent views (query, key) of a full-canvas uint8 batch."""
+def two_crops(images_u8: torch.Tensor, cfg: AugConfig, generator: torch.Generator,
+              extents: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two independent views (query, key) of a uint8 batch; `extents` [B, 3]
+    `(valid_h, valid_w, rot)` on the batch's device, None for the full
+    canvas."""
     b, h, w, _ = images_u8.shape
-    ext_h = torch.full((b,), float(h), device=images_u8.device)
-    ext_w = torch.full((b,), float(w), device=images_u8.device)
-    views = [sample_view(ext_h, ext_w, cfg, generator) for _ in range(2)]
+    if extents is None:
+        ext_h = torch.full((b,), float(h), device=images_u8.device)
+        ext_w = torch.full((b,), float(w), device=images_u8.device)
+        rot = None
+    else:
+        ext_h, ext_w, rot = extents[:, 0].float(), extents[:, 1].float(), extents[:, 2] > 0
+    views = [sample_view(ext_h, ext_w, cfg, generator, rot) for _ in range(2)]
     return apply_view(images_u8, views[0], cfg), apply_view(images_u8, views[1], cfg)

@@ -1,13 +1,17 @@
 """Pretraining driver of the port (port of `moco_tpu/train.py`'s main path).
 
-    python -m moco_tpu_torch.train --preset imagenet-moco-v2 --dataset synthetic \\
+    python -m moco_tpu_torch.train --preset imagenet-moco-v2 --data-dir /data/imagenet \\
         --max-steps 5 [--batch-size B] [--device cpu]
 
-Builds the state, then runs steps: stage a uint8 batch through pinned
-memory, draw the two views on the device, run the train step, print the
-step's metrics. It runs on the card unless `--device cpu` is given, and
-raises if CUDA is asked for and absent. No checkpointing, resilience or
-telemetry yet.
+Builds the dataset the config names (wrapped in the decode-once cache when
+`input_cache_mb` > 0) and the state, then runs epochs: an `epoch_loader`
+stages each epoch's batches ahead of the step on worker threads and copies
+them to the device on a side stream; the step draws the two views on the
+device from each batch's staging extents and trains. The step's metrics
+stay on the device except on print steps (`print_freq`), where they reach
+the host in one transfer. It runs on the card unless `--device cpu` is
+given, and raises if CUDA is asked for and absent. No checkpointing,
+resilience or telemetry yet.
 """
 
 from __future__ import annotations
@@ -21,12 +25,19 @@ import torch
 from moco_tpu_torch.config import PRESETS, PretrainConfig, add_config_flags, \
     collect_overrides, get_preset
 from moco_tpu_torch.data.augment import aug_config_for, two_crops
-from moco_tpu_torch.data.datasets import SyntheticDataset, epoch_permutation, stage
+from moco_tpu_torch.data.canvas_cache import CachedDataset
+from moco_tpu_torch.data.datasets import build_dataset
+from moco_tpu_torch.data.loader import epoch_loader
 from moco_tpu_torch.train_state import TrainState, create_train_state
 from moco_tpu_torch.train_step import build_encoder, build_train_step
 
 METRIC_NAMES = ("loss", "acc1", "acc5", "pos_sim", "neg_sim", "logit_margin", "lr",
                 "queue_ptr")
+
+
+class DataQualityError(RuntimeError):
+    """The decode-failure rate crossed `decode_abort_rate`: enough zero
+    canvases to poison training, so going on would waste the run."""
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -43,25 +54,53 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def host_metrics(metrics: dict) -> dict:
+    """A step's metrics as host numbers, the device ones in one transfer."""
+    names = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+    values = dict(zip(names, torch.stack([metrics[k].float() for k in names]).cpu().tolist()))
+    return {k: values.get(k, v) for k, v in metrics.items()}
+
+
 def print_step(step: int, metrics: dict, seconds: float, batch: int) -> None:
     shown = " ".join(f"{k} {metrics[k]:.6g}" for k in METRIC_NAMES)
     print(f"step {step} {shown} step_s {seconds:.4f} imgs_s {batch / seconds:.1f}",
           flush=True)
 
 
+def check_decode_rate(dataset, config: PretrainConfig) -> None:
+    """Raise `DataQualityError` once the cumulative decode-failure rate
+    exceeds `decode_abort_rate` (after at least one batch's worth)."""
+    failed = getattr(dataset, "decode_failures", 0)
+    total = getattr(dataset, "decode_total", 0)
+    if config.decode_abort_rate and total >= config.batch_size \
+            and failed / total > config.decode_abort_rate:
+        raise DataQualityError(
+            f"decode-failure rate {failed}/{total} = {failed / total:.1%} exceeds "
+            f"decode_abort_rate={config.decode_abort_rate:.1%}: training on zero "
+            "canvases would silently waste the run")
+
+
 def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
-          dataset=None,
-          on_step: Callable[[int, dict, float], None] | None = None
-          ) -> tuple[TrainState, list[dict]]:
-    """Run `max_steps` steps (default: the whole schedule). Returns the state
-    and each step's metrics as host numbers. `on_step(step, metrics,
-    seconds)` sees every step (default: print it); `seconds` is host time
-    from staging to the metrics on the host, which waits for the device."""
+          dataset=None, on_step: Callable[[int, dict, float], None] | None = None,
+          stats=None) -> tuple[TrainState, list[dict]]:
+    """Run `max_steps` steps (default: the whole schedule) on `dataset`
+    (default: the one the config names). Returns the state and the metrics
+    of each print step as host numbers. `on_step(step, metrics, seconds)`
+    sees every print step (default: print it); `seconds` is the host time
+    per step since the previous print, ending with the metrics on the host,
+    which waits for the device. `stats` is an optional
+    `InputPipelineStats` the input pipeline reports to."""
     dev = resolve_device(device)
     if dataset is None:
-        dataset = SyntheticDataset(image_size=config.image_size)
-    available = max(len(dataset) // config.batch_size, 1)
-    steps_per_epoch = min(config.steps_per_epoch or available, available)
+        dataset = build_dataset(config.dataset, config.data_dir, image_size=config.image_size,
+                                stage_size=config.stage_size, num_workers=config.num_workers)
+    if config.input_cache_mb:
+        dataset = CachedDataset(dataset, config.input_cache_mb, stats=stats)
+    if len(dataset) < config.batch_size:
+        raise ValueError(f"the dataset holds {len(dataset)} samples, fewer than one batch "
+                         f"of {config.batch_size}")
+    steps_per_epoch = min(config.steps_per_epoch or len(dataset) // config.batch_size,
+                          len(dataset) // config.batch_size)
     total = config.epochs * steps_per_epoch if max_steps is None else max_steps
     if on_step is None:
         def on_step(step, metrics, seconds):
@@ -73,17 +112,27 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
     data_gen = torch.Generator(device=dev).manual_seed(config.seed + 1)
     history = []
     epoch = 0
+    since, t_last = 0, time.perf_counter()
     while state.step < total:
-        order = epoch_permutation(len(dataset), epoch, config.seed, config.batch_size)
-        for i in range(min(steps_per_epoch, total - state.step)):
-            t0 = time.perf_counter()
-            idx = order[i * config.batch_size:(i + 1) * config.batch_size]
-            images, _labels = dataset.get_batch(idx)
-            im_q, im_k = two_crops(stage(images, dev), aug_cfg, data_gen)
-            metrics = {k: float(v) for k, v in step_fn(state, im_q, im_k).items()}
-            seconds = time.perf_counter() - t0
-            history.append(metrics)
-            on_step(state.step, metrics, seconds)
+        loader = epoch_loader(dataset, epoch, config.seed, config.batch_size, dev,
+                              depth=config.prefetch_depth, workers=config.staging_workers,
+                              stats=stats, trim_h2d=config.h2d_trim)
+        try:
+            for i, (images, _labels, extents) in enumerate(loader):
+                if i >= steps_per_epoch or state.step >= total:
+                    break
+                im_q, im_k = two_crops(images, aug_cfg, data_gen, extents)
+                metrics = step_fn(state, im_q, im_k)
+                since += 1
+                check_decode_rate(dataset, config)
+                if i % config.print_freq == 0:
+                    metrics = host_metrics(metrics)
+                    seconds = (time.perf_counter() - t_last) / since
+                    history.append(metrics)
+                    on_step(state.step, metrics, seconds)
+                    since, t_last = 0, time.perf_counter()
+        finally:
+            loader.close_quietly()
         epoch += 1
     return state, history
 

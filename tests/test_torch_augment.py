@@ -197,3 +197,141 @@ def test_two_crops_shapes_and_dtype():
     assert q.shape == k.shape == (4, 16, 16, 3)
     assert q.dtype == torch.bfloat16 and q.is_contiguous()
     assert torch.isfinite(q.float()).all() and not torch.equal(q, k)
+
+
+# ---------------------------------------------------------------------------
+# staging extents (valid_h, valid_w, rot): the ImageFolder canvas
+# ---------------------------------------------------------------------------
+
+
+def _extents(rng, b, h, w):
+    """Per-sample content extents inside an [h, w] canvas, about half of
+    them portraits staged transposed."""
+    return np.stack([rng.randint(h // 3, h + 1, b), rng.randint(w // 3, w + 1, b),
+                     rng.randint(0, 2, b)], axis=1).astype(np.int32)
+
+
+def test_interp_matrix_with_valid_size_matches_jax():
+    rng = np.random.RandomState(6)
+    start = rng.uniform(0, 20, 6).astype(np.float32)
+    size = rng.uniform(2, 30, 6).astype(np.float32)
+    valid = np.asarray([40, 33, 17, 5, 29, 40], np.float32)
+    ref = jax.vmap(lambda s, c, v: jresize.interp_matrix(40, 16, s, c, True, v))(
+        start, size, valid)
+    t = torch.from_numpy
+    got = resize.interp_matrix(40, 16, t(start), t(size), t(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    assert float(got[3, :, 5:].abs().max()) == 0.0  # no weight past the content
+
+
+def test_crop_resize_with_extents_and_both_flips_matches_jax():
+    rng = np.random.RandomState(7)
+    b, h, w, s = 8, 24, 40, 12
+    img = rng.rand(b, h, w, 3).astype(np.float32)  # noise past the extents too
+    ext = _extents(rng, b, h, w)
+    y0, x0, ch, cw = _crop_params(rng, b, h, w)
+    ch = np.minimum(ch, ext[:, 0]).astype(np.float32)
+    cw = np.minimum(cw, ext[:, 1]).astype(np.float32)
+    fv = rng.rand(b) < 0.5
+    fh = rng.rand(b) < 0.5
+    vh, vw = ext[:, 0].astype(np.float32), ext[:, 1].astype(np.float32)
+    ref = jax.vmap(lambda im, a, c, d, e, p, q, r, u: jresize.crop_resize(
+        im, a, c, d, e, s, True, valid_h=p, valid_w=q, flip_v=r, flip_h=u))(
+        img, y0, x0, ch, cw, vh, vw, fv, fh)
+    t = torch.from_numpy
+    got = resize.crop_resize(t(img), t(y0), t(x0), t(ch), t(cw), s, t(fh), t(fv), t(vh),
+                             t(vw))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_apply_view_crop_on_rot_staged_extents_matches_jax():
+    """The crop of a view on rot-staged extents against the JAX package's
+    `_random_resized_crop`: the box and flip drawn by the JAX package's own
+    samplers from the same keys, handed to the port's `apply_view` (no
+    jitter, grayscale or blur, so the view is the normalized crop)."""
+    rng = np.random.RandomState(8)
+    b, h, w, out = 12, 20, 40, 12
+    u8 = rng.randint(0, 256, (b, h, w, 3), dtype=np.uint8)
+    ext = _extents(rng, b, h, w)
+    assert 0 < ext[:, 2].sum() < b
+    kw = dict(out_size=out, jitter_prob=0.0, grayscale_prob=0.0, blur_prob=0.0)
+    jcfg, cfg = jaug.AugConfig(**kw), aug.AugConfig(**kw)
+    keys = jax.random.split(jax.random.key(3), b)
+    flip_keys = jax.random.split(jax.random.key(4), b)
+    img = jnp.asarray(u8, jnp.float32) / 255.0
+    ref = jax.vmap(lambda im, k, e, fk: jaug._random_resized_crop(im, k, jcfg, e, fk))(
+        img, keys, jnp.asarray(ext), flip_keys)
+    ref = (np.asarray(ref) - jaug.IMAGENET_MEAN) * jaug.IMAGENET_INV_STD
+    box = jax.vmap(lambda k, e: jaug._rrc_params(k, e[0], e[1], jcfg))(keys, jnp.asarray(ext))
+    flip = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, ()) < jcfg.flip_prob)(
+        flip_keys))
+    assert 0 < flip.sum() < b
+    t = torch.from_numpy
+    y0, x0, ch, cw = (t(np.array(a)) for a in box)
+    p = aug.ViewParams(y0, x0, ch, cw, t(flip), torch.ones(b, 3), torch.zeros(b),
+                       torch.arange(4).repeat(b, 1), torch.zeros(b, dtype=torch.bool),
+                       torch.zeros(b, dtype=torch.bool), torch.ones(b, 1),
+                       t(ext[:, 0]).float(), t(ext[:, 1]).float(), t(ext[:, 2] > 0))
+    got = aug.apply_view(t(u8), p, cfg).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=2e-5)
+
+
+def test_apply_view_v2_on_extents_composes_the_jax_pieces():
+    """A whole v2 view of a rot-staged batch from fixed draws equals the
+    JAX package's pieces: the crop over the valid area with the flip on the
+    staged H axis for transposed samples, the transpose back, jitter,
+    grayscale, normalize, blur."""
+    from moco_tpu.ops.pallas_blur import gaussian_blur_batch as jblur
+
+    rng = np.random.RandomState(9)
+    b, h, w, out = 8, 16, 32, 12
+    u8 = rng.randint(0, 256, (b, h, w, 3), dtype=np.uint8)
+    ext = _extents(rng, b, h, w)
+    ext[:2, 2] = [0, 1]
+    cfg = aug.v2_aug_config(out)
+    y0, x0, ch, cw = _crop_params(rng, b, h, w)
+    ch = np.minimum(ch, ext[:, 0]).astype(np.float32)
+    cw = np.minimum(cw, ext[:, 1]).astype(np.float32)
+    factors, hue, perm = _jitter_params(rng, b)
+    flip = np.array([1, 1, 0, 1, 0, 1, 0, 1], bool)
+    jit_on = np.array([1, 1, 0, 1, 0, 1, 1, 0], bool)
+    gray_on = np.array([0, 1, 1, 0, 0, 0, 1, 0], bool)
+    radius = aug.blur_radius(out)
+    taps = aug.blur_weights(b, radius, cfg.blur_sigma, 0.5, torch.Generator().manual_seed(1))
+    rot = ext[:, 2] > 0
+    vh, vw = ext[:, 0].astype(np.float32), ext[:, 1].astype(np.float32)
+    t = torch.from_numpy
+    p = aug.ViewParams(t(y0), t(x0), t(ch), t(cw), t(flip), t(factors), t(hue), t(perm),
+                       t(jit_on), t(gray_on), taps, t(vh), t(vw), t(rot))
+    got = aug.apply_view(t(u8), p, cfg).numpy()
+
+    img = jnp.asarray(u8, jnp.float32) / 255.0
+    img = jax.vmap(lambda im, a, c, d, e, p_, q, r, u: jresize.crop_resize(
+        im, a, c, d, e, out, True, valid_h=p_, valid_w=q, flip_v=r, flip_h=u))(
+        img, y0, x0, ch, cw, vh, vw, flip & rot, flip & ~rot)
+    img = jnp.where(rot[:, None, None, None], jnp.swapaxes(img, 1, 2), img)
+    jit = jax.vmap(lambda im, f, hs, pp: jaug._apply_jitter_ops_fast(
+        im, (f[0], f[1], f[2]), hs, pp, True))(img, factors, hue, perm.astype(np.int32))
+    img = jnp.where(jit_on[:, None, None, None], jit, img)
+    gray = jnp.broadcast_to(jaug._grayscale(img)[..., None], img.shape)
+    img = jnp.where(gray_on[:, None, None, None], gray, img)
+    img = (img - jaug.IMAGENET_MEAN) * jaug.IMAGENET_INV_STD
+    ref = np.asarray(jblur(img, jnp.asarray(taps.numpy()), radius, interpret=True))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=2e-5)
+
+
+def test_two_crops_full_extents_equal_no_extents():
+    """Extents that cover the whole canvas give the same bits as none."""
+    u8 = torch.randint(0, 256, (4, 24, 24, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(5))
+    cfg = aug.v2_aug_config(16)
+    ext = torch.tensor([[24, 24, 0]] * 4, dtype=torch.int32)
+    a = aug.two_crops(u8, cfg, torch.Generator().manual_seed(6), ext)
+    b = aug.two_crops(u8, cfg, torch.Generator().manual_seed(6))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # a transposed sample's view is the transposed canvas's view
+    rot = torch.tensor([[24, 24, 1]] * 4, dtype=torch.int32)
+    c = aug.two_crops(u8.transpose(1, 2).contiguous(), cfg, torch.Generator().manual_seed(6),
+                      rot)
+    for x, y in zip(c, b):
+        assert x.shape == y.shape and torch.isfinite(x).all()

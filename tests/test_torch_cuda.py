@@ -659,3 +659,71 @@ def test_fused_resnets_on_card_match_cpu(cuda, arch):
     for a, b in zip(*outs):
         # f32 sums in another order through a few layers
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+class _StagedExtents:
+    """Synthetic 192 px canvases whose content extents vary per sample (up
+    to 150 x 120, half of them rot-staged), so a trimmed copy ships a
+    [192, 128] prefix."""
+
+    def __init__(self, n: int):
+        from moco_tpu_torch.data.datasets import SyntheticDataset
+
+        self.inner = SyntheticDataset(num_samples=n, image_size=192, num_classes=4)
+
+    def __len__(self):
+        return len(self.inner)
+
+    def get_batch(self, indices):
+        imgs, labels, extents = self.inner.get_batch(indices)
+        extents[:, 0] = 100 + indices % 51
+        extents[:, 1] = 80 + indices % 41
+        extents[:, 2] = indices % 2
+        return imgs, labels, extents
+
+
+@pytest.mark.parametrize("workers, trim", [(1, False), (4, False), (4, True)])
+def test_prefetcher_on_the_card_equals_the_cpu_loader(cuda, workers, trim):
+    """Every batch of an epoch, held on the card while the pool's two pinned
+    canvases are recycled a dozen times, equals the CPU loader's batch: no
+    canvas went back to the pool before its copy completed."""
+    from moco_tpu_torch.data import loader
+
+    ds = _StagedExtents(24 * 32)
+
+    def collect(device):
+        it = loader.epoch_loader(ds, 0, 0, 32, device, workers=workers, depth=2,
+                                 trim_h2d=trim)
+        try:
+            return list(it)
+        finally:
+            it.close_quietly()
+
+    ref = collect("cpu")
+    got = collect(cuda)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == 24
+    for r, g in zip(ref, got):
+        assert all(t.is_cuda for t in g)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(r, g))
+    assert got[0][0].shape[1:3] == ((192, 128) if trim else (192, 192))
+
+
+def test_prefetched_batch_outlives_its_copy_stream(cuda):
+    """A batch staged on the copy stream and used on the default stream
+    stays valid after the loader moved on (record_stream): a kernel that
+    reads it long after gives the staged bytes."""
+    from moco_tpu_torch.data import loader
+
+    ds = _StagedExtents(8 * 32)
+    it = loader.epoch_loader(ds, 0, 0, 32, cuda, workers=2, depth=2)
+    try:
+        batches = iter(it)
+        first = next(batches)
+        total = first[0].sum(dtype=torch.int64)
+        rest = [b[0].float().mean() for b in batches]
+    finally:
+        it.close_quietly()
+    order = loader.epoch_permutation(len(ds), 0, 0, 32)
+    want = torch.from_numpy(ds.get_batch(order[:32])[0]).sum(dtype=torch.int64)
+    assert int(total) == int(want) and len(rest) == 7
