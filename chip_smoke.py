@@ -35,7 +35,21 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             imgs/s, peak memory, staging and decode time, credit stalls;
 5.  check   a small f32 ResNet and one BatchNorm on the card against the
             same on the CPU (where every wrapper takes its plain version);
-5b.         the same small ResNet with `fused_bn_conv=True`.
+5b.         the same small ResNet with `fused_bn_conv=True`;
+5c. phase5  checkpoints and evals at ResNet-50's full width: 2 pretrain
+            steps with a checkpoint (the BN pair and the blur launching),
+            a save and a resume into a fresh state held bit for bit (every
+            tensor, both generators, the queue pointer, the step), one more
+            step of each under deterministic cuDNN (loss, logits and
+            enqueued keys equal); the query encoder exported to .npz and
+            loaded by the surgery for resnet50; `encode_dataset` of a
+            4096-image bank and 1024 queries (f32 eval forward, no port
+            kernel launched) and the kNN with the bank streamed in 1024-row
+            chunks, held against the CPU (the features of 32 images within
+            FEATURE_ATOL; predictions equal except at ties, counted); the
+            linear probe (1000 classes) for an epoch, a probe checkpoint,
+            a resumed second epoch, `--evaluate` of each, `sanity_check`;
+            the timings beside the card's name and power limit.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -48,6 +62,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -106,6 +121,16 @@ PORT_RECORDS = {"channel_sums": "channel_sums_rows",
                 "channel_grad_sums": "channel_grad_sums_rows",
                 "gaussian_blur_batch": "blur_rows"}
 PROFILE_TRIES = 3
+# phase 5: the kNN bank and queries (224 px), the streamed bank's chunk, the
+# bank images whose features the CPU computes too, their tolerance (unit
+# vectors from f32 forwards on both sides, TF32 off), and the probe's steps
+# an epoch
+PHASE5_BANK = 4096
+PHASE5_QUERIES = 1024
+PHASE5_CHUNK = 1024
+PHASE5_CPU_FEATURES = 32
+FEATURE_ATOL = 1e-4
+PHASE5_PROBE_STEPS = 4
 
 
 def fail(msg: str, code: int = 2) -> None:
@@ -854,6 +879,294 @@ def check_against_cpu(fused: bool = False, counters: dict | None = None) -> None
           f"vs {float(res['cpu']['step_loss'][0]):.6f}", flush=True)
 
 
+class _Head:
+    """The first `n` samples of a dataset."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n, self.num_classes = dataset, n, dataset.num_classes
+
+    def __len__(self) -> int:
+        return self.n
+
+    def get_batch(self, indices):
+        return self.dataset.get_batch(indices)
+
+
+def _cuda_time(fn):
+    """(fn's result, its host seconds with the device drained on both ends)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _states_equal(a, b) -> list[str]:
+    """The names of what differs between two TrainStates, bit for bit."""
+    import torch
+
+    diff = []
+    for name in ("model_q", "model_k"):
+        sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
+        diff += [f"{name}.{k}" for k in sb if not torch.equal(sa[k], sb[k])]
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    if oa["state"].keys() != ob["state"].keys() or not ob["state"]:
+        diff.append("optimizer state")
+    diff += [f"momentum_buffer {i}" for i in ob["state"] if i in oa["state"] and not
+             torch.equal(oa["state"][i]["momentum_buffer"], ob["state"][i]["momentum_buffer"])]
+    if not torch.equal(a.queue, b.queue):
+        diff.append("queue")
+    if (a.step, a.queue_ptr) != (b.step, b.queue_ptr):
+        diff.append(f"step/queue_ptr {(a.step, a.queue_ptr)} != {(b.step, b.queue_ptr)}")
+    for g in ("generator", "data_generator"):
+        if not torch.equal(getattr(a, g).get_state(), getattr(b, g).get_state()):
+            diff.append(g)
+    return diff
+
+
+def _step_logits(config, state, images, extents):
+    """One more train step of `state` on a fixed batch: (loss, logits,
+    enqueued keys), the logits captured where the step computes them."""
+    import torch
+
+    from moco_tpu_torch import train_step
+    from moco_tpu_torch.data.augment import aug_config_for, two_crops
+
+    captured = []
+    real = train_step.infonce_logits
+
+    def capture(*args, **kw):
+        out = real(*args, **kw)
+        captured.append(out[0].detach().clone())
+        return out
+
+    train_step.infonce_logits = capture
+    try:
+        step_fn = train_step.build_train_step(config, steps_per_epoch=PHASE5_BANK // BATCH)
+        im_q, im_k = two_crops(images, aug_config_for(config), state.data_generator, extents)
+        ptr = state.queue_ptr
+        metrics = step_fn(state, im_q, im_k)
+    finally:
+        train_step.infonce_logits = real
+    torch.cuda.synchronize()
+    return metrics["loss"].clone(), captured[0], state.queue[ptr:ptr + BATCH].clone()
+
+
+def run_checkpoint_and_evals(counters: dict, smi: str) -> dict:
+    """Phase 5, on the card at ResNet-50's full width (224 px, batch 256,
+    2048-d features, a 1000-class probe): pretrain 2 steps and save, resume
+    into a fresh state (every tensor, both generators, the queue pointer
+    and the step bit for bit), one more step of each under deterministic
+    cuDNN (loss, logits and enqueued keys equal); export `encoder_q` to
+    .npz and `load_for_inference` it; encode a 4096-image bank and 1024
+    queries and run the streamed kNN, held against the CPU; train the
+    linear probe, checkpoint, resume, validate, `--evaluate`,
+    `sanity_check`. Times the encode, the probe step, one save and one
+    restore."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from moco_tpu_torch import checkpoint as ckpt
+    from moco_tpu_torch import train
+    from moco_tpu_torch.config import EvalConfig, get_preset
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.evals import lincls
+    from moco_tpu_torch.evals.knn import encode_dataset
+    from moco_tpu_torch.ops import knn
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder
+
+    out = {}
+    t0 = time.perf_counter()
+    bank_set = SyntheticDataset(num_samples=PHASE5_BANK, image_size=224, seed=0)
+    query_set = SyntheticDataset(num_samples=PHASE5_QUERIES, image_size=224, seed=999)
+    print(f"phase5: {PHASE5_BANK} + {PHASE5_QUERIES} synthetic 224 px images in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="moco_phase5_") as tmp:
+        tmp = Path(tmp)
+        # 1. pretrain and save, resume into a fresh state
+        config = get_preset("imagenet-moco-v2").replace(
+            dataset="synthetic", batch_size=BATCH, staging_workers=4, prefetch_depth=2,
+            print_freq=1, ckpt_dir=str(tmp / "ckpt"))
+        for fn in counters.values():
+            fn.launches = 0
+        state, history = train.train(config, max_steps=2, device="cuda", dataset=bank_set,
+                                     on_step=lambda *a: None)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        for name in PER_STEP:
+            if launches[name] != PER_STEP[name] * 2:
+                fail(f"phase5 pretrain: {name} launched {launches[name]} times in 2 steps", 1)
+        mgr = ckpt.checkpoint_manager(config.ckpt_dir)
+        if mgr.all_steps() != [2] or ckpt.read_position(config.ckpt_dir, 2) != (0, 2):
+            fail(f"phase5: the run saved {mgr.all_steps()} at "
+                 f"{ckpt.read_position(config.ckpt_dir, 2)}, expected [2] at (0, 2)", 1)
+        _, save_s = _cuda_time(lambda: ckpt.save_checkpoint(mgr, state, 2, position=(0, 2)))
+        save_bytes = os.path.getsize(os.path.join(mgr.step_dir(2), ckpt.STATE_FILE))
+        fresh = create_train_state(config, build_encoder(config), "cuda", seed=config.seed + 1)
+        if not _states_equal(fresh, state):
+            fail("phase5: the fresh state already equals the saved one", 1)
+        _, restore_s = _cuda_time(lambda: ckpt.maybe_resume(mgr, fresh, "auto"))
+        diff = _states_equal(fresh, state)
+        if diff:
+            fail(f"phase5: the restored state differs from the saved one: {diff[:5]}", 1)
+        print(f"phase5 resume: steps {[round(h['loss'], 6) for h in history]} losses; "
+              f"step {fresh.step}, queue_ptr {fresh.queue_ptr}, "
+              f"{len(fresh.model_q.state_dict()) + len(fresh.model_k.state_dict())} encoder "
+              "tensors, the momentum buffers, the queue and both generator states equal "
+              "the saved ones bit for bit", flush=True)
+        # one more step of each from the same batch: cuDNN on deterministic
+        # algorithms (benchmark off), so the two forwards must agree bit for bit
+        images, _, extents = (torch.from_numpy(a).to("cuda")
+                              for a in bank_set.get_batch(np.arange(2 * BATCH, 3 * BATCH)))
+        flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            ref = _step_logits(config, state, images, extents)
+            got = _step_logits(config, fresh, images, extents)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        for name, a, b in zip(("loss", "logits", "enqueued keys"), got, ref):
+            if not torch.equal(a, b):
+                fail(f"phase5: the resumed step's {name} differ from the original's by "
+                     f"{float((a - b).abs().max()):.3e}", 1)
+        print(f"phase5 resumed step: loss {float(got[0]):.6f}, logits {list(got[1].shape)} "
+              "and enqueued keys equal the original state's bit for bit "
+              "(cudnn.deterministic)", flush=True)
+        out.update(save_s=save_s, restore_s=restore_s, save_bytes=save_bytes)
+        # 2. export and surgery
+        enc = str(tmp / "encoder_q.npz")
+        flat = ckpt.export_encoder_q(state, enc)
+        del state, fresh, mgr
+        torch.cuda.empty_cache()
+        model = ckpt.load_for_inference(enc, "resnet50", device="cuda")
+        print(f"phase5 export: {len(flat)} tensors in the reference dialect, "
+              f"{os.path.getsize(enc) / 2**20:.1f} MiB; surgery for resnet50 kept "
+              f"{len(model.state_dict())} backbone tensors", flush=True)
+        # 3. kNN: a 4096-image bank, 1024 queries, the bank streamed in chunks
+        for fn in counters.values():
+            fn.launches = 0
+        eval_cfg = EvalConfig(image_size=224)
+        (queries, qlabels), _ = _cuda_time(lambda: encode_dataset(model, query_set, eval_cfg))
+        (bank, bank_labels), encode_s = _cuda_time(
+            lambda: encode_dataset(model, bank_set, eval_cfg))
+        if queries.shape != (PHASE5_QUERIES, 2048) or bank.shape != (PHASE5_BANK, 2048) \
+                or not bool(torch.isfinite(bank).all() & torch.isfinite(queries).all()):
+            fail(f"phase5 kNN: features {tuple(bank.shape)} / {tuple(queries.shape)}, or not "
+                 "finite", 1)
+        cpu_model = ckpt.load_for_inference(enc, "resnet50", device="cpu")
+        idx = np.arange(PHASE5_CPU_FEATURES)
+        cpu_feats, _ = encode_dataset(cpu_model, bank_set, eval_cfg, indices=idx)
+        feat_err = float((bank[:PHASE5_CPU_FEATURES].cpu() - cpu_feats).abs().max())
+        if feat_err > FEATURE_ATOL:
+            fail(f"phase5 kNN: card and CPU features differ by {feat_err:.3e}", 1)
+        args = dict(num_classes=bank_set.num_classes, k=200, temperature=0.07)
+        acc, knn_s = _cuda_time(lambda: knn.knn_accuracy(
+            queries, qlabels, bank, bank_labels, batch=512, bank_chunk=PHASE5_CHUNK, **args))
+        fq, fb = knn.l2_normalize(queries), knn.l2_normalize(bank)
+        pred = knn._knn_predict_prenormalized(fq, fb, bank_labels, bank_chunk=PHASE5_CHUNK,
+                                              **args).cpu()
+        fq, fb, lb = fq.cpu(), fb.cpu(), bank_labels.cpu()
+        pred_cpu = knn._knn_predict_prenormalized(fq, fb, lb, bank_chunk=PHASE5_CHUNK, **args)
+        acc_cpu = knn.knn_accuracy(fq, qlabels.cpu(), fb, lb, batch=512,
+                                   bank_chunk=PHASE5_CHUNK, **args)
+        # ties: the two devices' similarities (the same chunked products as
+        # the streamed kNN) differ by at most `delta`; a k-th neighbour within
+        # 2 delta of the next, or two best class votes within 2 delta / T of
+        # each other, can order either way
+        def chunked_sims(a, b):
+            return torch.cat([a @ b[i:i + PHASE5_CHUNK].t()
+                              for i in range(0, len(b), PHASE5_CHUNK)], dim=1)
+
+        sims = chunked_sims(fq, fb)
+        delta = float((chunked_sims(knn.l2_normalize(queries), knn.l2_normalize(bank)).cpu()
+                       - sims).abs().max())
+        top = sims.topk(201, dim=1)
+        kth_tie = (top.values[:, 199] - top.values[:, 200]) <= 2 * delta
+        votes = torch.zeros(len(fq), args["num_classes"]).scatter_add_(
+            1, lb[top.indices[:, :200]], torch.exp(top.values[:, :200] / 0.07))
+        best2 = votes.topk(2, dim=1).values
+        vote_tie = (best2[:, 0] - best2[:, 1]) <= best2[:, 0] * 2 * delta / 0.07
+        differ = pred != pred_cpu
+        if bool((differ & ~(kth_tie | vote_tie)).any()):
+            fail(f"phase5 kNN: {int(differ.sum())} predictions differ between card and CPU, "
+                 f"{int((differ & ~(kth_tie | vote_tie)).sum())} of them with no tie", 1)
+        print(f"phase5 kNN: bank {PHASE5_BANK} and {PHASE5_QUERIES} queries, 2048-d, k=200, "
+              f"T=0.07, bank_chunk {PHASE5_CHUNK}: top-1 {100 * acc:.2f}% on the card, "
+              f"{100 * acc_cpu:.2f}% on the CPU from the card's features; predictions "
+              f"differing {int(differ.sum())}, k-th neighbour ties {int(kth_tie.sum())}, "
+              f"vote ties {int(vote_tie.sum())} (device similarities within {delta:.2e}); "
+              f"card vs CPU features on {PHASE5_CPU_FEATURES} bank images max abs err "
+              f"{feat_err:.3e} (tolerance {FEATURE_ATOL:g})", flush=True)
+        out.update(encode_s=encode_s, knn_s=knn_s, knn_top1=acc, feat_err=feat_err,
+                   knn_ties=int(kth_tie.sum()), knn_differ=int(differ.sum()))
+        del model, cpu_model, bank, queries
+        torch.cuda.empty_cache()
+        # 4. the linear probe: one epoch, a probe checkpoint, a resumed
+        # second epoch, validation after each, sanity_check, --evaluate
+        probe = EvalConfig(pretrained=enc, arch="resnet50", dataset="synthetic",
+                           image_size=224, num_classes=1000, batch_size=BATCH, epochs=2,
+                           print_freq=1, ckpt_dir=str(tmp / "probe"))
+        train_set = _Head(bank_set, PHASE5_PROBE_STEPS * BATCH)
+        stamps = []
+
+        def on_step(step, metrics):
+            stamps.append((step, time.perf_counter(), metrics["loss"]))
+
+        def evaluate():
+            return lincls.train_lincls(probe.replace(resume="auto", evaluate=True),
+                                       device="cuda", dataset=train_set,
+                                       val_dataset=query_set)[1]
+
+        # epoch 0, --evaluate of its checkpoint, epoch 1 resumed from it,
+        # --evaluate again: best acc@1 is the larger of the two epochs'
+        _, first = lincls.train_lincls(probe, max_steps=PHASE5_PROBE_STEPS, device="cuda",
+                                       dataset=train_set, val_dataset=query_set,
+                                       on_step=on_step)
+        eval_first = evaluate()
+        _, best = lincls.train_lincls(probe.replace(resume="auto"),
+                                      max_steps=2 * PHASE5_PROBE_STEPS, device="cuda",
+                                      dataset=train_set, val_dataset=query_set,
+                                      on_step=on_step)
+        eval_last = evaluate()
+        accs = [first, eval_last]
+        if eval_first != first or best != max(first, eval_last):
+            fail(f"phase5 probe: --evaluate gave {eval_first} and {eval_last} against the "
+                 f"runs' {first} and best {best}", 1)
+        steps = [s for s, _, _ in stamps]
+        if steps != list(range(1, 2 * PHASE5_PROBE_STEPS + 1)):
+            fail(f"phase5 probe: steps {steps}, expected 1..{2 * PHASE5_PROBE_STEPS}", 1)
+        if ckpt.checkpoint_manager(probe.ckpt_dir).all_steps() != [PHASE5_PROBE_STEPS,
+                                                                   2 * PHASE5_PROBE_STEPS]:
+            fail("phase5 probe: checkpoints "
+                 f"{ckpt.checkpoint_manager(probe.ckpt_dir).all_steps()}", 1)
+        losses = [loss for _, _, loss in stamps]
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"phase5 probe: non-finite losses {losses}", 1)
+        gaps = [b[1] - a[1] for a, b in zip(stamps, stamps[1:]) if b[0] % PHASE5_PROBE_STEPS
+                != 1]
+        probe_s = sum(gaps) / len(gaps)
+        launches = {name: fn.launches for name, fn in counters.items() if fn.launches}
+        if launches:
+            fail(f"phase5: the eval path launched {launches}; eval-mode BN and the eval "
+                 "transforms run no port kernel", 1)
+        print(f"phase5 probe: {2 * PHASE5_PROBE_STEPS} steps at batch {BATCH}, 1000 classes "
+              f"(losses {', '.join(f'{v:.4f}' for v in losses)}), val acc@1 after each epoch "
+              f"{accs} (epoch 1 resumed from epoch 0's checkpoint; --evaluate of each "
+              "checkpoint gives the same), sanity_check passed against the file after each "
+              "run", flush=True)
+        out.update(probe_s=probe_s, probe_acc1=accs)
+    print(f"phase5 timings ({smi}): encode_dataset {PHASE5_BANK / out['encode_s']:.1f} imgs/s "
+          f"({out['encode_s']:.3f} s for {PHASE5_BANK}); kNN {out['knn_s']:.3f} s; probe train "
+          f"step {BATCH / out['probe_s']:.1f} imgs/s ({1e3 * out['probe_s']:.1f} ms a step, "
+          f"host clock, print every step); full-state save {out['save_s']:.3f} s, "
+          f"{out['save_bytes']} bytes; restore {out['restore_s']:.3f} s", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -921,6 +1234,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
+    run_checkpoint_and_evals(counters, smi)
     print(smi)  # the card's name and power limit, as nvidia-smi prints them
     # name: (source, TPU kernel it replaces, shape reported in the line)
     sources = {

@@ -1,0 +1,477 @@
+"""Checkpoint, resume and export (port of `moco_tpu/checkpoint.py`).
+
+Full state. A step's checkpoint is `<ckpt_dir>/<step>/state.pt`, one
+`torch.save` of the whole `TrainState`: both encoders' state_dicts (BN
+running statistics included), the SGD momentum buffers, the queue and its
+pointer, the step, and the states of both generators (ShuffleBN's and the
+augmentation's), so a resumed run draws what the uninterrupted one would
+have. The write is atomic: the step is written into a temporary directory
+whose name is not a step, then renamed into place. After each save the
+integrity manifest and the data-stream position sidecar are written as the
+JAX package writes them (`resilience/integrity.py`), and only the newest
+`max_to_keep` steps stay, with their sidecars. A restore with no step walks
+back from the newest step past any that fails its manifest or its load.
+Restore loads onto the device of the state it fills.
+
+The reference checkpoint dialect. `export_encoder_q` writes the query
+encoder under torchvision's names (`module.encoder_q.*`) and tensor layouts,
+the dialect of the reference's checkpoints, as `.npz` or `.safetensors`;
+the port's module names map onto torchvision's one for one, and conv and
+linear weights are already [O, I, H, W] and [out, in]. The JAX package and
+the port write the same file for the same weights. `load_for_inference`
+reads any known dialect (`detect_dialect`), drops the contrastive head (the
+linear probe's checkpoint surgery) and checks that what is left is exactly
+the backbone's state. `.safetensors` needs the `safetensors` package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import sys
+
+import numpy as np
+import torch
+
+from moco_tpu_torch.resilience.integrity import position_path, verify_step, write_manifest
+from moco_tpu_torch.weights import params_from_jax, params_to_jax
+
+STATE_FILE = "state.pt"
+
+
+def _log(event: str, msg: str) -> None:
+    print(f"[{event}] {msg}", file=sys.stderr, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# step directories
+# ---------------------------------------------------------------------------
+
+
+class CheckpointManager:
+    """The step directories `<directory>/<step>/` of one run: each holds
+    one `torch.save` payload, written atomically; the newest `max_to_keep`
+    are kept."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit() and os.path.isdir(os.path.join(self.directory, n)))
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, payload: dict) -> None:
+        """Write `payload` as step `step` (replacing an earlier save of the
+        same step), then drop the steps past `max_to_keep`."""
+        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        with open(os.path.join(tmp, STATE_FILE), "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        final = self.step_dir(step)
+        if os.path.exists(final):
+            old = os.path.join(self.directory, f".old-{step}-{os.getpid()}")
+            os.replace(final, old)
+            shutil.rmtree(old)
+        os.replace(tmp, final)
+        for s in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(self.step_dir(s), ignore_errors=True)
+
+    def restore(self, step: int) -> dict:
+        """The payload of step `step`, its tensors on the CPU."""
+        return torch.load(os.path.join(self.step_dir(step), STATE_FILE), map_location="cpu",
+                          weights_only=True)
+
+
+def checkpoint_manager(directory: str, max_to_keep: int = 3) -> CheckpointManager:
+    return CheckpointManager(directory, max_to_keep=max_to_keep)
+
+
+def write_position(directory: str, step: int, position: tuple[int, int] | None) -> None:
+    """Record the data-stream position `(epoch, next_batch_index)` a run
+    restored from `step` resumes at (atomically). Absent or unreadable, a
+    resume falls back to step arithmetic."""
+    if position is None:
+        return
+    path = position_path(directory, step)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"epoch": int(position[0]), "batch": int(position[1])}, f)
+    os.replace(tmp, path)
+
+
+def read_position(directory: str, step: int) -> tuple[int, int] | None:
+    try:
+        with open(position_path(directory, step)) as f:
+            d = json.load(f)
+        return int(d["epoch"]), int(d["batch"])
+    except (OSError, ValueError, KeyError, TypeError, json.JSONDecodeError):
+        return None
+
+
+def _prune_sidecars(mgr: CheckpointManager) -> None:
+    """Drop the manifest and position sidecars of steps no longer kept."""
+    keep = {str(s) for s in mgr.all_steps()}
+    for sub in (".integrity", ".position"):
+        d = os.path.join(mgr.directory, sub)
+        try:
+            names = os.listdir(d)
+        except OSError:
+            continue
+        for name in names:
+            stem, ext = os.path.splitext(name)
+            if ext == ".json" and stem.isdigit() and stem not in keep:
+                try:
+                    os.remove(os.path.join(d, name))
+                except OSError:
+                    pass  # lost a cleanup race; the next prune retries
+
+
+# ---------------------------------------------------------------------------
+# full-state save and restore
+# ---------------------------------------------------------------------------
+
+
+def cpu_copy(tree):
+    """A copy of a nest of dicts, lists and tensors with every tensor on the
+    CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cpu_copy(v) for v in tree)
+    return tree
+
+
+def state_payload(state) -> dict:
+    """Everything a `TrainState` holds, as CPU tensors and numbers."""
+    return {
+        "step": int(state.step),
+        "model_q": cpu_copy(state.model_q.state_dict()),
+        "model_k": cpu_copy(state.model_k.state_dict()),
+        "optimizer": cpu_copy(state.optimizer.state_dict()),
+        "queue": cpu_copy(state.queue),
+        "queue_ptr": int(state.queue_ptr),
+        "generator": state.generator.get_state(),
+        "data_generator": (None if state.data_generator is None
+                           else state.data_generator.get_state()),
+    }
+
+
+def _check_payload(state, payload: dict) -> None:
+    """Raise before anything is written if `payload` does not fit `state`."""
+    for name in ("model_q", "model_k"):
+        want = getattr(state, name).state_dict()
+        got = payload[name]
+        if want.keys() != got.keys():
+            raise ValueError(f"checkpoint {name} names differ: missing "
+                             f"{sorted(want.keys() - got.keys())[:5]}, extra "
+                             f"{sorted(got.keys() - want.keys())[:5]}")
+        bad = [k for k in want if want[k].shape != got[k].shape]
+        if bad:
+            raise ValueError(f"checkpoint {name} shapes differ at {bad[:5]}")
+    if payload["queue"].shape != state.queue.shape:
+        raise ValueError(f"checkpoint queue {tuple(payload['queue'].shape)} != "
+                         f"{tuple(state.queue.shape)}")
+    if (payload["data_generator"] is None) != (state.data_generator is None):
+        raise ValueError("checkpoint and state disagree on the data generator")
+
+
+def load_state(state, payload: dict):
+    """Fill `state` in place from a `state_payload` (on the state's
+    device), bit for bit; returns it."""
+    _check_payload(state, payload)
+    state.model_q.load_state_dict(payload["model_q"])
+    state.model_k.load_state_dict(payload["model_k"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    with torch.no_grad():
+        state.queue.copy_(payload["queue"])
+    state.queue_ptr = int(payload["queue_ptr"])
+    state.step = int(payload["step"])
+    state.generator.set_state(payload["generator"])
+    if state.data_generator is not None:
+        state.data_generator.set_state(payload["data_generator"])
+    return state
+
+
+def save_checkpoint(mgr: CheckpointManager, state, step: int,
+                    position: tuple[int, int] | None = None) -> None:
+    """Save `state` as step `step`: its position sidecar, then the state,
+    then the integrity manifest; then drop the sidecars of pruned steps."""
+    write_position(mgr.directory, step, position)
+    mgr.save(step, state_payload(state))
+    write_manifest(mgr.directory, step)
+    _prune_sidecars(mgr)
+
+
+def restore_checkpoint(mgr: CheckpointManager, state, step: int | None = None):
+    """Restore step `step` into `state`; with `step=None` the newest step
+    that verifies and loads, walking back past corrupt or partial newer
+    ones with a warning. An explicit step fails hard."""
+    if step is not None:
+        return load_state(state, mgr.restore(step))
+    steps = mgr.all_steps()[::-1]
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint found in {mgr.directory} to resume from")
+    skipped: list[tuple[int, str]] = []
+    for s in steps:
+        reason = verify_step(mgr.directory, s)
+        if reason is None:
+            try:
+                payload = mgr.restore(s)
+                _check_payload(state, payload)
+            except Exception as e:  # a torn file raises whatever the unpickler hits
+                reason = f"{type(e).__name__}: {e}"
+        if reason is not None:
+            _log("ckpt-restore", f"step {s} fails ({reason}); falling back to the "
+                                 "next-older step")
+            skipped.append((s, reason))
+            continue
+        if skipped:
+            _log("ckpt-restore", f"restored OLDER step {s} after skipping "
+                                 f"{[x[0] for x in skipped]}: up to {steps[0] - s} steps "
+                                 "of progress lost")
+        return load_state(state, payload)
+    raise FileNotFoundError(f"no restorable checkpoint in {mgr.directory}; all candidates "
+                            f"failed: {skipped}")
+
+
+def resume_dir(mgr: CheckpointManager | None, resume: str) -> str | None:
+    """The directory `maybe_resume(mgr, _, resume)` restores from."""
+    if resume and not (resume == "auto" or resume.isdigit()):
+        return os.path.dirname(os.path.normpath(resume))
+    return None if mgr is None else mgr.directory
+
+
+def maybe_resume(mgr: CheckpointManager | None, state, resume: str):
+    """`""`: the fresh state; `"auto"`: the newest restorable step if any,
+    else the fresh state; a step number: that step of `mgr`'s directory; a
+    path `<ckpt_dir>/<step>`: that step of that directory (the reference's
+    `--resume <path>`)."""
+    if not resume:
+        return state
+    if mgr is None and (resume == "auto" or resume.isdigit()):
+        raise ValueError(f"--resume {resume} needs a checkpoint directory (--ckpt-dir)")
+    if resume == "auto":
+        if mgr.latest_step() is None:
+            return state
+        return restore_checkpoint(mgr, state)
+    if resume.isdigit():
+        return restore_checkpoint(mgr, state, int(resume))
+    path = os.path.normpath(resume)
+    base = os.path.basename(path)
+    if not base.isdigit():
+        raise ValueError(f"--resume expects 'auto', a step number, or a path ending in a "
+                         f"step directory; got {resume!r}")
+    return restore_checkpoint(checkpoint_manager(os.path.dirname(path)), state, int(base))
+
+
+# ---------------------------------------------------------------------------
+# the reference checkpoint dialect (torchvision names)
+# ---------------------------------------------------------------------------
+
+
+def _torchvision_module(mods: list[str], mlp_head: bool) -> list[str]:
+    """The port's module path of one entry -> torchvision's."""
+    top = mods[0]
+    if top in ("conv1", "bn1") and len(mods) == 1:
+        return mods
+    if top.startswith("layer") and len(mods) == 2:
+        stage, block = top.split("_")
+        member = mods[1]
+        if member == "downsample_conv":
+            return [stage, block, "downsample", "0"]
+        if member == "downsample_bn":
+            return [stage, block, "downsample", "1"]
+        if member.startswith(("conv", "bn")):
+            return [stage, block, member]
+        raise ValueError(f"unexpected block member {top}.{member}")
+    if top == "fc_hidden" and len(mods) == 1:
+        return ["fc", "0"]
+    if top == "fc" and len(mods) == 1:
+        return ["fc", "2"] if mlp_head else ["fc"]
+    raise ValueError(f"unexpected module {'.'.join(mods)}")
+
+
+def resnet_to_torchvision(state_dict: dict, mlp_head: bool | None = None,
+                          prefix: str = "") -> dict[str, np.ndarray]:
+    """The port's ResNet state_dict under torchvision's names: `layer{i}_{j}`
+    -> `layer{i}.{j}`, `downsample_conv`/`_bn` -> `downsample.0`/`.1`, the
+    v2 MLP head `fc_hidden`/`fc` -> `fc.0`/`fc.2` (the reference's
+    `Sequential(Linear, ReLU, Linear)`). `mlp_head` is read from the names
+    unless given. Values are numpy copies."""
+    if mlp_head is None:
+        mlp_head = any(k.startswith("fc_hidden.") for k in state_dict)
+    out = {}
+    for name, value in state_dict.items():
+        *mods, leaf = name.split(".")
+        key = ".".join(_torchvision_module(mods, mlp_head) + [leaf])
+        out[prefix + key] = value.detach().cpu().numpy().copy()
+    return out
+
+
+def torchvision_to_resnet(flat: dict, prefix: str = "module.encoder_q.") -> dict:
+    """The inverse of `resnet_to_torchvision`, and the linear probe's
+    checkpoint surgery (`main_lincls.py`): keep the `prefix` entries, strip
+    the prefix, DROP the contrastive head (`fc*`), and rename to the port's
+    modules. Returns a state_dict of CPU tensors."""
+    out = {}
+    for name, arr in flat.items():
+        if not name.startswith(prefix):
+            continue
+        name = name[len(prefix):]
+        *mods, leaf = name.split(".")
+        if mods and mods[0].startswith("fc"):
+            continue  # the contrastive head, dropped as the reference drops it
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf not in ("weight", "bias", "running_mean", "running_var"):
+            raise ValueError(f"unexpected leaf {name!r}")
+        if len(mods) >= 2 and mods[-2] == "downsample":
+            mods = mods[:-2] + ["downsample_conv" if mods[-1] == "0" else "downsample_bn"]
+        if len(mods) >= 2 and mods[0].startswith("layer"):
+            mods = [f"{mods[0]}_{mods[1]}"] + mods[2:]
+        out[".".join(mods + [leaf])] = torch.tensor(np.asarray(arr))
+    return out
+
+
+def export_encoder_q(state, path: str, mlp_head: bool | None = None,
+                     prefix: str = "module.encoder_q.") -> dict[str, np.ndarray]:
+    """Write the query encoder in the reference's checkpoint dialect as
+    `.npz` or `.safetensors` (by the path's extension). Returns the flat
+    dict written."""
+    flat = resnet_to_torchvision(state.model_q.state_dict(), mlp_head=mlp_head,
+                                 prefix=prefix)
+    _save_flat(flat, path)
+    return flat
+
+
+def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """`a/b/c`-joined flattening of a nested dict (the `backbone/` dialect)."""
+    out: dict[str, np.ndarray] = {}
+    for name, sub in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(sub, dict):
+            out.update(flatten_tree(sub, key + "/"))
+        else:
+            out[key] = np.ascontiguousarray(np.asarray(sub))
+    return out
+
+
+def unflatten_tree(flat: dict[str, np.ndarray], prefix: str = "") -> dict:
+    tree: dict = {}
+    for name, arr in flat.items():
+        if not name.startswith(prefix):
+            continue
+        parts = name[len(prefix):].split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+    return tree
+
+
+def export_backbone_tree(state_dict: dict, path: str) -> dict[str, np.ndarray]:
+    """Write a backbone in the `backbone/a/b/c` dialect (flax tree names and
+    layouts, BN running statistics under `backbone_stats/`), the dialect the
+    JAX package's v3 ResNet exports use."""
+    params, stats = params_to_jax(state_dict)
+    flat = flatten_tree(params, "backbone/")
+    if stats:
+        flat.update(flatten_tree(stats, "backbone_stats/"))
+    _save_flat(flat, path)
+    return flat
+
+
+def _safetensors_numpy(path: str):
+    try:
+        import safetensors.numpy
+    except ImportError as e:
+        raise ImportError(f"{path!r} is a .safetensors path, which needs the `safetensors` "
+                          "package; it is not installed. Use a .npz path instead") from e
+    return safetensors.numpy
+
+
+def _save_flat(flat: dict[str, np.ndarray], path: str) -> None:
+    """`.npz` by extension, else safetensors."""
+    if path.endswith(".npz"):
+        np.savez(path, **flat)
+    else:
+        _safetensors_numpy(path).save_file(flat, path)
+
+
+def import_encoder_q(path: str) -> dict[str, np.ndarray]:
+    """A flat exported dict, read back."""
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            return dict(f)
+    return _safetensors_numpy(path).load_file(path)
+
+
+# name -> predicate over the flat key set; the first match wins
+CHECKPOINT_DIALECTS: tuple[tuple[str, object], ...] = (
+    ("v3_tree", lambda flat: any(k.startswith("backbone/") for k in flat)),
+    ("timm_vit", lambda flat: "patch_embed.proj.weight" in flat),
+    ("torchvision_encoder_q",
+     lambda flat: any(k.startswith("module.encoder_q.") for k in flat)),
+)
+
+
+def detect_dialect(flat: dict[str, np.ndarray]) -> str:
+    """Classify a flat checkpoint against `CHECKPOINT_DIALECTS`; raises
+    with the known dialects on a miss."""
+    for name, pred in CHECKPOINT_DIALECTS:
+        if pred(flat):
+            return name
+    known = ", ".join(name for name, _ in CHECKPOINT_DIALECTS)
+    raise ValueError(f"checkpoint matches no known dialect (looked for: {known}); "
+                     f"got keys like {sorted(flat)[:3]}")
+
+
+def load_pretrained_backbone(path: str) -> dict:
+    """A pretrained ResNet backbone's state_dict (CPU tensors, head
+    dropped) from any ResNet dialect: torchvision `module.encoder_q.*` or a
+    `backbone/*` tree. The timm ViT dialect goes with the v3 path."""
+    flat = import_encoder_q(path)
+    dialect = detect_dialect(flat)
+    if dialect == "v3_tree":
+        return params_from_jax(unflatten_tree(flat, "backbone/"),
+                               unflatten_tree(flat, "backbone_stats/"))
+    if dialect == "timm_vit":
+        raise NotImplementedError(f"{path!r} is a timm ViT checkpoint; the ViT is not "
+                                  "ported yet")
+    return torchvision_to_resnet(flat)
+
+
+def load_for_inference(path: str, arch: str, *, cifar_stem: bool = False, device="cuda"):
+    """The checkpoint surgery every consumer that does not train goes
+    through: build the feature-mode backbone of `arch`, load `path` through
+    the dialect table, check that the surgery left EXACTLY the backbone's
+    names (else raise with the missing and extra ones), and return the
+    model on `device` in eval mode, its parameters frozen."""
+    from moco_tpu_torch.models import build_backbone
+
+    model = build_backbone(arch, cifar_stem=cifar_stem)
+    state = load_pretrained_backbone(path)
+    want, got = set(model.state_dict()), set(state)
+    if want != got:
+        raise ValueError(f"checkpoint surgery mismatch for arch {arch!r}: missing "
+                         f"{sorted(want - got)[:5]}, extra {sorted(got - want)[:5]}")
+    model.load_state_dict(state, strict=True)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    return model.to(device).eval()

@@ -1,10 +1,14 @@
-"""Pretraining config of the port: the fields the v1/v2 step and its input
-pipeline read, the presets, and the flag surface of `train.py`.
+"""Configs of the port: the fields the v1/v2 pretrain step, its input
+pipeline, its checkpoints and kNN monitor read (`PretrainConfig`), the
+linear probe's and kNN eval's (`EvalConfig`), the presets, and the flag
+surface of the entry points.
 
 The port's own copy of the relevant part of `moco_tpu/config.py`
-(`PretrainConfig`, the `imagenet-moco-v1`, `imagenet-moco-v2` and
-`cifar10-moco-v1` presets, `effective_lr`); field names, defaults and
-validation are the same.
+(`PretrainConfig`, `EvalConfig`, the `imagenet-moco-v1`, `imagenet-moco-v2`,
+`cifar10-moco-v1` and `imagenet-lincls` presets, `effective_lr`); field
+names, defaults and validation are the same, except that `ckpt_dir`
+defaults to "" (no checkpoints unless asked for) in both configs, so a run
+writes nothing into its working directory by default.
 """
 
 from __future__ import annotations
@@ -56,7 +60,17 @@ class PretrainConfig:
     sgd_momentum: float = 0.9
     weight_decay: float = 1e-4
     print_freq: int = 10              # -p: metrics reach the host on these steps only
+    # checkpoints (checkpoint.py)
+    ckpt_dir: str = ""                # full-state checkpoints ("" = none)
+    ckpt_every_epochs: int = 1
+    resume: str = ""                  # "" | "auto" | <step> | <ckpt_dir>/<step>
+    export_path: str = ""             # write encoder_q (.npz/.safetensors) at the end
     steps_per_epoch: int | None = None  # derived from the dataset unless set
+    # kNN monitor (train.py::knn_monitor)
+    knn_monitor: bool = False         # kNN top-1 at step 0 and every knn_every_epochs
+    knn_every_epochs: int = 1         # the run's final epoch always reports
+    knn_bank_size: int = 4096         # monitor bank cap (train-subset size)
+    num_classes: int = 1000           # dataset classes (kNN only)
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
@@ -75,21 +89,76 @@ class PretrainConfig:
             raise ValueError(f"input_cache_mb must be >= 0, got {self.input_cache_mb}")
         if self.print_freq < 1:
             raise ValueError(f"print_freq must be >= 1, got {self.print_freq}")
+        if self.ckpt_every_epochs < 1:
+            raise ValueError(f"ckpt_every_epochs must be >= 1, got {self.ckpt_every_epochs}")
 
     def replace(self, **kw) -> "PretrainConfig":
         return dataclasses.replace(self, **kw)
 
     @property
     def effective_lr(self) -> float:
-        """`lr` if set, else `base_lr * batch / 256`."""
-        if self.lr:
-            return self.lr
-        if not self.base_lr:
-            raise ValueError("config needs lr or base_lr (both are 0)")
-        return self.base_lr * self.batch_size / 256
+        return _effective_lr(self)
 
 
-PRESETS: dict[str, PretrainConfig] = {
+def _effective_lr(config) -> float:
+    """`lr` if set, else the batch-scaled `base_lr * batch / 256`; an
+    explicit `lr` always wins."""
+    if config.lr:
+        return config.lr
+    if not config.base_lr:
+        raise ValueError("config needs lr or base_lr (both are 0)")
+    return config.base_lr * config.batch_size / 256
+
+
+@dataclass
+class EvalConfig:
+    """Linear probe (`main_lincls.py` defaults) and kNN settings."""
+
+    arch: str = "resnet50"
+    pretrained: str = ""              # --pretrained checkpoint path
+    dataset: str = "imagefolder"
+    data_dir: str = ""
+    image_size: int = 224
+    cifar_stem: bool = False
+    num_classes: int = 1000
+    num_workers: int = 0              # ImageFolder decode threads (-j); 0 = its default (8)
+    stage_size: int = 0               # ImageFolder canvas shorter side (0 = its default)
+    prefetch_depth: int = 2           # batches staged ahead (epoch_loader)
+    staging_workers: int = 4          # staging threads per Prefetcher
+    seed: int = 0
+    # lincls recipe: lr 30, epochs 100, milestones 60/80, wd 0, batch 256
+    lr: float = 30.0                  # absolute lr; 0.0 = derive from base_lr
+    base_lr: float = 0.0              # lr per 256 samples
+    batch_size: int = 256
+    epochs: int = 100
+    schedule: tuple[int, ...] = (60, 80)
+    cos: bool = False
+    sgd_momentum: float = 0.9
+    weight_decay: float = 0.0
+    # kNN protocol: top-200 neighbours, T=0.07
+    knn_k: int = 200
+    knn_temperature: float = 0.07
+    knn_bank_chunk: int = 65536       # bank rows per streamed top-k slice (0 = off)
+    print_freq: int = 10
+    ckpt_dir: str = ""                # probe checkpoints ("" = none)
+    resume: str = ""                  # "" | "auto" (latest probe checkpoint)
+    evaluate: bool = False            # -e/--evaluate: validate the (resumed) probe, no training
+
+    def __post_init__(self):
+        if self.prefetch_depth < 1:
+            raise ValueError(f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
+        if self.staging_workers < 1:
+            raise ValueError(f"staging_workers must be >= 1, got {self.staging_workers}")
+
+    def replace(self, **kw) -> "EvalConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def effective_lr(self) -> float:
+        return _effective_lr(self)
+
+
+PRESETS: dict[str, PretrainConfig | EvalConfig] = {
     # MoCo-v1 ResNet-18 CIFAR-10, K=4096
     "cifar10-moco-v1": PretrainConfig(
         name="cifar10-moco-v1",
@@ -103,6 +172,8 @@ PRESETS: dict[str, PretrainConfig] = {
         batch_size=256,
         epochs=200,
         cos=False,
+        knn_monitor=True,
+        num_classes=10,
     ),
     # MoCo-v1 ResNet-50 ImageNet-1k, the reference's default run (no MLP,
     # no aug+, no cosine; T=0.07, milestones 120/160)
@@ -126,18 +197,26 @@ PRESETS: dict[str, PretrainConfig] = {
         dataset="imagefolder",
         compute_dtype="bfloat16",
     ),
+    # linear probe and kNN eval on frozen MoCo-v2 features
+    "imagenet-lincls": EvalConfig(),
 }
 
 
-def get_preset(name: str) -> PretrainConfig:
+def get_preset(name: str):
     if name not in PRESETS:
         raise ValueError(f"unknown preset {name!r}; choose from {sorted(PRESETS)}")
     return PRESETS[name]
 
 
-def add_config_flags(parser) -> None:
-    """Every field as a `--flag` (None = keep the preset's value)."""
-    for f in dataclasses.fields(PretrainConfig):
+def preset_names(config_cls) -> list[str]:
+    """The presets of one config class, sorted."""
+    return sorted(n for n, c in PRESETS.items() if isinstance(c, config_cls))
+
+
+def add_config_flags(parser, config_cls=PretrainConfig) -> None:
+    """Every field of `config_cls` as a `--flag` (None = keep the preset's
+    value)."""
+    for f in dataclasses.fields(config_cls):
         name = "--" + f.name.replace("_", "-")
         if isinstance(f.default, bool):
             parser.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
@@ -150,10 +229,10 @@ def add_config_flags(parser) -> None:
             parser.add_argument(name, type=type(f.default), default=None)
 
 
-def collect_overrides(args) -> dict:
+def collect_overrides(args, config_cls=PretrainConfig) -> dict:
     """Parsed flags that were given -> `replace()` keyword arguments."""
     out = {}
-    for f in dataclasses.fields(PretrainConfig):
+    for f in dataclasses.fields(config_cls):
         value = getattr(args, f.name, None)
         if value is not None:
             out[f.name] = tuple(value) if isinstance(f.default, tuple) else value

@@ -19,6 +19,11 @@ the TPU program's order when its Pallas blur is on. The pipeline runs in
 `AugConfig.dtype` (bf16 for the ImageNet preset); contrast's mean and the
 HSV round trip run in f32.
 
+`augment_batch` draws one view a sample (the linear probe's train crop);
+with `eval_aug_config` (`deterministic=True`) it draws nothing and takes
+the centered square of side `crop_frac * min(h, w)`, the region
+resize(256) -> center-crop(224) reads from the original image.
+
 Staging extents: a batch may carry `extents` [B, 3] `(valid_h, valid_w,
 rot)` (the ImageFolder canvas): the image fills the top-left `[valid_h,
 valid_w]` of the canvas, and `rot = 1` marks a portrait image staged
@@ -56,8 +61,10 @@ class AugConfig(NamedTuple):
     blur_prob: float = 0.0        # v2 uses 0.5
     blur_sigma: tuple[float, float] = (0.1, 2.0)
     flip_prob: float = 0.5
+    deterministic: bool = False   # eval: fixed-aspect center crop, no randomness
     grayscale_first: bool = False  # v1 applies RandomGrayscale BEFORE ColorJitter
     rrc_trials: int = 10          # torchvision get_params rejection draws
+    crop_frac: float = 0.875      # deterministic: center-crop fraction of min(h, w)
     dtype: str = "float32"
 
 
@@ -67,6 +74,24 @@ def v1_aug_config(out_size: int = 224) -> AugConfig:
 
 def v2_aug_config(out_size: int = 224) -> AugConfig:
     return AugConfig(out_size=out_size, hue=0.1, jitter_prob=0.8, blur_prob=0.5)
+
+
+def eval_aug_config(out_size: int = 224, crop_frac: float = 0.875) -> AugConfig:
+    """The deterministic eval transform: `crop_frac=0.875` is resize(256)
+    -> center-crop(224); CIFAR-style protocols evaluate the full image
+    (`crop_frac=1.0`, see `default_eval_crop_frac`)."""
+    return AugConfig(
+        out_size=out_size, crop_frac=crop_frac,
+        jitter_prob=0.0, grayscale_prob=0.0, blur_prob=0.0, flip_prob=0.0,
+        brightness=0.0, contrast=0.0, saturation=0.0, hue=0.0,
+        deterministic=True,
+    )
+
+
+def default_eval_crop_frac(image_size: int) -> float:
+    """Small images (CIFAR) evaluate the full image; ImageNet sizes the
+    224/256 center crop."""
+    return 1.0 if image_size < 96 else 0.875
 
 
 def aug_config_for(config) -> AugConfig:
@@ -105,9 +130,13 @@ def rrc_params(ext_h: torch.Tensor, ext_w: torch.Tensor, cfg: AugConfig,
     """Crop boxes (y0, x0, crop_h, crop_w) [B] with torchvision's
     `RandomResizedCrop.get_params`: `rrc_trials` (area, log-ratio) draws,
     the first that fits wins; if none fits, the image aspect clamped to
-    [3/4, 4/3], centered."""
+    [3/4, 4/3], centered. `cfg.deterministic`: the centered square of side
+    `crop_frac * min(h, w)`, with no draw."""
     b, dev, n = ext_h.shape[0], ext_h.device, cfg.rrc_trials
     ext_h, ext_w = ext_h.float(), ext_w.float()
+    if cfg.deterministic:
+        side = cfg.crop_frac * torch.minimum(ext_h, ext_w)
+        return (ext_h - side) / 2.0, (ext_w - side) / 2.0, side, side
     area = (ext_h * ext_w)[:, None] * _uniform((b, n), cfg.min_scale, cfg.max_scale,
                                                generator, dev)
     log_ratio = _uniform((b, n), math.log(3.0 / 4.0), math.log(4.0 / 3.0), generator, dev)
@@ -134,9 +163,17 @@ def sample_view(ext_h: torch.Tensor, ext_w: torch.Tensor, cfg: AugConfig,
                 ) -> ViewParams:
     """Draw one view's parameters for a batch whose images have extents
     (ext_h, ext_w) [B] (and `rot` [B] bool, staged transposed), on the
-    generator's device. The extents ride along in the parameters."""
+    generator's device. The extents ride along in the parameters. A
+    `deterministic` config draws nothing (`generator` may be None): no
+    flip, and every other transform off."""
     b, dev = ext_h.shape[0], ext_h.device
     y0, x0, ch, cw = rrc_params(ext_h, ext_w, cfg, generator)
+    if cfg.deterministic:
+        off = torch.zeros(b, dtype=torch.bool, device=dev)
+        return ViewParams(y0, x0, ch, cw, off, torch.ones(b, 3, device=dev),
+                          torch.zeros(b, device=dev),
+                          torch.arange(4, device=dev).expand(b, 4), off, off,
+                          torch.zeros(b, 0, device=dev), ext_h, ext_w, rot)
     flip = torch.rand(b, device=dev, generator=generator) < cfg.flip_prob
     # torchvision samples each factor from U(max(0, 1-x), 1+x)
     factors = torch.stack([
@@ -279,17 +316,30 @@ def apply_view(images_u8: torch.Tensor, p: ViewParams, cfg: AugConfig) -> torch.
     return img
 
 
+def _split_extents(images_u8: torch.Tensor, extents: torch.Tensor | None):
+    """(ext_h, ext_w, rot) [B] of a batch; None extents cover the canvas."""
+    b, h, w, _ = images_u8.shape
+    if extents is None:
+        ext_h = torch.full((b,), float(h), device=images_u8.device)
+        ext_w = torch.full((b,), float(w), device=images_u8.device)
+        return ext_h, ext_w, None
+    return extents[:, 0].float(), extents[:, 1].float(), extents[:, 2] > 0
+
+
+def augment_batch(images_u8: torch.Tensor, generator: torch.Generator | None,
+                  cfg: AugConfig, extents: torch.Tensor | None = None) -> torch.Tensor:
+    """uint8 [B, H, W, 3] -> [B, S, S, 3]: one view, one draw per sample
+    from `generator` (None for a `deterministic` config); `extents` as in
+    `two_crops`."""
+    ext_h, ext_w, rot = _split_extents(images_u8, extents)
+    return apply_view(images_u8, sample_view(ext_h, ext_w, cfg, generator, rot), cfg)
+
+
 def two_crops(images_u8: torch.Tensor, cfg: AugConfig, generator: torch.Generator,
               extents: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Two independent views (query, key) of a uint8 batch; `extents` [B, 3]
     `(valid_h, valid_w, rot)` on the batch's device, None for the full
     canvas."""
-    b, h, w, _ = images_u8.shape
-    if extents is None:
-        ext_h = torch.full((b,), float(h), device=images_u8.device)
-        ext_w = torch.full((b,), float(w), device=images_u8.device)
-        rot = None
-    else:
-        ext_h, ext_w, rot = extents[:, 0].float(), extents[:, 1].float(), extents[:, 2] > 0
+    ext_h, ext_w, rot = _split_extents(images_u8, extents)
     views = [sample_view(ext_h, ext_w, cfg, generator, rot) for _ in range(2)]
     return apply_view(images_u8, views[0], cfg), apply_view(images_u8, views[1], cfg)

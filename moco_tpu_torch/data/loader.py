@@ -16,6 +16,7 @@
   transient read fault retries only its sub-slice, with backoff, without
   reordering or duplicating batches.
 - `epoch_loader`: one epoch of batches through a `Prefetcher`.
+- `stage_eval_batch`: one padded eval batch on the device.
 
 On `device="cpu"` nothing is pinned and there are no streams: each batch is
 a copy of the canvas, since the canvas is recycled.
@@ -446,3 +447,26 @@ def epoch_loader(dataset, epoch: int, seed: int, global_batch: int, device,
     return Prefetcher(dataset, local, global_batch, device, depth=depth, retries=retries,
                       backoff_secs=backoff_secs, workers=workers, stats=stats,
                       trim_h2d=trim_h2d)
+
+
+def stage_eval_batch(item, batch: int, device, pad_label: int | None = None):
+    """Pad a (possibly short) `(imgs, labels, extents)` host batch to `batch`
+    rows and move it to `device` as tensors (labels int64). Padding rows
+    are broadcast views of the last row until the one concatenate copy;
+    `pad_label` fills the label tail (-1 never matches a prediction), else
+    the label tail is left short (the caller keeps `[:valid]`). Shared by
+    the kNN encoder and the probe's validation, so their staging cannot
+    drift apart."""
+    imgs, labels, extents = item
+    valid = imgs.shape[0]
+    if valid < batch:
+        pad = batch - valid
+        imgs = np.concatenate([imgs, np.broadcast_to(imgs[-1:], (pad,) + imgs.shape[1:])])
+        extents = np.concatenate(
+            [extents, np.broadcast_to(extents[-1:], (pad,) + extents.shape[1:])])
+        if pad_label is not None:
+            labels = np.concatenate([labels, np.full(pad, pad_label, labels.dtype)])
+    device = torch.device(device)
+    return (torch.from_numpy(np.ascontiguousarray(imgs)).to(device),
+            torch.from_numpy(np.asarray(labels, np.int64)).to(device),
+            torch.from_numpy(np.ascontiguousarray(extents)).to(device))

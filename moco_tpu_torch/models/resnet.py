@@ -133,10 +133,12 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """ResNet encoder of RGB images ending in a `num_classes`-dim `fc` head
     (the MoCo embedding), or the v2 MLP head `fc_hidden -> ReLU -> fc` with
-    `mlp_head=True`. `fused_bn_conv=True` fuses the blocks' interior
+    `mlp_head=True`; `num_classes=None` has no head and returns the pooled
+    f32 backbone features (`feature_dim` wide: the linear probe's and the
+    kNN bank's input). `fused_bn_conv=True` fuses the blocks' interior
     bn -> relu -> conv passes (`fused_tail`)."""
 
-    def __init__(self, stage_sizes, block_cls, num_classes: int = 128,
+    def __init__(self, stage_sizes, block_cls, num_classes: int | None = 128,
                  mlp_head: bool = False, cifar_stem: bool = False, width: int = 64,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None, fused_bn_conv: bool = False):
@@ -158,10 +160,13 @@ class ResNet(nn.Module):
                 self.add_module(name, block)
                 self.block_names.append(name)
                 cin = width * 2**i * block_cls.expansion
-        self.mlp_head = mlp_head
-        if mlp_head:
+        self.feature_dim = cin
+        self.num_classes = num_classes
+        self.mlp_head = mlp_head and num_classes is not None
+        if self.mlp_head:
             self.fc_hidden = nn.Linear(cin, cin)
-        self.fc = nn.Linear(cin, num_classes)
+        if num_classes is not None:
+            self.fc = nn.Linear(cin, num_classes)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.reset_parameters(generator)
@@ -177,7 +182,8 @@ class ResNet(nn.Module):
                     mod.bias.zero_()
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images: NHWC [B, H, W, 3] -> [B, num_classes] f32."""
+        """images: NHWC [B, H, W, 3] -> [B, num_classes] f32 (the pooled
+        [B, feature_dim] features without a head)."""
         x = images.permute(0, 3, 1, 2).to(self.dtype)  # channels_last NCHW view
         x = F.relu(self.bn1(self.conv1(x)))
         if not self.cifar_stem:
@@ -185,6 +191,8 @@ class ResNet(nn.Module):
         for name in self.block_names:
             x = getattr(self, name)(x)
         x = x.mean(dim=(2, 3)).float()  # global average pool
+        if self.num_classes is None:
+            return x
         if self.mlp_head:
             x = F.relu(self.fc_hidden(x))
         return self.fc(x)

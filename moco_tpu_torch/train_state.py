@@ -26,6 +26,7 @@ class TrainState:
     queue: torch.Tensor             # [K, dim] f32 negative keys, unit rows
     queue_ptr: int                  # ring pointer into the queue
     generator: torch.Generator      # ShuffleBN permutations, on the device
+    data_generator: torch.Generator | None = None  # train()'s two-crop draws
 
 
 def build_optimizer(config, model_q: nn.Module) -> torch.optim.SGD:
@@ -50,6 +51,7 @@ def create_train_state(config, model: nn.Module, device, seed: int = 0) -> Train
     queue_gen = torch.Generator().manual_seed(seed)
     queue = init_queue(config.num_negatives, config.embed_dim, queue_gen).to(device)
     shuffle_gen = torch.Generator(device=device).manual_seed(seed + 2)
+    data_gen = torch.Generator(device=device).manual_seed(seed + 1)
     return TrainState(step=0, model_q=model_q, model_k=model_k,
                       optimizer=build_optimizer(config, model_q), queue=queue,
-                      queue_ptr=0, generator=shuffle_gen)
+                      queue_ptr=0, generator=shuffle_gen, data_generator=data_gen)

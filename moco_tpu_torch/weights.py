@@ -1,5 +1,8 @@
 """Carry flax ResNet weights into the port's modules.
 
+`params_to_jax(state_dict)` is the inverse: the flax trees (numpy leaves)
+of a port state_dict, the layout of the `backbone/` checkpoint dialect.
+
 `params_from_jax(params, batch_stats)` takes the flax `params` and
 `batch_stats` trees as nested mappings of numpy arrays and returns a
 `state_dict` for `models.resnet.ResNet` (the port keeps flax's module names,
@@ -58,3 +61,30 @@ def params_from_jax(params: Mapping, batch_stats: Mapping | None = None) -> dict
     if batch_stats:
         _walk(batch_stats, "", _stat, out)
     return out
+
+
+def params_to_jax(state_dict: Mapping) -> tuple[dict, dict]:
+    """The port's state_dict -> flax (params, batch_stats) trees of numpy
+    arrays (copies)."""
+    params: dict = {}
+    stats: dict = {}
+    inverse = {v: k for k, v in _STAT_NAMES.items()}
+    for name, value in state_dict.items():
+        *mods, leaf = name.split(".")
+        arr = value.detach().cpu().numpy()
+        if leaf in inverse:
+            tree, key = stats, inverse[leaf]
+        elif leaf == "bias":
+            tree, key = params, "bias"
+        elif leaf == "weight" and arr.ndim == 4:
+            tree, key, arr = params, "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and arr.ndim == 2:
+            tree, key, arr = params, "kernel", arr.T
+        elif leaf == "weight" and arr.ndim == 1:
+            tree, key = params, "scale"
+        else:
+            raise ValueError(f"unexpected state_dict entry {name!r} {arr.shape}")
+        for m in mods:
+            tree = tree.setdefault(m, {})
+        tree[key] = arr.copy(order="C")
+    return params, stats

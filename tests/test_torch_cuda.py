@@ -727,3 +727,74 @@ def test_prefetched_batch_outlives_its_copy_stream(cuda):
     order = loader.epoch_permutation(len(ds), 0, 0, 32)
     want = torch.from_numpy(ds.get_batch(order[:32])[0]).sum(dtype=torch.int64)
     assert int(total) == int(want) and len(rest) == 7
+
+
+def test_full_state_round_trip_on_the_card(cuda, tmp_path):
+    """A tiny pretrain state on the card after two steps (momentum buffers,
+    the queue, both CUDA generators moved), saved and restored into a
+    fresh state on the card: every tensor and both generator states bit
+    for bit, and the next draws of both generators equal."""
+    import numpy as np
+
+    from moco_tpu_torch import checkpoint as ckpt
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder, build_train_step
+
+    config = get_preset("imagenet-moco-v2").replace(
+        arch="resnet_tiny", image_size=32, batch_size=8, num_negatives=32, embed_dim=16,
+        compute_dtype="float32")
+
+    def state(seed, steps):
+        s = create_train_state(config, build_encoder(config), cuda, seed=seed)
+        step = build_train_step(config, steps_per_epoch=4)
+        rng = np.random.RandomState(seed)
+        for _ in range(steps):
+            im = torch.from_numpy(rng.randn(2, 8, 32, 32, 3).astype(np.float32)).to(cuda)
+            step(s, im[0], im[1])
+            torch.rand(3, generator=s.data_generator, device=cuda)
+        return s
+
+    saved = state(0, 2)
+    mgr = ckpt.checkpoint_manager(str(tmp_path))
+    ckpt.save_checkpoint(mgr, saved, saved.step, position=(0, 2))
+    got = ckpt.restore_checkpoint(mgr, state(3, 0))
+    for name in ("model_q", "model_k"):
+        a, b = getattr(got, name).state_dict(), getattr(saved, name).state_dict()
+        assert all(a[k].is_cuda and torch.equal(a[k], b[k]) for k in b)
+    oa, ob = got.optimizer.state_dict()["state"], saved.optimizer.state_dict()["state"]
+    assert oa.keys() == ob.keys() and all(
+        oa[i]["momentum_buffer"].is_cuda
+        and torch.equal(oa[i]["momentum_buffer"], ob[i]["momentum_buffer"]) for i in ob)
+    assert got.queue.is_cuda and torch.equal(got.queue, saved.queue)
+    assert (got.step, got.queue_ptr) == (saved.step, saved.queue_ptr) == (2, 16)
+    for g in ("generator", "data_generator"):
+        a, b = getattr(got, g), getattr(saved, g)
+        assert a.device.type == "cuda" and torch.equal(a.get_state(), b.get_state())
+        assert torch.equal(torch.rand(5, generator=a, device=cuda),
+                           torch.rand(5, generator=b, device=cuda))
+
+
+@pytest.mark.parametrize("chunk", [None, 1024])
+def test_knn_accuracy_on_the_card_equals_the_cpu(cuda, chunk):
+    """Unit features drawn so that no query has a near-tie at its k-th
+    neighbour: the card's predictions and accuracy equal the CPU's on the
+    same features, with the bank whole and streamed in chunks."""
+    from moco_tpu_torch.ops import knn
+
+    gen = torch.Generator().manual_seed(0)
+    bank = torch.randn(4096, 64, generator=gen)
+    feats = torch.randn(700, 64, generator=gen)
+    bank_labels = torch.randint(0, 10, (4096,), generator=gen)
+    labels = torch.randint(0, 10, (700,), generator=gen)
+    sims = knn.l2_normalize(feats.double()) @ knn.l2_normalize(bank.double()).T
+    top = sims.topk(201, dim=1).values
+    assert float((top[:, 199] - top[:, 200]).min()) > 1e-6
+    args = dict(num_classes=10, k=200, temperature=0.07, batch=256, bank_chunk=chunk)
+    ref = knn.knn_accuracy(feats, labels, bank, bank_labels, **args)
+    got = knn.knn_accuracy(feats.to(cuda), labels.to(cuda), bank.to(cuda),
+                           bank_labels.to(cuda), **args)
+    pred_cpu = knn.knn_predict(feats, bank, bank_labels, 10, bank_chunk=chunk)
+    pred_gpu = knn.knn_predict(feats.to(cuda), bank.to(cuda), bank_labels.to(cuda), 10,
+                               bank_chunk=chunk)
+    assert torch.equal(pred_gpu.cpu(), pred_cpu) and got == ref

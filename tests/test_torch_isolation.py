@@ -44,6 +44,11 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
     assert proc.returncode == 0, proc.stderr
     expected = list(pkgutil.walk_packages(moco_tpu_torch.__path__, "moco_tpu_torch."))
     assert int(proc.stdout.strip()) == len(expected) >= 15
+    # the checkpoint and evaluation modules are among those probed
+    assert {"moco_tpu_torch.checkpoint", "moco_tpu_torch.resilience.integrity",
+            "moco_tpu_torch.ops.knn", "moco_tpu_torch.utils.meters",
+            "moco_tpu_torch.evals.knn", "moco_tpu_torch.evals.lincls"} <= \
+        {m.name for m in expected}
 
 
 TINY = ["--preset", "imagenet-moco-v2", "--dataset", "synthetic", "--arch", "resnet_tiny",
