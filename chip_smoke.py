@@ -49,7 +49,21 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             FEATURE_ATOL; predictions equal except at ties, counted); the
             linear probe (1000 classes) for an epoch, a probe checkpoint,
             a resumed second epoch, `--evaluate` of each, `sanity_check`;
-            the timings beside the card's name and power limit.
+            the timings beside the card's name and power limit;
+6.  phase6  the data-parallel step and the prestage: `train.train` in a
+            one-rank NCCL group (a FileStore rendezvous), 3 steps of
+            phase 3's configuration unfused and fused, each held bit for
+            bit (losses, logits, enqueued keys, whole state) against the
+            same run with no group under deterministic cuDNN, every kernel
+            launched and the NCCL calls a step counted, the gradient
+            all-reduce timed, imgs/s with and without the group; the TF32
+            flags turned on before the first run and checked off after it
+            (the package's precision policy); run just after phase 3b, on
+            its data. Then, inside phase 4, its JPEG tree decoded once into
+            a prestage (`data/service/prestage.py`), a batch of it held
+            byte for byte against the PIL decode, and phase 4's steps from
+            it through the driver's `input_prestage` branch: imgs/s, the
+            first-batch stall, bytes per image and on disk.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -131,6 +145,7 @@ PHASE5_CHUNK = 1024
 PHASE5_CPU_FEATURES = 32
 FEATURE_ATOL = 1e-4
 PHASE5_PROBE_STEPS = 4
+DIST_STEPS = 3              # phase 6: steps of each run, with and without the group
 
 
 def fail(msg: str, code: int = 2) -> None:
@@ -494,17 +509,23 @@ def check_prefetched(dataset, label: str, trim_h2d: bool = False) -> dict:
     workers, depth 2), held while it stages on and recycles its canvases,
     against `get_batch` of the same indices and a plain `.to("cuda")`, bit
     for bit: canvas (its trimmed prefix with `trim_h2d`), labels, extents.
-    Returns the count of rot-staged samples and the seconds of each plain
-    `get_batch` (one call, the dataset's own decode threads)."""
+    Returns the count of rot-staged samples, the seconds from the loader's
+    start to its first batch on the card (an epoch's first-batch stall), and
+    the seconds of each plain `get_batch` (one call, the dataset's own
+    decode threads)."""
     import torch
 
     from moco_tpu_torch.data.loader import epoch_loader, epoch_permutation, trim_extent
 
+    t0 = time.perf_counter()
     loader = epoch_loader(dataset, 0, 0, BATCH, "cuda", depth=2, workers=4,
                           trim_h2d=trim_h2d)
     try:
         it = iter(loader)
-        held = [next(it) for _ in range(2)]
+        held = [next(it)]
+        torch.cuda.synchronize()
+        first_batch_s = time.perf_counter() - t0
+        held.append(next(it))
         deadline = time.time() + 120
         while loader.qsize() < min(2, len(loader) - 2) and time.time() < deadline:
             time.sleep(0.01)
@@ -530,16 +551,20 @@ def check_prefetched(dataset, label: str, trim_h2d: bool = False) -> dict:
             fail(f"{label}: prefetched batch {b} differs from get_batch + .to('cuda')", 1)
         rot += int((extents[:, 2] > 0).sum())
     print(f"{label}: the first 2 prefetched batches {list(held[0][0].shape)} equal "
-          f"get_batch + .to('cuda') bit for bit ({rot} rot-staged samples; get_batch "
+          f"get_batch + .to('cuda') bit for bit ({rot} rot-staged samples; first batch on "
+          f"the card {1e3 * first_batch_s:.1f} ms after the loader's start; get_batch "
           f"{', '.join(f'{1e3 * t:.1f}' for t in get_batch_s)} ms)", flush=True)
-    return dict(rot=rot, get_batch_s=get_batch_s)
+    return dict(rot=rot, get_batch_s=get_batch_s, first_batch_s=first_batch_s)
 
 
 def run_slice(counters: dict, label: str, config, dataset, steps: int) -> dict:
     """`steps` steps of `config` at batch 256 through `train.train`, fed by
     `epoch_loader` (4 staging workers, depth 2, metrics on the host every
     step); then one profiled step. Every kernel's launches must match its
-    count per step (the fused family's are 0 unless `fused_bn_conv`)."""
+    count per step (the fused family's are 0 unless `fused_bn_conv`). With
+    `config.input_prestage` the driver opens the prestage itself (its
+    `input_prestage` branch); `dataset` is then that prestage, for the
+    profiled step."""
     import torch
 
     from moco_tpu_torch import train
@@ -566,7 +591,8 @@ def run_slice(counters: dict, label: str, config, dataset, steps: int) -> dict:
     for fn in counters.values():
         fn.launches = 0
     stats = InputPipelineStats()
-    state, history = train.train(config, max_steps=steps, device="cuda", dataset=dataset,
+    state, history = train.train(config, max_steps=steps, device="cuda",
+                                 dataset=None if config.input_prestage else dataset,
                                  on_step=on_step, stats=stats)
     launches = {name: fn.launches for name, fn in counters.items()}
     # 224 px views blur at R = 11: every launch on the taps-in-registers route
@@ -774,15 +800,23 @@ def run_imagefolder(counters: dict) -> dict:
     tree through `ImageFolder` (stage size 512, a [256, 512, 1024, 3] uint8
     canvas a batch) and the Prefetcher; with `h2d_trim` off, then on. Each
     run first holds the first two prefetched batches against a plain copy,
-    with rot-staged samples among them."""
+    with rot-staged samples among them. Then phase 6's prestage: the tree
+    decoded once into a prestage (`write_prestage`), an epoch's first batch
+    of it held byte for byte against the PIL decode of the same images, and
+    the same steps from it through the driver's `input_prestage` branch."""
     import tempfile
+
+    import numpy as np
 
     from moco_tpu_torch.config import get_preset
     from moco_tpu_torch.data.datasets import ImageFolder
+    from moco_tpu_torch.data.loader import epoch_permutation
+    from moco_tpu_torch.data.service.prestage import PrestagedDataset, write_prestage
 
     config = get_preset("imagenet-moco-v2")
     results = {}
-    with tempfile.TemporaryDirectory(prefix="moco_imagefolder_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="moco_imagefolder_") as tmp, \
+            tempfile.TemporaryDirectory(prefix="moco_prestage_") as pre_tmp:
         t0 = time.perf_counter()
         write_jpeg_tree(Path(tmp))
         print(f"imagefolder: wrote {IMAGEFOLDER_IMAGES} JPEGs over 8 classes in "
@@ -795,10 +829,47 @@ def run_imagefolder(counters: dict) -> dict:
                 fail(f"{label}: no rot-staged sample in the first two batches", 1)
             summary = run_slice(counters, label, config.replace(h2d_trim=trim), dataset,
                                 IMAGEFOLDER_STEPS)
-            summary["get_batch_s"] = check["get_batch_s"]
+            summary.update(get_batch_s=check["get_batch_s"],
+                           first_batch_s=check["first_batch_s"])
             results[label] = summary
+        # phase 6: the pre-staged epoch cache of the same tree
+        root = str(Path(pre_tmp) / "prestage")
+        t0 = time.perf_counter()
+        meta = write_prestage(dataset, root)
+        write_s = time.perf_counter() - t0
+        pre = PrestagedDataset(root)
+        order = epoch_permutation(len(dataset), 0, 0, BATCH)[:BATCH]
+        t0 = time.perf_counter()
+        decoded = dataset.get_batch(order)
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = pre.get_batch(order)
+        gather_s = time.perf_counter() - t0
+        if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                   for a, b in zip(served, decoded)):
+            fail("prestage: a prestaged batch differs from the PIL decode of its images", 1)
+        disk = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+        per_image = disk / meta["n"]
+        print(f"prestage: {meta['n']} images decoded once into {disk} bytes on disk "
+              f"({per_image:.0f} bytes an image; canvases {meta['canvas_bytes']} bytes, "
+              f"{meta['img_shape']} uint8 each) in {write_s:.2f} s; a batch of {BATCH} equals "
+              f"the PIL decode byte for byte (get_batch: PIL {1e3 * decode_s:.1f} ms, "
+              f"prestage {1e3 * gather_s:.1f} ms)", flush=True)
+        check = check_prefetched(pre, "prestage")
+        summary = run_slice(counters, "prestage", config.replace(input_prestage=root), pre,
+                            IMAGEFOLDER_STEPS)
+        summary.update(get_batch_s=check["get_batch_s"], first_batch_s=check["first_batch_s"],
+                       disk_bytes=disk, bytes_per_image=per_image, write_s=write_s)
+        results["prestage"] = summary
         if dataset.decode_failures:
             fail(f"imagefolder: {dataset.decode_failures} decode failures", 1)
+    pil, pre_r = results["imagefolder"], results["prestage"]
+    print(f"prestage vs PIL: {pre_r['imgs_per_s']:.1f} vs {pil['imgs_per_s']:.1f} imgs/s, "
+          f"first-batch stall {1e3 * pre_r['first_batch_s']:.1f} vs "
+          f"{1e3 * pil['first_batch_s']:.1f} ms, credit stall over the run "
+          f"{pre_r['input']['credit_stall_s']:.3f} vs {pil['input']['credit_stall_s']:.3f} s; "
+          f"{pre_r['bytes_per_image']:.0f} bytes an image, {pre_r['disk_bytes']} bytes on disk",
+          flush=True)
     return results
 
 
@@ -877,6 +948,156 @@ def check_against_cpu(fused: bool = False, counters: dict | None = None) -> None
     print(f"check: {what}, card vs cpu over {len(res['cpu'])} tensors, worst "
           f"{worst[0]:.3e} ({worst[1]}); step loss {float(res['cuda']['step_loss'][0]):.6f} "
           f"vs {float(res['cpu']['step_loss'][0]):.6f}", flush=True)
+
+
+def run_distributed(counters: dict, dataset) -> dict:
+    """Phase 6: the data-parallel step on the card. One NCCL group of one
+    rank (a FileStore in a temporary directory) drives `train.train` for
+    DIST_STEPS steps of imagenet-moco-v2 at batch 256, unfused and with
+    `fused_bn_conv=True`; each is run again from the same state with no
+    group. Under deterministic cuDNN the two runs' losses, logits (captured
+    where the step computes them), enqueued keys and whole states must be
+    equal bit for bit. Counts the NCCL calls a step, checks every kernel's
+    launches, and times the gradient all-reduce. Before the first run the
+    TF32 flags are turned on: the entry point must turn them off."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from moco_tpu_torch import train, train_step
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.parallel.gradsync import GradSync
+    from moco_tpu_torch.parallel.mesh import init_distributed, process_group, \
+        shutdown_distributed
+
+    base = get_preset("imagenet-moco-v2").replace(
+        dataset="synthetic", batch_size=BATCH, staging_workers=4, prefetch_depth=2,
+        print_freq=1)
+    calls = dict.fromkeys(("all_gather", "all_reduce", "batch_isend_irecv"), 0)
+
+    def counting(name, real):
+        def call(*args, **kw):
+            calls[name] += 1
+            return real(*args, **kw)
+        return call
+
+    def run(config, label):
+        captured, seconds = [], []
+        real_logits = train_step.infonce_logits
+
+        def capture(*args, **kw):
+            out = real_logits(*args, **kw)
+            captured.append(out[0].detach().clone())
+            return out
+
+        for fn in counters.values():
+            fn.launches = 0
+        calls.update(dict.fromkeys(calls, 0))
+        real = {name: getattr(dist, name) for name in calls}
+        train_step.infonce_logits = capture
+        for name in calls:
+            setattr(dist, name, counting(name, real[name]))
+        try:
+            state, history = train.train(config, max_steps=DIST_STEPS, device="cuda",
+                                          dataset=dataset,
+                                          on_step=lambda step, m, sec: seconds.append(sec))
+        finally:
+            train_step.infonce_logits = real_logits
+            for name in calls:
+                setattr(dist, name, real[name])
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        expected = {**PER_STEP, **{name: per_step if config.fused_bn_conv else 0
+                                   for name, per_step in FUSED_PER_STEP.items()}}
+        for name, per_step in expected.items():
+            if launches[name] != per_step * DIST_STEPS:
+                fail(f"{label}: {name} launched {launches[name]} times in {DIST_STEPS} steps, "
+                     f"expected {per_step * DIST_STEPS}", 1)
+        losses = [h["loss"] for h in history]
+        if len(losses) != DIST_STEPS or not all(math.isfinite(v) for v in losses):
+            fail(f"{label}: non-finite or missing losses {losses}", 1)
+        steady = seconds[1:]
+        r = dict(state=state, losses=losses, logits=captured, launches=launches,
+                 calls=dict(calls), imgs_per_s=BATCH * len(steady) / sum(steady))
+        print(f"{label}: {DIST_STEPS} steps, losses {[round(v, 6) for v in losses]}, "
+              f"{r['imgs_per_s']:.1f} imgs/s (steps 2-{DIST_STEPS}), NCCL calls {calls}, "
+              f"launches {launches}", flush=True)
+        return r
+
+    def compare(a, b, label):
+        diff = _states_equal(a["state"], b["state"])
+        if a["losses"] != b["losses"]:
+            diff.append(f"losses {a['losses']} != {b['losses']}")
+        if len(a["logits"]) != len(b["logits"]) or not all(
+                torch.equal(x, y) for x, y in zip(a["logits"], b["logits"])):
+            diff.append("logits")
+        if diff:
+            fail(f"{label}: the one-rank NCCL step differs from the one-process step in "
+                 f"{diff[:6]} (deterministic cuDNN was on, so a changed algorithm choice "
+                 "or a non-deterministic kernel is the cause)", 1)
+        keys = a["state"].queue[:DIST_STEPS * BATCH]
+        print(f"{label}: with and without the group equal bit for bit: {DIST_STEPS} losses, "
+              f"{len(a['logits'])} logits {list(a['logits'][0].shape)}, "
+              f"{keys.shape[0]} enqueued keys, both encoders, momentum buffers, generators",
+              flush=True)
+
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        alone = run(base, "phase6 unfused, no group")
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            fail("phase6: train.train left TF32 on; the package's precision policy turns "
+                 "it off", 1)
+        print("phase6 precision policy: after train.train, cudnn.allow_tf32 "
+              f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+        with tempfile.TemporaryDirectory(prefix="moco_nccl_") as tmp:
+            init_distributed("cuda", rank=0, world_size=1,
+                             init_method=f"file://{Path(tmp) / 'store'}")
+            try:
+                grouped = run(base, "phase6 unfused, one-rank NCCL group")
+                fused_grouped = run(base.replace(fused_bn_conv=True),
+                                    "phase6 fused, one-rank NCCL group")
+                want = {"all_gather": 2 * DIST_STEPS, "all_reduce": 3 * DIST_STEPS,
+                        "batch_isend_irecv": 0}
+                for r in (grouped, fused_grouped):
+                    if r["calls"] != want:
+                        fail(f"phase6: NCCL calls {r['calls']} in {DIST_STEPS} steps, expected "
+                             f"{want} (the key batch and keys gathered; gradients, BN "
+                             "statistics and metrics all-reduced)", 1)
+                # the fused gradient mean of the last step's gradients, timed alone
+                group = process_group()
+                params = [p for p in grouped["state"].model_q.parameters()
+                          if p.grad is not None]
+                sync = GradSync(base, group)
+                out["allreduce_ms"] = time_ms(lambda: sync.reduce_(params), 20)
+                out["allreduce_bytes"] = sync.last_bytes
+                flat = torch.zeros(sync.last_bytes // 4, device=params[0].device)
+                out["nccl_ms"] = time_ms(lambda: dist.all_reduce(flat, group=group), 20)
+                out["grad_count"] = sum(p.numel() for p in params)
+            finally:
+                shutdown_distributed()
+        compare(grouped, alone, "phase6 unfused")
+        fused_alone = run(base.replace(fused_bn_conv=True), "phase6 fused, no group")
+        compare(fused_grouped, fused_alone, "phase6 fused")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out.update(grouped_imgs_s=grouped["imgs_per_s"], alone_imgs_s=alone["imgs_per_s"],
+               fused_grouped_imgs_s=fused_grouped["imgs_per_s"],
+               fused_alone_imgs_s=fused_alone["imgs_per_s"],
+               calls_per_step={k: v / DIST_STEPS for k, v in grouped["calls"].items()})
+    print(f"phase6 distributed: one-rank NCCL group vs no group (deterministic cuDNN) "
+          f"unfused {out['grouped_imgs_s']:.1f} vs {out['alone_imgs_s']:.1f} imgs/s, fused "
+          f"{out['fused_grouped_imgs_s']:.1f} vs {out['fused_alone_imgs_s']:.1f} imgs/s; "
+          f"NCCL calls a step {out['calls_per_step']}; gradient all-reduce "
+          f"{out['grad_count']} gradients, {out['allreduce_bytes']} bytes, "
+          f"{out['allreduce_ms']:.3f} ms a step (flatten, all_reduce, mean, copy back), "
+          f"the all_reduce alone {out['nccl_ms']:.3f} ms", flush=True)
+    return out
 
 
 class _Head:
@@ -1178,8 +1399,13 @@ def main() -> None:
         fail(f"no moco_tpu_torch package next to {Path(__file__).name}: run it from a "
              "checkout of the repository")
     sys.path.insert(0, str(ROOT))
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from moco_tpu_torch.utils.device import set_precision_policy
+
+    # the package's f32 policy (TF32 off), as every entry point sets it: the
+    # kernels' f32 checks below run before any entry point
+    set_precision_policy()
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("set_precision_policy left TF32 on", 1)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
           f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32} "
@@ -1214,6 +1440,7 @@ def main() -> None:
     summary = run_slice(counters, "slice", config, dataset, STEPS)
     fused_summary = run_slice(counters, "fused", config.replace(fused_bn_conv=True), dataset,
                               FUSED_STEPS)
+    run_distributed(counters, dataset)
     del dataset
     print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
           f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "

@@ -7,11 +7,14 @@ pointer, the step, and the states of both generators (ShuffleBN's and the
 augmentation's), so a resumed run draws what the uninterrupted one would
 have. The write is atomic: the step is written into a temporary directory
 whose name is not a step, then renamed into place. After each save the
-integrity manifest and the data-stream position sidecar are written as the
-JAX package writes them (`resilience/integrity.py`), and only the newest
-`max_to_keep` steps stay, with their sidecars. A restore with no step walks
-back from the newest step past any that fails its manifest or its load.
-Restore loads onto the device of the state it fills.
+integrity manifest and the data-stream position sidecar (with the number
+of processes the state was saved under, `devices`) are written as the JAX
+package writes them (`resilience/integrity.py`), and only the newest
+`max_to_keep` steps stay, with their sidecars. In a data-parallel run the
+state is replicated: rank 0 writes it and every process restores it, at
+any world size, since the position counts global batches. A restore with
+no step walks back from the newest step past any that fails its manifest
+or its load. Restore loads onto the device of the state it fills.
 
 The reference checkpoint dialect. `export_encoder_q` writes the query
 encoder under torchvision's names (`module.encoder_q.*`) and tensor layouts,
@@ -33,6 +36,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from moco_tpu_torch.resilience.integrity import position_path, verify_step, write_manifest
 from moco_tpu_torch.weights import params_from_jax, params_to_jax
@@ -99,26 +103,48 @@ def checkpoint_manager(directory: str, max_to_keep: int = 3) -> CheckpointManage
     return CheckpointManager(directory, max_to_keep=max_to_keep)
 
 
-def write_position(directory: str, step: int, position: tuple[int, int] | None) -> None:
+def write_position(directory: str, step: int, position: tuple[int, int] | None,
+                   devices: int | None = None) -> None:
     """Record the data-stream position `(epoch, next_batch_index)` a run
-    restored from `step` resumes at (atomically). Absent or unreadable, a
-    resume falls back to step arithmetic."""
+    restored from `step` resumes at (atomically), and `devices`, the number
+    of processes the state was saved under (the JAX package's mesh-size
+    stamp). Absent or unreadable, a resume falls back to step arithmetic."""
     if position is None:
         return
     path = position_path(directory, step)
     os.makedirs(os.path.dirname(path), exist_ok=True)
+    payload = {"epoch": int(position[0]), "batch": int(position[1])}
+    if devices is not None:
+        payload["devices"] = int(devices)
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
-        json.dump({"epoch": int(position[0]), "batch": int(position[1])}, f)
+        json.dump(payload, f)
     os.replace(tmp, path)
+
+
+def _read_sidecar(directory: str, step: int) -> dict | None:
+    try:
+        with open(position_path(directory, step)) as f:
+            d = json.load(f)
+        return d if isinstance(d, dict) else None
+    except (OSError, ValueError, json.JSONDecodeError):
+        return None
 
 
 def read_position(directory: str, step: int) -> tuple[int, int] | None:
     try:
-        with open(position_path(directory, step)) as f:
-            d = json.load(f)
+        d = _read_sidecar(directory, step)
         return int(d["epoch"]), int(d["batch"])
-    except (OSError, ValueError, KeyError, TypeError, json.JSONDecodeError):
+    except (KeyError, TypeError, ValueError):
+        return None
+
+
+def read_recorded_devices(directory: str, step: int) -> int | None:
+    """The number of processes `step` was saved under; None when its
+    sidecar has no stamp or cannot be read."""
+    try:
+        return int(_read_sidecar(directory, step)["devices"])
+    except (KeyError, TypeError, ValueError):
         return None
 
 
@@ -209,13 +235,20 @@ def load_state(state, payload: dict):
 
 
 def save_checkpoint(mgr: CheckpointManager, state, step: int,
-                    position: tuple[int, int] | None = None) -> None:
-    """Save `state` as step `step`: its position sidecar, then the state,
-    then the integrity manifest; then drop the sidecars of pruned steps."""
-    write_position(mgr.directory, step, position)
-    mgr.save(step, state_payload(state))
-    write_manifest(mgr.directory, step)
-    _prune_sidecars(mgr)
+                    position: tuple[int, int] | None = None, devices: int | None = None,
+                    group=None) -> None:
+    """Save `state` as step `step`: its position sidecar (with the
+    `devices` stamp), then the state, then the integrity manifest; then
+    drop the sidecars of pruned steps. In a process group the state is the
+    same on every process: rank 0 writes, and every process waits at a
+    barrier until it has."""
+    if group is None or dist.get_rank(group) == 0:
+        write_position(mgr.directory, step, position, devices)
+        mgr.save(step, state_payload(state))
+        write_manifest(mgr.directory, step)
+        _prune_sidecars(mgr)
+    if group is not None:
+        dist.barrier(group)
 
 
 def restore_checkpoint(mgr: CheckpointManager, state, step: int | None = None):

@@ -8,7 +8,10 @@ The port's own copy of the relevant part of `moco_tpu/config.py`
 `cifar10-moco-v1` and `imagenet-lincls` presets, `effective_lr`); field
 names, defaults and validation are the same, except that `ckpt_dir`
 defaults to "" (no checkpoints unless asked for) in both configs, so a run
-writes nothing into its working directory by default.
+writes nothing into its working directory by default, and that
+`shuffle_mode`, `grad_allreduce_dtype` and `grad_sync` are checked here
+(the JAX package checks the first two where the step uses them); of
+`grad_sync` only "fused" is ported.
 """
 
 from __future__ import annotations
@@ -34,8 +37,15 @@ class PretrainConfig:
     temperature: float = 0.07         # --moco-t (v2 runs use 0.2)
     mlp_head: bool = False            # --mlp
     cifar_stem: bool = False
+    shuffle_mode: str = "permute"     # ShuffleBN across processes: "permute" (gather +
+                                      # one shared permutation) | "ring" (half-shard
+                                      # exchanges, partial decorrelation)
     compute_dtype: str = "float32"    # "bfloat16" for the ImageNet presets
     fused_bn_conv: bool = False       # blocks' bn->relu->conv through the fused kernels
+    # data parallelism across processes (parallel/)
+    collective_chunks: int = 1        # ShuffleBN gathers as N chunk collectives (same bits)
+    grad_sync: str = "fused"          # gradient mean: one flat all-reduce
+    grad_allreduce_dtype: str = "float32"  # its wire dtype: "float32" | "bfloat16"
     # data
     dataset: str = "synthetic"        # synthetic | synthetic_texture | cifar10 | imagefolder
     data_dir: str = ""
@@ -49,6 +59,8 @@ class PretrainConfig:
     input_cache_mb: int = 0           # decode-once canvas cache budget in MiB (0 = off)
     h2d_trim: bool = False            # copy only the canvas prefix the extents cover
     decode_abort_rate: float = 0.5    # DataQualityError past this decode-failure rate (0 = never)
+    input_prestage: str = ""          # pre-staged epoch cache directory
+                                      # (data/service/prestage.py): epochs are row gathers
     # optimization (reference: SGD momentum .9, wd 1e-4, lr .03, batch 256)
     lr: float = 0.03                  # absolute lr; 0.0 = derive from base_lr
     base_lr: float = 0.0              # lr per 256 samples
@@ -91,6 +103,19 @@ class PretrainConfig:
             raise ValueError(f"print_freq must be >= 1, got {self.print_freq}")
         if self.ckpt_every_epochs < 1:
             raise ValueError(f"ckpt_every_epochs must be >= 1, got {self.ckpt_every_epochs}")
+        if self.shuffle_mode not in ("permute", "ring"):
+            raise ValueError(f"unknown shuffle_mode {self.shuffle_mode!r}; choose from "
+                             "permute/ring")
+        if self.collective_chunks < 1:
+            raise ValueError(f"collective_chunks must be >= 1, got {self.collective_chunks}")
+        if self.grad_sync in ("bucketed", "quantized", "demo"):
+            raise ValueError(f"grad_sync={self.grad_sync!r} is not ported yet (ROADMAP queue "
+                             "A item 3, gradient-sync strategies and ZeRO-1); use 'fused'")
+        if self.grad_sync != "fused":
+            raise ValueError(f"unknown grad_sync {self.grad_sync!r}; choose from "
+                             "fused/bucketed/quantized/demo")
+        if self.grad_allreduce_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown grad_allreduce_dtype {self.grad_allreduce_dtype!r}")
 
     def replace(self, **kw) -> "PretrainConfig":
         return dataclasses.replace(self, **kw)

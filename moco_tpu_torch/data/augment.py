@@ -34,6 +34,7 @@ image is a flip of the staged H axis for such samples.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -335,11 +336,40 @@ def augment_batch(images_u8: torch.Tensor, generator: torch.Generator | None,
     return apply_view(images_u8, sample_view(ext_h, ext_w, cfg, generator, rot), cfg)
 
 
+def _rows_of(p: ViewParams, lo: int, n: int) -> ViewParams:
+    """Rows [lo, lo + n) of every per-sample draw."""
+    return ViewParams(**{f.name: None if getattr(p, f.name) is None
+                         else getattr(p, f.name)[lo:lo + n] for f in dataclasses.fields(p)})
+
+
+def _placed(v: torch.Tensor | None, lo: int, total: int) -> torch.Tensor | None:
+    """`v` as rows [lo, lo + len(v)) of a `total`-row tensor of ones."""
+    if v is None:
+        return None
+    out = v.new_ones((total,) + tuple(v.shape[1:]))
+    out[lo:lo + v.shape[0]] = v
+    return out
+
+
 def two_crops(images_u8: torch.Tensor, cfg: AugConfig, generator: torch.Generator,
-              extents: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+              extents: torch.Tensor | None = None, rows: tuple[int, int] | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two independent views (query, key) of a uint8 batch; `extents` [B, 3]
     `(valid_h, valid_w, rot)` on the batch's device, None for the full
-    canvas."""
+    canvas.
+
+    `rows=(offset, global_batch)`: the batch is rows [offset, offset + B)
+    of a global batch split over processes. The draws are made for the
+    whole global batch from `generator` (seeded and advanced alike on
+    every process) and each process keeps its rows, as the JAX step draws
+    the global batch's views with one key: the crops do not depend on how
+    many processes share the batch."""
     ext_h, ext_w, rot = _split_extents(images_u8, extents)
-    views = [sample_view(ext_h, ext_w, cfg, generator, rot) for _ in range(2)]
+    if rows is None:
+        views = [sample_view(ext_h, ext_w, cfg, generator, rot) for _ in range(2)]
+    else:
+        lo, total = rows
+        placed = [_placed(v, lo, total) for v in (ext_h, ext_w, rot)]
+        views = [_rows_of(sample_view(*placed[:2], cfg, generator, placed[2]), lo,
+                          images_u8.shape[0]) for _ in range(2)]
     return apply_view(images_u8, views[0], cfg), apply_view(images_u8, views[1], cfg)

@@ -434,17 +434,21 @@ class Prefetcher:
 def epoch_loader(dataset, epoch: int, seed: int, global_batch: int, device,
                  skip_batches: int = 0, retries: int = 3, backoff_secs: float = 0.5,
                  depth: int = 2, workers: int = 1, stats=None,
-                 trim_h2d: bool = False) -> Prefetcher:
-    """One epoch of batches on `device`. `skip_batches` drops the first N
-    batches at the index level (no decode, no copy), to resume mid-epoch;
+                 trim_h2d: bool = False, num_processes: int = 1,
+                 process_index: int = 0) -> Prefetcher:
+    """One epoch of this process's batches on `device`: its contiguous
+    slice of every global batch of the epoch's permutation, which depends on
+    `(seed, epoch)` alone. `skip_batches` drops the first N global batches
+    at the index level (no decode, no copy), to resume mid-epoch;
     `retries`/`backoff_secs` set the transient-read retry policy;
     `depth`/`workers`/`stats`/`trim_h2d` configure the staging (config:
     `prefetch_depth`, `staging_workers`, `h2d_trim`)."""
     perm = epoch_permutation(len(dataset), epoch, seed, global_batch)
-    local = host_shard(perm, global_batch)
+    local = host_shard(perm, global_batch, num_processes, process_index)
+    batch = global_batch // num_processes
     if skip_batches:
-        local = local[skip_batches * global_batch:]
-    return Prefetcher(dataset, local, global_batch, device, depth=depth, retries=retries,
+        local = local[skip_batches * batch:]
+    return Prefetcher(dataset, local, batch, device, depth=depth, retries=retries,
                       backoff_secs=backoff_secs, workers=workers, stats=stats,
                       trim_h2d=trim_h2d)
 

@@ -25,7 +25,7 @@ from moco_tpu_torch.data.loader import stage_eval_batch
 from moco_tpu_torch.evals.lincls import _val_split, load_frozen_backbone
 from moco_tpu_torch.ops.knn import knn_accuracy
 from moco_tpu_torch.ops.losses import l2_normalize
-from moco_tpu_torch.utils.device import resolve_device
+from moco_tpu_torch.utils.device import resolve_device, set_precision_policy
 
 
 def build_feature_fn(model):
@@ -72,6 +72,7 @@ def encode_dataset(model, dataset, config, batch: int = 256,
 def run_knn(config: EvalConfig, device="cuda") -> float:
     """kNN top-1 of the frozen backbone `config.pretrained`: the train split
     as the bank, the val split as the queries."""
+    set_precision_policy()
     dev = resolve_device(device)
     model = load_frozen_backbone(config, dev)
     train_set = build_dataset(config.dataset, config.data_dir, image_size=config.image_size,
@@ -91,6 +92,7 @@ def main(argv=None) -> float:
     from moco_tpu_torch.config import add_config_flags, collect_overrides, get_preset, \
         preset_names
 
+    set_precision_policy()
     parser = argparse.ArgumentParser(description="moco_tpu_torch kNN evaluation")
     parser.add_argument("--preset", default="imagenet-lincls",
                         choices=preset_names(EvalConfig))

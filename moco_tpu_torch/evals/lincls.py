@@ -42,7 +42,7 @@ from moco_tpu_torch.data.datasets import build_dataset
 from moco_tpu_torch.data.loader import epoch_loader, stage_eval_batch
 from moco_tpu_torch.ops.losses import contrastive_accuracy, softmax_cross_entropy
 from moco_tpu_torch.ops.schedules import cosine_lr, step_lr
-from moco_tpu_torch.utils.device import resolve_device
+from moco_tpu_torch.utils.device import resolve_device, set_precision_policy
 from moco_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
 
@@ -142,6 +142,7 @@ def train_lincls(config: EvalConfig, max_steps: int | None = None, device="cuda"
     """Train the probe; returns (fc, best acc@1). `dataset`/`val_dataset`
     replace the ones the config names. `on_step(step, metrics)` sees the
     metrics (host numbers) of every print step."""
+    set_precision_policy()
     dev = resolve_device(device)
     if config.resume not in ("", "auto"):
         raise ValueError(f"the probe resumes with '' or 'auto', got {config.resume!r}")
@@ -255,6 +256,7 @@ def main(argv=None):
     from moco_tpu_torch.config import add_config_flags, collect_overrides, get_preset, \
         preset_names
 
+    set_precision_policy()
     parser = argparse.ArgumentParser(description="moco_tpu_torch linear probe")
     parser.add_argument("--preset", default="imagenet-lincls",
                         choices=preset_names(EvalConfig))

@@ -1,1 +1,2 @@
-"""ShuffleBN batch permutation on one process."""
+"""Data parallelism across processes: the process group, ShuffleBN's
+collectives and the gradient mean."""

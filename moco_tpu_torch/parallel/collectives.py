@@ -1,25 +1,127 @@
-"""ShuffleBN's batch permutation for one process (port of `batch_shuffle` /
-`batch_unshuffle` in `moco_tpu/parallel/collectives.py`).
+"""ShuffleBN and the gathers across processes (port of
+`moco_tpu/parallel/collectives.py`: `all_gather_batch`, `batch_shuffle`,
+`batch_unshuffle`, `ring_shuffle`) on `torch.distributed`.
 
-With one card the "global batch" is the local one: the key batch is
-permuted by a generator-drawn permutation before the key encoder and put
-back in order after it. Per-device BN over the whole batch sees the same
-samples either way; the NCCL form across cards comes with the multi-GPU
-slice.
+Every function takes the process group (`parallel/mesh.py`); `group=None`
+is one process, where the "global batch" is the local one and nothing is
+communicated.
+
+- The reference draws the shuffle permutation on rank 0 and broadcasts
+  it. Here, as in the JAX package, every process draws the SAME
+  permutation from a generator that every process seeds and advances
+  alike (`TrainState.generator`, kept apart from the augmentation's), so
+  no broadcast is needed. A caller may hand the permutation in instead.
+- `batch_unshuffle` returns the unshuffled GLOBAL batch, in rank order:
+  the keys the step enqueues on every process (the JAX step gets them as
+  the sharded output of its region); `local_rows` is this process's part.
+- Why ShuffleBN exists: with per-process BatchNorm, a query and its
+  positive key normalized in one group would share batch statistics and
+  leak which sample is the positive. Shuffling the key batch across
+  processes before the key encoder decorrelates the groups; unshuffling
+  after it restores the q/k alignment.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from moco_tpu_torch.parallel.mesh import rank, world_size
 
 
-def batch_shuffle(x: torch.Tensor, generator: torch.Generator
+def all_gather_batch(x: torch.Tensor, group, chunks: int = 1) -> torch.Tensor:
+    """The local batches of every process along dim 0, in rank order.
+
+    `chunks > 1` splits the local batch into `chunks` row slices, each
+    gathered as its own collective, all in flight at once, so a chunk can
+    be on the wire while the next is issued; the result is restitched
+    rank-major and equals the one gather bit for bit. A chunk count that
+    does not divide the local batch gathers in one piece (a hint, never a
+    shape constraint)."""
+    if group is None:
+        return x
+    n = world_size(group)
+    if chunks <= 1 or x.shape[0] % chunks:
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+    rows = x.shape[0] // chunks
+    outs, works = [], []
+    for c in range(chunks):
+        part = x[c * rows:(c + 1) * rows].contiguous()
+        out = [torch.empty_like(part) for _ in range(n)]
+        works.append(dist.all_gather(out, part, group=group, async_op=True))
+        outs.append(out)
+    for w in works:
+        w.wait()
+    return torch.cat([outs[c][d] for d in range(n) for c in range(chunks)])
+
+
+def local_rows(x_global: torch.Tensor, group) -> torch.Tensor:
+    """This process's contiguous slice of a global batch."""
+    b = x_global.shape[0] // world_size(group)
+    r = rank(group)
+    return x_global[r * b:(r + 1) * b]
+
+
+def batch_shuffle(x: torch.Tensor, generator: torch.Generator | None, group=None,
+                  chunks: int = 1, perm: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(x[perm], perm) for a random permutation of the batch."""
-    perm = torch.randperm(x.shape[0], generator=generator, device=x.device)
-    return x[perm], perm
+    """Shuffle the global batch across processes: gather it, draw one
+    permutation of it from `generator` (or take `perm`), and keep this
+    process's slice `perm[r*b:(r+1)*b]`. Returns (that slice of the
+    batch, perm)."""
+    x_all = all_gather_batch(x, group, chunks)
+    if perm is None:
+        perm = torch.randperm(x_all.shape[0], generator=generator, device=x.device)
+    else:
+        perm = perm.to(x.device)
+    return x_all[local_rows(perm, group)], perm
 
 
-def batch_unshuffle(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Undo `batch_shuffle`: index with the inverse permutation."""
-    return x[torch.argsort(perm)]
+def batch_unshuffle(x: torch.Tensor, perm: torch.Tensor, group=None,
+                    chunks: int = 1) -> torch.Tensor:
+    """Undo `batch_shuffle`: gather the shuffled slices and index them with
+    the inverse permutation. Returns the unshuffled GLOBAL batch."""
+    return all_gather_batch(x, group, chunks)[torch.argsort(perm)]
+
+
+def _exchange(sends: list[tuple[torch.Tensor, int]], group) -> list[torch.Tensor]:
+    """Send each `(tensor, shift)` to rank `r + shift` and receive its
+    counterpart from rank `r - shift` (mod n), all in one batch of
+    point-to-point ops; a shift onto this rank is a copy."""
+    n, r = world_size(group), rank(group)
+    ops, outs = [], []
+    for t, shift in sends:
+        dst, src = (r + shift) % n, (r - shift) % n
+        if dst == r:
+            outs.append(t.clone())
+            continue
+        buf = torch.empty_like(t)
+        ops += [dist.P2POp(dist.isend, t, dst, group), dist.P2POp(dist.irecv, buf, src, group)]
+        outs.append(buf)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return outs
+
+
+def ring_shuffle(x: torch.Tensor, group, inverse: bool = False) -> torch.Tensor:
+    """The cheaper ShuffleBN: a half-shard ring roll. Process i's new group
+    is `[tail half of shard i-2, head half of shard i-1]`, so every
+    key-side BN group mixes samples of two query-side groups (moving whole
+    shards would leave each group's membership, and so the leak, as it
+    was). `inverse=True` undoes it. An odd local batch raises; one process
+    is the identity."""
+    if x.shape[0] % 2:
+        raise ValueError("ring_shuffle requires an even local batch")
+    h = x.shape[0] // 2
+    if h == 0 or group is None or world_size(group) == 1:
+        return x
+    head, tail = x[:h].contiguous(), x[h:].contiguous()
+    if not inverse:
+        recv_tail, recv_head = _exchange([(tail, 2), (head, 1)], group)
+        return torch.cat([recv_tail, recv_head])
+    # process j's tail sits as part 0 on process j+2, its head as part 1 on j+1
+    back_tail, back_head = _exchange([(head, -2), (tail, -1)], group)
+    return torch.cat([back_head, back_tail])

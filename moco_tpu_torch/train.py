@@ -3,9 +3,21 @@
     python -m moco_tpu_torch.train --preset imagenet-moco-v2 --data-dir /data/imagenet \\
         --max-steps 5 [--batch-size B] [--ckpt-dir DIR [--resume auto]] \\
         [--export-path encoder.npz] [--knn-monitor true] [--device cpu]
+    torchrun --nproc-per-node 8 -m moco_tpu_torch.train --preset imagenet-moco-v2 ...
+
+Data parallelism is one process per card, as the reference's `mp.spawn`
+runs it: under torchrun each process joins an NCCL group (gloo with
+`--device cpu`) and runs on `cuda:LOCAL_RANK`; `--batch-size` is the
+global batch. Each process stages its contiguous slice of every global
+batch, the step shuffles the key batch across processes and takes the mean
+of the gradients, BN statistics and metrics (`train_step.py`), and only
+rank 0 prints and writes (checkpoints, their sidecars, the export, the kNN
+baseline); every process restores.
 
 Builds the dataset the config names (wrapped in the decode-once cache when
-`input_cache_mb` > 0) and the state, then runs epochs: an `epoch_loader`
+`input_cache_mb` > 0; with `input_prestage` the pre-staged epoch cache of
+`data/service/prestage.py` instead, and no cache) and the state, then runs
+epochs: an `epoch_loader`
 stages each epoch's batches ahead of the step on worker threads and copies
 them to the device on a side stream; the step draws the two views on the
 device from each batch's staging extents and trains. The step's metrics
@@ -36,18 +48,21 @@ import numpy as np
 import torch
 
 from moco_tpu_torch.checkpoint import checkpoint_manager, export_encoder_q, maybe_resume, \
-    read_position, resume_dir, save_checkpoint
+    read_position, read_recorded_devices, resume_dir, save_checkpoint
 from moco_tpu_torch.config import PretrainConfig, add_config_flags, collect_overrides, \
     get_preset, preset_names
 from moco_tpu_torch.data.augment import aug_config_for, two_crops
 from moco_tpu_torch.data.canvas_cache import CachedDataset
 from moco_tpu_torch.data.datasets import build_dataset
 from moco_tpu_torch.data.loader import epoch_loader
+from moco_tpu_torch.data.service.prestage import PrestagedDataset
 from moco_tpu_torch.evals.knn import build_feature_fn, encode_dataset
 from moco_tpu_torch.ops.knn import knn_accuracy
+from moco_tpu_torch.parallel.mesh import init_distributed, local_batch_size, process_group, \
+    rank, shutdown_distributed, world_size
 from moco_tpu_torch.train_state import TrainState, create_train_state
 from moco_tpu_torch.train_step import build_encoder, build_train_step
-from moco_tpu_torch.utils.device import resolve_device
+from moco_tpu_torch.utils.device import resolve_device, set_precision_policy
 
 METRIC_NAMES = ("loss", "acc1", "acc5", "pos_sim", "neg_sim", "logit_margin", "lr",
                 "queue_ptr")
@@ -167,19 +182,33 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
     (default: the one the config names), resuming first if the config says
     so. Returns the state and a history: the metrics of each print step as
     host numbers, and `{"step", "knn_*_top1"}` for each kNN monitor run.
-    `on_step(step, metrics, seconds)` sees every print step (default: print
-    it); `seconds` is the host time per step since the previous print,
-    ending with the metrics on the host, which waits for the device.
-    `stats` is an optional `InputPipelineStats` the input pipeline reports
-    to."""
+    `on_step(step, metrics, seconds)` sees every print step on rank 0
+    (default: print it); `seconds` is the host time per step since the
+    previous print, ending with the metrics on the host, which waits for the
+    device. `stats` is an optional `InputPipelineStats` the input pipeline
+    reports to. In a process group (`parallel/mesh.py::init_distributed`)
+    this process trains its slice of each global batch on `device`."""
+    set_precision_policy()
     dev = resolve_device(device)
+    group = process_group()
+    world, me = world_size(group), rank(group)
+    is_main = me == 0
+    local_b = local_batch_size(config.batch_size, world)
     if config.knn_monitor and config.knn_every_epochs < 1:
         raise ValueError(f"knn_every_epochs must be >= 1 (got {config.knn_every_epochs}); "
                          "disable the monitor with knn_monitor=False instead")
     if dataset is None:
-        dataset = build_dataset(config.dataset, config.data_dir, image_size=config.image_size,
-                                stage_size=config.stage_size, num_workers=config.num_workers)
-    if config.input_cache_mb:
+        if config.input_prestage:
+            # the pre-staged epoch cache: epochs are row gathers from its mmap
+            dataset = PrestagedDataset(config.input_prestage)
+        else:
+            dataset = build_dataset(config.dataset, config.data_dir,
+                                    image_size=config.image_size,
+                                    stage_size=config.stage_size,
+                                    num_workers=config.num_workers)
+    if config.input_cache_mb and not config.input_prestage:
+        # a prestage already holds every canvas; caching it again would
+        # duplicate in RAM what the page cache shares
         dataset = CachedDataset(dataset, config.input_cache_mb, stats=stats)
     if len(dataset) < config.batch_size:
         raise ValueError(f"the dataset holds {len(dataset)} samples, fewer than one batch "
@@ -191,35 +220,49 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
         def on_step(step, metrics, seconds):
             print_step(step, metrics, seconds, config.batch_size)
 
+    def report(msg: str) -> None:
+        if is_main:
+            print(msg, flush=True)
+
     state = create_train_state(config, build_encoder(config), dev, seed=config.seed)
     mgr = checkpoint_manager(config.ckpt_dir) if config.ckpt_dir else None
+    # every process restores the replicated state
     state = maybe_resume(mgr, state, config.resume)
     # the data-stream position: the sidecar of the restored step, else step
     # arithmetic; the resumed epoch skips the batches it already used (the
     # epoch permutation is deterministic, so batch i is the interrupted
-    # run's batch i)
+    # run's batch i). Positions count global batches, so a restore at
+    # another world size resumes at the same place.
     pos = None
     if state.step:
-        pos = read_position(resume_dir(mgr, config.resume), state.step)
-        print(f"resumed at step {state.step}", flush=True)
+        ckpt_from = resume_dir(mgr, config.resume)
+        pos = read_position(ckpt_from, state.step)
+        saved_under = read_recorded_devices(ckpt_from, state.step)
+        report(f"resumed at step {state.step}" + (
+            f" (saved under {saved_under} processes, now {world})"
+            if saved_under not in (None, world) else ""))
     epoch, skip = pos if pos is not None else divmod(state.step, steps_per_epoch)
 
-    step_fn = build_train_step(config, steps_per_epoch)
+    step_fn = build_train_step(config, steps_per_epoch, group=group)
     aug_cfg = aug_config_for(config)
+    # each process draws the views of the whole global batch and keeps its rows
+    rows = None if group is None else (me * local_b, config.batch_size)
     history = []
     feature_fn = monitor_val = None
     if config.knn_monitor:
         feature_fn = make_feature_fn(state.model_q)
         monitor_val = _monitor_val_split(config, dataset)
     baseline_path = os.path.join(mgr.directory, "untrained_baseline.json") if mgr else None
+    # the kNN monitor runs on every process, as the JAX driver's does; only
+    # rank 0 reports and writes
     if config.knn_monitor and state.step == 0:
         # what random features score on the same data, before any step
         acc0, is_val = knn_monitor(config, feature_fn, state, dataset, monitor_val)
         tag0 = "knn_val_top1_untrained" if is_val else "knn_train_top1_untrained"
         history.append({"step": 0, tag0: acc0})
-        print(f"Epoch [-1] kNN({'val' if is_val else 'train'}) top-1 {100 * acc0:.2f}% "
-              f"(UNTRAINED baseline; chance {100.0 / dataset.num_classes:.2f}%)", flush=True)
-        if baseline_path:
+        report(f"Epoch [-1] kNN({'val' if is_val else 'train'}) top-1 {100 * acc0:.2f}% "
+               f"(UNTRAINED baseline; chance {100.0 / dataset.num_classes:.2f}%)")
+        if baseline_path and is_main:
             _write_json(baseline_path, {tag0: acc0})  # a resumed run cannot measure it
     elif config.knn_monitor and baseline_path and os.path.exists(baseline_path):
         try:
@@ -229,21 +272,21 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
             baseline = {}  # unreadable: the history carries no baseline
         if baseline:
             history.append({"step": 0, **baseline})
-            print(f"kNN untrained baseline {baseline}, restored from {baseline_path}",
-                  flush=True)
+            report(f"kNN untrained baseline {baseline}, restored from {baseline_path}")
     since, t_last = 0, time.perf_counter()
     while state.step < total:
         epoch_start_step = state.step
         loader = epoch_loader(dataset, epoch, config.seed, config.batch_size, dev,
                               skip_batches=skip, depth=config.prefetch_depth,
                               workers=config.staging_workers, stats=stats,
-                              trim_h2d=config.h2d_trim)
+                              trim_h2d=config.h2d_trim, num_processes=world,
+                              process_index=me)
         next_batch = skip
         try:
             for i, (images, _labels, extents) in enumerate(loader, start=skip):
                 if i >= steps_per_epoch or state.step >= total:
                     break
-                im_q, im_k = two_crops(images, aug_cfg, state.data_generator, extents)
+                im_q, im_k = two_crops(images, aug_cfg, state.data_generator, extents, rows)
                 metrics = step_fn(state, im_q, im_k)
                 next_batch = i + 1
                 since += 1
@@ -252,7 +295,8 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
                     metrics = host_metrics(metrics)
                     seconds = (time.perf_counter() - t_last) / since
                     history.append(metrics)
-                    on_step(state.step, metrics, seconds)
+                    if is_main:
+                        on_step(state.step, metrics, seconds)
                     since, t_last = 0, time.perf_counter()
         finally:
             loader.close_quietly()
@@ -265,33 +309,43 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
             acc, is_val = knn_monitor(config, feature_fn, state, dataset, monitor_val)
             tag = "knn_val_top1" if is_val else "knn_train_top1"
             history.append({"step": state.step, tag: acc})
-            print(f"Epoch [{epoch}] kNN({'val' if is_val else 'train'}) top-1 "
-                  f"{100 * acc:.2f}%", flush=True)
+            report(f"Epoch [{epoch}] kNN({'val' if is_val else 'train'}) top-1 "
+                   f"{100 * acc:.2f}%")
         if mgr is not None and state.step > epoch_start_step \
                 and (epoch + 1) % config.ckpt_every_epochs == 0:
             position = (epoch + 1, 0) if next_batch >= steps_per_epoch else (epoch, next_batch)
-            save_checkpoint(mgr, state, state.step, position=position)
+            save_checkpoint(mgr, state, state.step, position=position, devices=world,
+                            group=group)
         epoch, skip = epoch + 1, 0
         t_last += time.perf_counter() - t_pause  # the printed step time leaves these out
-    if config.export_path:
+    if config.export_path and is_main:
         export_encoder_q(state, config.export_path)
         print(f"exported encoder -> {config.export_path}", flush=True)
     return state, history
 
 
 def main(argv=None) -> None:
+    set_precision_policy()
     parser = argparse.ArgumentParser(description="moco_tpu_torch pretraining")
     parser.add_argument("--preset", default="imagenet-moco-v2",
                         choices=preset_names(PretrainConfig))
     parser.add_argument("--max-steps", type=int, default=None)
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu")
     add_config_flags(parser)
     args = parser.parse_args(argv)
     config = get_preset(args.preset).replace(**collect_overrides(args))
-    dev = resolve_device(args.device)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"config: {config}\ndevice: {dev} ({name})", flush=True)
-    train(config, max_steps=args.max_steps, device=dev)
+    # under torchrun (WORLD_SIZE > 1) this joins the group; alone it is a no-op
+    dev = init_distributed(args.device)
+    try:
+        group = process_group()
+        if rank(group) == 0:
+            name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+            print(f"config: {config}\ndevice: {dev} ({name}), {world_size(group)} "
+                  f"process(es)", flush=True)
+        train(config, max_steps=args.max_steps, device=dev)
+    finally:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -3,7 +3,10 @@
 One object holds what the step updates: the query encoder and its SGD
 optimizer, the key encoder (an EMA of the query's parameters, never trained
 by gradients), the negative queue and its pointer, the step count, and the
-generator that draws ShuffleBN's permutations. The step mutates it in place.
+generators of ShuffleBN's permutations and of the two-crop draws. The step
+mutates it in place. Every process of a data-parallel run builds the same
+state from the same seed, so the replicas, and the draws of both
+generators, start and stay equal.
 """
 
 from __future__ import annotations

@@ -1,14 +1,24 @@
-"""The MoCo v1/v2 pretrain step on one card (port of
-`moco_tpu/train_step.py`).
+"""The MoCo v1/v2 pretrain step (port of `moco_tpu/train_step.py`), on one
+card or as one process of a data-parallel group.
 
 One step, in the reference's order:
 
 1. EMA of the key encoder's parameters, BEFORE the key forward;
-2. ShuffleBN: permute the key batch, key forward with train-mode (batch
-   statistics) BN, L2-normalize, unpermute, all under `no_grad`;
-3. query forward, InfoNCE logits against the keys and the queue, loss;
-4. backward and SGD with the lr of the schedule at the pre-increment step;
-5. enqueue the keys AFTER the logits (a batch is never its own negatives).
+2. ShuffleBN: shuffle the key batch (across processes: gather the global
+   batch and keep this process's slice of one shared permutation, or the
+   half-shard ring), key forward with train-mode (batch statistics) BN on
+   the local slice, L2-normalize, unshuffle, all under `no_grad`;
+3. the local query forward, InfoNCE logits against the local keys and the
+   queue, loss;
+4. backward; across processes the mean of the gradients (one flat
+   all-reduce, `parallel/gradsync.py`), of both encoders' BN running
+   statistics, and of the metrics; then SGD with the lr of the schedule at
+   the pre-increment step;
+5. enqueue the GLOBAL batch's keys AFTER the logits (a batch is never its
+   own negatives), so the queue stays the same on every process.
+
+With no process group the step is the one-card step, and a one-process
+group computes the same bits.
 """
 
 from __future__ import annotations
@@ -29,7 +39,10 @@ from moco_tpu_torch.ops.losses import (
 )
 from moco_tpu_torch.ops.queue import dequeue_and_enqueue
 from moco_tpu_torch.ops.schedules import cosine_lr, step_lr, warmup_cosine_lr
-from moco_tpu_torch.parallel.collectives import batch_shuffle, batch_unshuffle
+from moco_tpu_torch.parallel.collectives import all_gather_batch, batch_shuffle, \
+    batch_unshuffle, local_rows, ring_shuffle
+from moco_tpu_torch.parallel.gradsync import GradSync, mean_tensors_
+from moco_tpu_torch.parallel.mesh import world_size
 from moco_tpu_torch.train_state import TrainState
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -63,37 +76,66 @@ def lr_schedule(config, steps_per_epoch: int) -> Callable[[int], float]:
     return sched
 
 
-def build_train_step(config, steps_per_epoch: int):
+def build_train_step(config, steps_per_epoch: int, group=None,
+                     perm_fn: Callable[[int, int], torch.Tensor] | None = None):
     """Return `step(state, im_q, im_k) -> metrics`, updating `state` in
-    place. `im_q`/`im_k` are NHWC `[B, H, W, 3]` batches on the state's
-    device. Metric values stay on the device until the caller reads them,
-    except `lr` and `queue_ptr`, which are host numbers."""
+    place. `im_q`/`im_k` are this process's NHWC `[b, H, W, 3]` batches on
+    the state's device; `group` is the data-parallel process group (None:
+    one process). `perm_fn(step, global_batch)` replaces ShuffleBN's drawn
+    permutation (a test hands in the JAX package's). Metric values stay on
+    the device until the caller reads them, except `lr` and `queue_ptr`,
+    which are host numbers."""
     sched = lr_schedule(config, steps_per_epoch)
     temperature = config.temperature
+    chunks = config.collective_chunks
+    gradsync = None if group is None else GradSync(config, group)
+
+    def key_path(state: TrainState, im_k: torch.Tensor):
+        """(this process's keys, the global batch's keys in rank order)."""
+        if config.shuffle_mode == "ring":
+            k = l2_normalize(state.model_k(ring_shuffle(im_k, group)))
+            k = ring_shuffle(k, group, inverse=True)
+            return k, all_gather_batch(k, group, chunks)
+        perm = None if perm_fn is None else perm_fn(state.step,
+                                                    im_k.shape[0] * world_size(group))
+        im_k_shuf, perm = batch_shuffle(im_k, state.generator, group, chunks, perm)
+        k_global = batch_unshuffle(l2_normalize(state.model_k(im_k_shuf)), perm, group,
+                                   chunks)
+        return local_rows(k_global, group), k_global
 
     def step(state: TrainState, im_q: torch.Tensor, im_k: torch.Tensor) -> dict:
         lr = sched(state.step)
         ema_update(state.model_k, state.model_q, config.momentum_ema)
         with torch.no_grad():
-            im_k_shuf, perm = batch_shuffle(im_k, state.generator)
-            k = batch_unshuffle(l2_normalize(state.model_k(im_k_shuf)), perm)
+            k, k_global = key_path(state, im_k)
         q = l2_normalize(state.model_q(im_q))
         logits, labels = infonce_logits(q, k, state.queue, temperature)
         loss = softmax_cross_entropy(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
         with torch.no_grad():
             logits = logits.detach()
             acc1, acc5 = contrastive_accuracy(logits, labels)
             pos_sim = logits[:, 0].mean() * temperature
             neg_sim = neg_sim_mean(logits, labels, temperature)
-            state.queue_ptr = dequeue_and_enqueue(state.queue, state.queue_ptr, k)
+            metrics = {"loss": loss.detach(), "acc1": acc1, "acc5": acc5,
+                       "pos_sim": pos_sim, "neg_sim": neg_sim,
+                       "logit_margin": pos_sim - neg_sim}
+            if group is not None:
+                gradsync.reduce_(state.model_q.parameters())
+                # BN running statistics: their mean over processes keeps the
+                # replicas equal (in place of DDP's broadcast of rank 0's)
+                mean_tensors_([b for m in (state.model_q, state.model_k)
+                               for b in m.buffers()], group)
+                values = torch.stack([v.float() for v in metrics.values()])
+                mean_tensors_([values], group)
+                metrics = dict(zip(metrics, values.unbind()))
+        for g in state.optimizer.param_groups:
+            g["lr"] = lr
+        state.optimizer.step()
+        with torch.no_grad():
+            state.queue_ptr = dequeue_and_enqueue(state.queue, state.queue_ptr, k_global)
         state.step += 1
-        return {"loss": loss.detach(), "acc1": acc1, "acc5": acc5, "pos_sim": pos_sim,
-                "neg_sim": neg_sim, "logit_margin": pos_sim - neg_sim, "lr": lr,
-                "queue_ptr": state.queue_ptr}
+        return {**metrics, "lr": lr, "queue_ptr": state.queue_ptr}
 
     return step

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions at awkward
-shapes, on the card. Marked `cuda`; each test skips where there is no CUDA
+shapes, on the card, with the Prefetcher, a full-state round trip, the kNN
+and a one-rank NCCL step. Marked `cuda`; each test skips where there is no CUDA
 device. Run on a GPU machine (no JAX needed) with:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -18,10 +19,15 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture
 def cuda():
+    """The card, under the package's f32 precision policy (TF32 off), as
+    every entry point sets it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from moco_tpu_torch.utils.device import set_precision_policy
+
+    set_precision_policy()
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
     return torch.device("cuda")
 
 
@@ -798,3 +804,56 @@ def test_knn_accuracy_on_the_card_equals_the_cpu(cuda, chunk):
     pred_gpu = knn.knn_predict(feats.to(cuda), bank.to(cuda), bank_labels.to(cuda), 10,
                                bank_chunk=chunk)
     assert torch.equal(pred_gpu.cpu(), pred_cpu) and got == ref
+
+
+def test_one_rank_nccl_step_equals_the_one_card_step(cuda, tmp_path):
+    """A tiny pretrain state stepped three times in a one-rank NCCL group
+    (a FileStore rendezvous) and three times with no group, from the same
+    state on the same images under deterministic cuDNN: losses, queue and
+    both encoders equal bit for bit, and the group's step made its
+    collectives."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.parallel.mesh import init_distributed, process_group, \
+        shutdown_distributed
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder, build_train_step
+
+    config = get_preset("imagenet-moco-v2").replace(
+        arch="resnet_tiny", image_size=32, batch_size=8, num_negatives=32, embed_dim=16,
+        compute_dtype="float32")
+    rng = np.random.RandomState(0)
+    images = [torch.from_numpy(rng.randn(2, 8, 32, 32, 3).astype(np.float32)).to(cuda)
+              for _ in range(3)]
+
+    def run(group):
+        s = create_train_state(config, build_encoder(config), cuda, seed=0)
+        step = build_train_step(config, steps_per_epoch=4, group=group)
+        losses = [step(s, im[0], im[1])["loss"] for im in images]
+        return torch.stack(losses), s
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone_losses, alone = run(None)
+        init_distributed(cuda, rank=0, world_size=1,
+                         init_method=f"file://{tmp_path / 'store'}")
+        calls = []
+        reduce = dist.all_reduce
+        dist.all_reduce = lambda *a, **kw: calls.append(1) or reduce(*a, **kw)
+        try:
+            group_losses, grouped = run(process_group())
+            torch.cuda.synchronize()
+        finally:
+            dist.all_reduce = reduce
+            shutdown_distributed()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert len(calls) == 3 * 3  # gradients, BN statistics, metrics
+    assert torch.equal(group_losses, alone_losses)
+    assert torch.equal(grouped.queue, alone.queue)
+    for name in ("model_q", "model_k"):
+        a, b = getattr(grouped, name).state_dict(), getattr(alone, name).state_dict()
+        assert all(torch.equal(a[k], b[k]) for k in b), name

@@ -1,5 +1,6 @@
 """Rules every slice of the port keeps: it imports neither JAX nor the JAX
-package, and it never runs on the CPU unless asked to."""
+package, it never runs on the CPU unless asked to, and each entry point sets
+the package's f32 precision policy (`utils/device.py`)."""
 
 import pkgutil
 import subprocess
@@ -44,11 +45,14 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
     assert proc.returncode == 0, proc.stderr
     expected = list(pkgutil.walk_packages(moco_tpu_torch.__path__, "moco_tpu_torch."))
     assert int(proc.stdout.strip()) == len(expected) >= 15
-    # the checkpoint and evaluation modules are among those probed
+    # the checkpoint, evaluation, data-parallel, prestage and export modules
+    # are among those probed
     assert {"moco_tpu_torch.checkpoint", "moco_tpu_torch.resilience.integrity",
             "moco_tpu_torch.ops.knn", "moco_tpu_torch.utils.meters",
-            "moco_tpu_torch.evals.knn", "moco_tpu_torch.evals.lincls"} <= \
-        {m.name for m in expected}
+            "moco_tpu_torch.evals.knn", "moco_tpu_torch.evals.lincls",
+            "moco_tpu_torch.parallel.mesh", "moco_tpu_torch.parallel.collectives",
+            "moco_tpu_torch.parallel.gradsync", "moco_tpu_torch.data.service.prestage",
+            "moco_tpu_torch.export_detectron2"} <= {m.name for m in expected}
 
 
 TINY = ["--preset", "imagenet-moco-v2", "--dataset", "synthetic", "--arch", "resnet_tiny",
@@ -77,3 +81,48 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         blur.gaussian_blur_batch(torch.zeros(1, 4, 4, 3, device="meta"),
                                  torch.zeros(1, 3, device="meta"), 1)
+
+
+def _tf32_on():
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def _policy_set() -> bool:
+    return (torch.backends.cudnn.allow_tf32 is False
+            and torch.backends.cuda.matmul.allow_tf32 is False)
+
+
+def test_driver_sets_the_precision_policy(capsys):
+    """A real step through `main`, and `train` itself."""
+    from moco_tpu_torch.config import get_preset
+
+    _tf32_on()
+    train.main(TINY + ["--device", "cpu"])
+    assert _policy_set()
+    _tf32_on()
+    config = get_preset("imagenet-moco-v2").replace(
+        dataset="synthetic", arch="resnet_tiny", image_size=32, batch_size=8,
+        num_negatives=32, embed_dim=16)
+    train.train(config, max_steps=1, device="cpu", on_step=lambda *a: None)
+    assert _policy_set()
+
+
+@pytest.mark.parametrize("entry", ["lincls.train_lincls", "lincls.main", "knn.run_knn",
+                                   "knn.main"])
+def test_eval_entry_points_set_the_precision_policy(entry, tmp_path):
+    """Each sets the policy first: the flags are set even when the run then
+    fails on a checkpoint that is not there."""
+    from moco_tpu_torch.config import EvalConfig
+    from moco_tpu_torch.evals import knn, lincls
+
+    module, name = entry.split(".")
+    fn = getattr({"lincls": lincls, "knn": knn}[module], name)
+    missing = str(tmp_path / "missing.npz")
+    _tf32_on()
+    with pytest.raises((FileNotFoundError, OSError)):
+        if name == "main":
+            fn(["--pretrained", missing, "--dataset", "synthetic", "--device", "cpu"])
+        else:
+            fn(EvalConfig(pretrained=missing, dataset="synthetic"), device="cpu")
+    assert _policy_set()

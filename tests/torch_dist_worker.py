@@ -1,0 +1,193 @@
+"""The worker processes of tests/test_torch_distributed.py.
+
+Torch only (no JAX, nothing of `moco_tpu`), so that each gloo process starts
+fast: the test prepares its inputs with the JAX package, saves them with
+`torch.save`, and `spawn` runs one of the targets below in `world` processes,
+each with one thread, joined in a gloo group over a `FileStore` (or given
+torchrun's variables, for the driver's `main` to join by `env://`). Each
+target saves what it computed for the test to compare.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import socket
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+
+def _entry(rank: int, world: int, rendezvous: str | None, target: str, args: tuple) -> None:
+    torch.set_num_threads(1)
+    from moco_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    if rendezvous is not None and rendezvous.startswith("file://"):
+        init_distributed("cpu", rank=rank, world_size=world, init_method=rendezvous,
+                         timeout_s=120)
+    elif rendezvous is not None:  # torchrun's environment; the target joins
+        host, port = rendezvous.split(":")
+        os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                          MASTER_ADDR=host, MASTER_PORT=port)
+    try:
+        globals()[target](*args)
+    finally:
+        shutdown_distributed()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(target: str, world: int, args: tuple, timeout: float = 180.0,
+          group: bool | str = True) -> None:
+    """Run `target(*args)` in `world` fresh processes, in one gloo group
+    over a FileStore (`group=False`: one process with none; `group="env"`:
+    torchrun's variables set, for a target that joins the group itself);
+    raise if one fails or the whole run outlasts `timeout` seconds, and
+    leave no process behind."""
+    if not group and world != 1:
+        raise ValueError("only one process can run without a group")
+    with tempfile.TemporaryDirectory(prefix="gloo_") as tmp:
+        rendezvous = (None if not group else f"127.0.0.1:{_free_port()}" if group == "env"
+                      else f"file://{os.path.join(tmp, 'store')}")
+        ctx = mp.start_processes(_entry, args=(world, rendezvous, target, args),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{target} in {world} processes outlasted {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(timeout=10)
+
+
+def _group():
+    from moco_tpu_torch.parallel.mesh import process_group
+
+    return process_group()
+
+
+def _out(out_dir: str, name: str) -> str:
+    from moco_tpu_torch.parallel.mesh import rank
+
+    return os.path.join(out_dir, f"{name}_rank{rank(_group())}.pt")
+
+
+def run_steps(inputs: str, out_dir: str, chunk_counts: tuple = (None,)) -> None:
+    """Steps of the port from the initial state and images of `inputs`,
+    this process on its rows of each global batch; once for each
+    `collective_chunks` in `chunk_counts` (None: the config's)."""
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.parallel.mesh import rank, world_size
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder, build_train_step
+
+    data = torch.load(inputs, weights_only=False)
+    group = _group()
+    b = data["images"][0][0].shape[0] // world_size(group)
+    r = rank(group)
+    perms = data["perms"]
+    perm_fn = None if perms is None else (lambda step, n: perms[step])
+    for chunks in chunk_counts:
+        config = PretrainConfig(**data["config"])
+        if chunks is not None:
+            config = config.replace(collective_chunks=chunks)
+        state = create_train_state(config, build_encoder(config), "cpu", seed=0)
+        state.model_q.load_state_dict(data["state_dict"])
+        state.model_k.load_state_dict(data["state_dict"])
+        state.queue.copy_(data["queue"])
+        step = build_train_step(config, data["steps_per_epoch"], group=group, perm_fn=perm_fn)
+        metrics = []
+        for im_q, im_k in data["images"]:
+            m = step(state, im_q[r * b:(r + 1) * b], im_k[r * b:(r + 1) * b])
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.save({"metrics": metrics, "q": state.model_q.state_dict(),
+                    "k": state.model_k.state_dict(), "queue": state.queue.clone(),
+                    "queue_ptr": state.queue_ptr},
+                   _out(out_dir, f"steps_chunks{chunks}"))
+
+
+class IndexedImages:
+    """`n` random uint8 images whose first pixel spells their index, labels
+    = index: what a step consumed can be read back from its crops' source."""
+
+    def __init__(self, n: int, size: int, seed: int = 0):
+        rng = np.random.RandomState(seed)
+        self.images = rng.randint(0, 256, size=(n, size, size, 3)).astype(np.uint8)
+        self.images[:, 0, 0, 0] = np.arange(n) % 256
+        self.images[:, 0, 0, 1] = np.arange(n) // 256
+        self.labels = np.arange(n, dtype=np.int32)
+        self.num_classes = n
+        self.image_size = size
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def get_batch(self, indices):
+        idx = np.asarray(indices)
+        b = len(idx)
+        extents = np.tile(np.asarray([[self.image_size, self.image_size, 0]], np.int32),
+                          (b, 1))
+        return self.images[idx], self.labels[idx], extents
+
+
+def run_train(config_kw: dict, out_dir: str, name: str, max_steps: int,
+              n_images: int) -> None:
+    """`train()` on `IndexedImages`, recording each step's source indices
+    and both views; saves them with the final state."""
+    import moco_tpu_torch.train as driver
+    from moco_tpu_torch.config import PretrainConfig
+
+    config = PretrainConfig(**config_kw)
+    seen, views = [], []
+    two_crops = driver.two_crops
+
+    def recording(images, *args, **kw):
+        im_q, im_k = two_crops(images, *args, **kw)
+        px = images[:, 0, 0].long()
+        seen.append((px[:, 0] + 256 * px[:, 1]).tolist())
+        views.append((im_q.clone(), im_k.clone()))
+        return im_q, im_k
+
+    driver.two_crops = recording
+    state, history = driver.train(config, max_steps=max_steps, device="cpu",
+                                  dataset=IndexedImages(n_images, config.image_size),
+                                  on_step=lambda *a: None)
+    torch.save({"seen": seen, "views": views, "history": history, "step": state.step,
+                "q": state.model_q.state_dict(), "k": state.model_k.state_dict(),
+                "queue": state.queue.clone(), "queue_ptr": state.queue_ptr,
+                "optimizer": state.optimizer.state_dict()},
+               _out(out_dir, name))
+
+
+def run_mean(out_dir: str) -> None:
+    """`mean_tensors_` over the group in each wire dtype, on tensors drawn
+    from this rank's seed."""
+    from moco_tpu_torch.parallel.gradsync import leaf_wire_dtype, mean_tensors_
+    from moco_tpu_torch.parallel.mesh import rank
+
+    out = {}
+    for wire in ("float32", "bfloat16"):
+        gen = torch.Generator().manual_seed(rank(_group()))
+        ts = [torch.randn(shape, generator=gen) for shape in ((3, 5), (7,), (2, 2, 2))]
+        nbytes = mean_tensors_(ts, _group(), lambda dt: leaf_wire_dtype(dt, wire))
+        out[wire] = (ts, nbytes)
+    torch.save(out, _out(out_dir, "mean"))
+
+
+def run_main(argv: list, out_dir: str) -> None:
+    """The driver's `main` as torchrun starts it, its standard output kept."""
+    from moco_tpu_torch import train
+
+    path = os.path.join(out_dir, f"main_rank{os.environ['RANK']}.txt")
+    with open(path, "w") as f, contextlib.redirect_stdout(f):
+        train.main(argv)
