@@ -64,6 +64,21 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             byte for byte against the PIL decode, and phase 4's steps from
             it through the driver's `input_prestage` branch: imgs/s, the
             first-batch stall, bytes per image and on disk.
+7.  phase7  the gradient-sync modes and ZeRO-1, right after phase 6 in a
+            new one-rank NCCL group: `train.train` for 3 steps of phase 3's
+            configuration under deterministic cuDNN with grad_sync fused,
+            bucketed (4 MB buckets reduced from the backward's hooks),
+            quantized int8 and bf16, demo (topk 0.01) at cadence 1 and 2,
+            and fused with zero_sharding; each run's imgs/s, peak memory,
+            NCCL calls a step, exposed reduce time (CUDA events), analytic
+            and carried bytes, accumulator bytes and largest entry;
+            bucketed and zero_sharding held bit for bit against fused,
+            the quantized runs' mean + error against their input, DeMo's
+            k nonzeros a leaf on sync steps and zeros on off-steps, every
+            kernel's launches. Under `torchrun --nproc-per-node <cards>
+            chip_smoke.py --phase7` the script builds the kernels and runs
+            phase 7 alone, one process per card, and prints its results as
+            one JSON line.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -950,6 +965,96 @@ def check_against_cpu(fused: bool = False, counters: dict | None = None) -> None
           f"vs {float(res['cpu']['step_loss'][0]):.6f}", flush=True)
 
 
+NCCL_CALLS = ("all_gather", "all_reduce", "batch_isend_irecv", "all_gather_into_tensor",
+              "gather")
+
+
+def counted_train(config, label: str, counters: dict, dataset, steps: int, device="cuda",
+                  finish=None) -> dict:
+    """`train.train` for `steps` steps of `config` on `dataset`, with the
+    logits captured where the step computes them, the NCCL calls and every
+    kernel's launches counted (each must launch its per-step count every
+    step), and `finish(gradsync, state, run)` called in place of each
+    step's `GradSync.finish`, `run()` running it (when given). Returns the
+    state, losses, logits, launches, calls, the steps' host seconds and
+    imgs/s over steps 2... (rank 0's; NaN on the others)."""
+    import torch
+    import torch.distributed as dist
+
+    from moco_tpu_torch import train, train_step
+    from moco_tpu_torch.parallel.gradsync import GradSync
+
+    captured, seconds = [], []
+    calls = dict.fromkeys(NCCL_CALLS, 0)
+    real_logits = train_step.infonce_logits
+    real_calls = {name: getattr(dist, name) for name in calls}
+    real_finish = GradSync.finish
+
+    def capture(*args, **kw):
+        out = real_logits(*args, **kw)
+        captured.append(out[0].detach().clone())
+        return out
+
+    def counting(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return real_calls[name](*args, **kw)
+        return call
+
+    def finish_hooked(self, state):
+        finish(self, state, lambda: real_finish(self, state))
+
+    for fn in counters.values():
+        fn.launches = 0
+    train_step.infonce_logits = capture
+    for name in calls:
+        setattr(dist, name, counting(name))
+    if finish is not None:
+        GradSync.finish = finish_hooked
+    try:
+        state, history = train.train(config, max_steps=steps, device=device, dataset=dataset,
+                                     on_step=lambda step, m, sec: seconds.append(sec))
+    finally:
+        train_step.infonce_logits = real_logits
+        GradSync.finish = real_finish
+        for name in calls:
+            setattr(dist, name, real_calls[name])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    expected = {**PER_STEP, **{name: per_step if config.fused_bn_conv else 0
+                               for name, per_step in FUSED_PER_STEP.items()}}
+    for name, per_step in expected.items():
+        if launches[name] != per_step * steps:
+            fail(f"{label}: {name} launched {launches[name]} times in {steps} steps, "
+                 f"expected {per_step * steps}", 1)
+    losses = [h["loss"] for h in history]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: non-finite or missing losses {losses}", 1)
+    steady = seconds[1:]  # on_step sees rank 0's steps only
+    return dict(state=state, losses=losses, logits=captured, launches=launches, calls=calls,
+                seconds=seconds, imgs_per_s=(config.batch_size * len(steady) / sum(steady)
+                                             if steady else math.nan))
+
+
+def compare_runs(a: dict, b: dict, label: str, steps: int) -> None:
+    """Fail unless two `counted_train` runs are equal bit for bit: losses,
+    captured logits, enqueued keys (the queue) and the whole state."""
+    import torch
+
+    diff = _states_equal(a["state"], b["state"])
+    if a["losses"] != b["losses"]:
+        diff.append(f"losses {a['losses']} != {b['losses']}")
+    if len(a["logits"]) != len(b["logits"]) or not all(
+            torch.equal(x, y) for x, y in zip(a["logits"], b["logits"])):
+        diff.append("logits")
+    if diff:
+        fail(f"{label}: the runs differ in {diff[:6]} (deterministic cuDNN was on, so a "
+             "changed algorithm choice or a non-deterministic kernel is the cause)", 1)
+    print(f"{label}: equal bit for bit: {steps} losses, {len(a['logits'])} logits "
+          f"{list(a['logits'][0].shape)}, {a['state'].queue_ptr} enqueued keys, both "
+          "encoders, momentum buffers, generators", flush=True)
+
+
 def run_distributed(counters: dict, dataset) -> dict:
     """Phase 6: the data-parallel step on the card. One NCCL group of one
     rank (a FileStore in a temporary directory) drives `train.train` for
@@ -965,7 +1070,6 @@ def run_distributed(counters: dict, dataset) -> dict:
     import torch
     import torch.distributed as dist
 
-    from moco_tpu_torch import train, train_step
     from moco_tpu_torch.config import get_preset
     from moco_tpu_torch.parallel.gradsync import GradSync
     from moco_tpu_torch.parallel.mesh import init_distributed, process_group, \
@@ -974,73 +1078,13 @@ def run_distributed(counters: dict, dataset) -> dict:
     base = get_preset("imagenet-moco-v2").replace(
         dataset="synthetic", batch_size=BATCH, staging_workers=4, prefetch_depth=2,
         print_freq=1)
-    calls = dict.fromkeys(("all_gather", "all_reduce", "batch_isend_irecv"), 0)
-
-    def counting(name, real):
-        def call(*args, **kw):
-            calls[name] += 1
-            return real(*args, **kw)
-        return call
 
     def run(config, label):
-        captured, seconds = [], []
-        real_logits = train_step.infonce_logits
-
-        def capture(*args, **kw):
-            out = real_logits(*args, **kw)
-            captured.append(out[0].detach().clone())
-            return out
-
-        for fn in counters.values():
-            fn.launches = 0
-        calls.update(dict.fromkeys(calls, 0))
-        real = {name: getattr(dist, name) for name in calls}
-        train_step.infonce_logits = capture
-        for name in calls:
-            setattr(dist, name, counting(name, real[name]))
-        try:
-            state, history = train.train(config, max_steps=DIST_STEPS, device="cuda",
-                                          dataset=dataset,
-                                          on_step=lambda step, m, sec: seconds.append(sec))
-        finally:
-            train_step.infonce_logits = real_logits
-            for name in calls:
-                setattr(dist, name, real[name])
-        torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counters.items()}
-        expected = {**PER_STEP, **{name: per_step if config.fused_bn_conv else 0
-                                   for name, per_step in FUSED_PER_STEP.items()}}
-        for name, per_step in expected.items():
-            if launches[name] != per_step * DIST_STEPS:
-                fail(f"{label}: {name} launched {launches[name]} times in {DIST_STEPS} steps, "
-                     f"expected {per_step * DIST_STEPS}", 1)
-        losses = [h["loss"] for h in history]
-        if len(losses) != DIST_STEPS or not all(math.isfinite(v) for v in losses):
-            fail(f"{label}: non-finite or missing losses {losses}", 1)
-        steady = seconds[1:]
-        r = dict(state=state, losses=losses, logits=captured, launches=launches,
-                 calls=dict(calls), imgs_per_s=BATCH * len(steady) / sum(steady))
-        print(f"{label}: {DIST_STEPS} steps, losses {[round(v, 6) for v in losses]}, "
-              f"{r['imgs_per_s']:.1f} imgs/s (steps 2-{DIST_STEPS}), NCCL calls {calls}, "
-              f"launches {launches}", flush=True)
+        r = counted_train(config, label, counters, dataset, DIST_STEPS)
+        print(f"{label}: {DIST_STEPS} steps, losses {[round(v, 6) for v in r['losses']]}, "
+              f"{r['imgs_per_s']:.1f} imgs/s (steps 2-{DIST_STEPS}), NCCL calls {r['calls']}, "
+              f"launches {r['launches']}", flush=True)
         return r
-
-    def compare(a, b, label):
-        diff = _states_equal(a["state"], b["state"])
-        if a["losses"] != b["losses"]:
-            diff.append(f"losses {a['losses']} != {b['losses']}")
-        if len(a["logits"]) != len(b["logits"]) or not all(
-                torch.equal(x, y) for x, y in zip(a["logits"], b["logits"])):
-            diff.append("logits")
-        if diff:
-            fail(f"{label}: the one-rank NCCL step differs from the one-process step in "
-                 f"{diff[:6]} (deterministic cuDNN was on, so a changed algorithm choice "
-                 "or a non-deterministic kernel is the cause)", 1)
-        keys = a["state"].queue[:DIST_STEPS * BATCH]
-        print(f"{label}: with and without the group equal bit for bit: {DIST_STEPS} losses, "
-              f"{len(a['logits'])} logits {list(a['logits'][0].shape)}, "
-              f"{keys.shape[0]} enqueued keys, both encoders, momentum buffers, generators",
-              flush=True)
 
     out = {}
     deterministic = torch.backends.cudnn.deterministic
@@ -1062,8 +1106,8 @@ def run_distributed(counters: dict, dataset) -> dict:
                 grouped = run(base, "phase6 unfused, one-rank NCCL group")
                 fused_grouped = run(base.replace(fused_bn_conv=True),
                                     "phase6 fused, one-rank NCCL group")
-                want = {"all_gather": 2 * DIST_STEPS, "all_reduce": 3 * DIST_STEPS,
-                        "batch_isend_irecv": 0}
+                want = {**dict.fromkeys(NCCL_CALLS, 0), "all_gather": 2 * DIST_STEPS,
+                        "all_reduce": 3 * DIST_STEPS}
                 for r in (grouped, fused_grouped):
                     if r["calls"] != want:
                         fail(f"phase6: NCCL calls {r['calls']} in {DIST_STEPS} steps, expected "
@@ -1074,16 +1118,17 @@ def run_distributed(counters: dict, dataset) -> dict:
                 params = [p for p in grouped["state"].model_q.parameters()
                           if p.grad is not None]
                 sync = GradSync(base, group)
-                out["allreduce_ms"] = time_ms(lambda: sync.reduce_(params), 20)
+                out["allreduce_ms"] = time_ms(lambda: sync.finish(grouped["state"]), 20)
                 out["allreduce_bytes"] = sync.last_bytes
                 flat = torch.zeros(sync.last_bytes // 4, device=params[0].device)
                 out["nccl_ms"] = time_ms(lambda: dist.all_reduce(flat, group=group), 20)
                 out["grad_count"] = sum(p.numel() for p in params)
             finally:
                 shutdown_distributed()
-        compare(grouped, alone, "phase6 unfused")
+        compare_runs(grouped, alone, "phase6 unfused, with and without the group", DIST_STEPS)
         fused_alone = run(base.replace(fused_bn_conv=True), "phase6 fused, no group")
-        compare(fused_grouped, fused_alone, "phase6 fused")
+        compare_runs(fused_grouped, fused_alone, "phase6 fused, with and without the group",
+                     DIST_STEPS)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     out.update(grouped_imgs_s=grouped["imgs_per_s"], alone_imgs_s=alone["imgs_per_s"],
@@ -1098,6 +1143,177 @@ def run_distributed(counters: dict, dataset) -> dict:
           f"{out['allreduce_ms']:.3f} ms a step (flatten, all_reduce, mean, copy back), "
           f"the all_reduce alone {out['nccl_ms']:.3f} ms", flush=True)
     return out
+
+
+SYNC_STEPS = 3              # phase 7: steps of each gradient-sync run
+SYNC_RUNS = (               # (label, config overrides); "fused" is the reference
+    ("fused", {}),
+    ("bucketed", dict(grad_sync="bucketed")),
+    ("quantized int8", dict(grad_sync="quantized")),
+    ("quantized bf16", dict(grad_sync="quantized", grad_sync_quant_dtype="bfloat16")),
+    ("demo", dict(grad_sync="demo")),
+    ("demo cadence 2", dict(grad_sync="demo", grad_sync_cadence=2)),
+    ("fused zero_sharding", dict(zero_sharding=True)),
+)
+
+
+def check_rebuild(state, group, wire: str, label: str) -> None:
+    """On one rank, `quantized_mean` of the last step's mean plus its
+    accumulator must give back its input as mean + error within 1 ulp."""
+    import torch
+
+    from moco_tpu_torch.parallel.collectives import quantized_mean
+
+    named = dict(state.model_q.named_parameters())
+    segs = [named[k].grad.reshape(-1).float() + a.reshape(-1)
+            for k, a in state.gradsync.items()]
+    means, errs = quantized_mean(segs, group, wire)
+    for s, m, e in zip(segs, means, errs):
+        ulp = torch.nextafter(s.abs(), torch.full_like(s, math.inf)) - s.abs()
+        if not bool(((m + e - s).abs() <= ulp).all()):
+            fail(f"{label}: mean + error misses the input by more than 1 ulp", 1)
+    print(f"{label}: mean + error rebuilds the quantized input within 1 ulp: {len(segs)} "
+          f"leaves, {sum(s.numel() for s in segs)} values", flush=True)
+
+
+def run_sync_modes(counters: dict, dataset, group, device) -> dict:
+    """Phase 7: the gradient-sync modes and ZeRO-1 on the card, in the
+    process group `group` (NCCL over the visible cards; one rank when the
+    script runs alone). `train.train` runs SYNC_STEPS steps of
+    imagenet-moco-v2 at global batch 256 under deterministic cuDNN for each
+    of SYNC_RUNS. For each run: imgs/s, peak memory over what was held
+    before it, NCCL calls a step, the reduce's exposed time a step (CUDA
+    events from the end of the backward to the end of `GradSync.finish`,
+    which waits on every handle), the analytic bytes a step beside what the
+    collectives carried, and the accumulators' bytes and largest entry.
+    `bucketed` (on 1 or 2 ranks) and `zero_sharding` (on any) must equal
+    `fused` bit for bit; quantized and DeMo runs must have finite losses
+    and nonzero accumulators; on one rank `mean + error` must rebuild the
+    quantized input within 1 ulp and a DeMo sync step's gradient must hold
+    exactly k nonzeros a leaf; an off-step's gradient must be all zeros."""
+    import torch
+
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.parallel.gradsync import GradSync
+    from moco_tpu_torch.parallel.mesh import rank, world_size
+
+    n, me = world_size(group), rank(group)
+    base = get_preset("imagenet-moco-v2").replace(
+        dataset="synthetic", batch_size=BATCH, staging_workers=4, prefetch_depth=2,
+        print_freq=1)
+    out, ref = {}, None
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, overrides in SYNC_RUNS:
+            config = base.replace(**overrides)
+            mode = config.grad_sync
+            rec = dict(events=[], bytes=[], nnz=[], steps=[])
+
+            def finish(gs, state, real, rec=rec):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                real()
+                end.record()
+                rec["events"].append((start, end))
+                rec["bytes"].append(gs.last_bytes)
+                rec["steps"].append(state.step)
+                if gs.mode == "demo":
+                    rec["nnz"].append(torch.stack([p.grad.count_nonzero()
+                                                   for p in state.model_q.parameters()]))
+
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            r = counted_train(config, f"phase7 {label}", counters, dataset, SYNC_STEPS,
+                              device=device, finish=finish)
+            peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+            state = r["state"]
+            exposed = [a.elapsed_time(b) for a, b in rec["events"]]
+            info = GradSync(config, group).describe(state.model_q.named_parameters())
+            acc = state.gradsync
+            acc_bytes = sum(t.numel() * t.element_size() for t in acc.values())
+            acc_max = max((float(t.abs().max()) for t in acc.values()), default=0.0)
+            momentum = (state.optimizer.momentum_bytes() if config.zero_sharding
+                        else sum(v["momentum_buffer"].numel() * 4
+                                 for v in state.optimizer.state.values()))
+            calls = {k: v / SYNC_STEPS for k, v in r["calls"].items() if v}
+            out[label] = dict(imgs_per_s=r["imgs_per_s"], peak_gib=peak_gib, calls=calls,
+                              exposed_ms=exposed, info=info, measured_bytes=rec["bytes"],
+                              acc_bytes=acc_bytes, acc_max=acc_max, momentum_bytes=momentum,
+                              losses=r["losses"])
+            if me == 0:
+                print(f"phase7 {label}: {r['imgs_per_s']:.1f} imgs/s (steps 2-{SYNC_STEPS}), "
+                      f"peak memory {peak_gib:.3f} GiB over the {held / 2**30:.3f} held "
+                      f"before, NCCL calls a step {calls}, exposed reduce "
+                      f"{[round(v, 3) for v in exposed]} ms a step, bytes a step analytic "
+                      f"{info['sync_bytes_per_step']} carried {info['carried_bytes_per_step']} "
+                      f"measured {rec['bytes']}, {info.get('buckets', 1)} buckets, "
+                      f"accumulators {acc_bytes} bytes largest {acc_max:.6g}, momentum "
+                      f"{momentum} bytes on this rank, losses "
+                      f"{[round(v, 6) for v in r['losses']]}", flush=True)
+            if mode in ("quantized", "demo") and acc_max == 0.0:
+                fail(f"phase7 {label}: the accumulators are all zero", 1)
+            if mode == "quantized" and n == 1:
+                check_rebuild(state, group, config.grad_sync_quant_dtype, f"phase7 {label}")
+            if mode == "demo":
+                ks = torch.tensor([max(1, math.ceil(p.numel() * config.grad_sync_topk))
+                                   for p in state.model_q.parameters()],
+                                  device=rec["nnz"][0].device)
+                for step, nnz in zip(rec["steps"], rec["nnz"]):
+                    if step % config.grad_sync_cadence:
+                        ok = not bool(nnz.any())
+                    elif n == 1:
+                        ok = torch.equal(nnz, ks)
+                    else:
+                        ok = bool(((nnz >= ks) & (nnz <= n * ks)).all())
+                    if not ok:
+                        fail(f"phase7 {label}: step {step}'s gradient has {nnz.tolist()} "
+                             f"nonzeros a leaf, k = {ks.tolist()}", 1)
+                if me == 0:
+                    print(f"phase7 {label}: each sync step's gradient held "
+                          f"{'exactly' if n == 1 else 'k to n*k:'} k = {int(ks.sum())} "
+                          f"nonzeros over {len(ks)} leaves"
+                          + ("; each off-step's was all zeros"
+                             if config.grad_sync_cadence > 1 else ""), flush=True)
+            if label == "fused":
+                ref = r
+            elif label == "fused zero_sharding" or (label == "bucketed" and n <= 2):
+                compare_runs(ref, r, f"phase7 {label} vs fused, {n} rank(s)", SYNC_STEPS)
+            elif label == "bucketed":
+                # over 2 ranks NCCL sums each element in an order set by its
+                # offset, and the buckets lay the gradients out otherwise:
+                # only the first loss, before any update, must agree
+                if r["losses"][0] != ref["losses"][0]:
+                    fail("phase7 bucketed: the first loss differs from fused's", 1)
+                if me == 0:
+                    print(f"phase7 bucketed vs fused, {n} ranks: first losses equal, then "
+                          f"{r['losses']} vs {ref['losses']}", flush=True)
+            del r, state, acc
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def sync_modes_in_group(counters: dict, dataset) -> dict:
+    """Phase 7 in its own NCCL group: torchrun's (every visible card, one
+    process each) when the script runs under it, else one rank over a
+    FileStore in a temporary directory, as phase 6 joins it."""
+    import tempfile
+
+    from moco_tpu_torch.parallel.mesh import init_distributed, process_group, \
+        shutdown_distributed
+
+    with tempfile.TemporaryDirectory(prefix="moco_nccl_") as tmp:
+        if "WORLD_SIZE" in os.environ:
+            device = init_distributed("cuda")
+        else:
+            device = init_distributed("cuda", rank=0, world_size=1,
+                                      init_method=f"file://{Path(tmp) / 'store'}")
+        try:
+            return run_sync_modes(counters, dataset, process_group(), device)
+        finally:
+            shutdown_distributed()
 
 
 class _Head:
@@ -1417,10 +1633,6 @@ def main() -> None:
     path, log = _build.build()
     _build.load_library()
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s\n{log}", flush=True)
-
-    report = check_stats_kernels(stats)
-    report["gaussian_blur_batch"] = {"224px": check_blur_kernel(blur)}
-    report.update(check_fused_kernels(fused_conv, fused_conv3x3))
     counters = {"channel_sums": stats.channel_sums,
                 "channel_grad_sums": stats.channel_grad_sums,
                 "gaussian_blur_batch": blur.gaussian_blur_batch,
@@ -1429,8 +1641,21 @@ def main() -> None:
                 "bn_relu_conv3x3": fused_conv3x3.bn_relu_conv3x3,
                 "bn_relu_conv3x3_s2": fused_conv3x3.bn_relu_conv3x3_s2,
                 "conv3x3_dw": fused_conv3x3.conv3x3_dw}
-    from moco_tpu_torch.config import get_preset
     from moco_tpu_torch.data.datasets import SyntheticDataset
+
+    if "--phase7" in sys.argv[1:]:
+        # phase 7 alone, across every card: under
+        # `torchrun --nproc-per-node <cards> chip_smoke.py --phase7`
+        runs = sync_modes_in_group(counters, SyntheticDataset(num_samples=STEPS * BATCH,
+                                                              image_size=224))
+        if int(os.environ.get("RANK", 0)) == 0:
+            print(json.dumps({"phase7": runs, "ranks": int(os.environ.get("WORLD_SIZE", 1))}))
+        return
+
+    report = check_stats_kernels(stats)
+    report["gaussian_blur_batch"] = {"224px": check_blur_kernel(blur)}
+    report.update(check_fused_kernels(fused_conv, fused_conv3x3))
+    from moco_tpu_torch.config import get_preset
 
     # one epoch holds every step of phases 3 and 3b: each step's batch is
     # staged while the one before it runs
@@ -1441,6 +1666,7 @@ def main() -> None:
     fused_summary = run_slice(counters, "fused", config.replace(fused_bn_conv=True), dataset,
                               FUSED_STEPS)
     run_distributed(counters, dataset)
+    sync_modes_in_group(counters, dataset)
     del dataset
     print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
           f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "

@@ -11,10 +11,18 @@ integrity manifest and the data-stream position sidecar (with the number
 of processes the state was saved under, `devices`) are written as the JAX
 package writes them (`resilience/integrity.py`), and only the newest
 `max_to_keep` steps stay, with their sidecars. In a data-parallel run the
-state is replicated: rank 0 writes it and every process restores it, at
-any world size, since the position counts global batches. A restore with
-no step walks back from the newest step past any that fails its manifest
-or its load. Restore loads onto the device of the state it fills.
+state is replicated except for what the gradient sync and ZeRO-1 keep per
+process: every process takes part in gathering those, and rank 0 writes.
+The gradient sync's accumulators go under `gradsync` as `acc` rows
+`[world, *shape]` (the JAX package's dialect 2), with the mode they belong
+to; under ZeRO-1 the momentum is stored whole, so a checkpoint restores at
+any world size, with ZeRO on or off. Every process restores, at any world
+size, since the position counts global batches; each takes back its row of
+the accumulators, or fresh zeros, with a logged event, when the checkpoint
+has none (PRs 10-11), has another mode's, or was saved at another world
+size. A restore with no step walks back from the newest step past any that
+fails its manifest or its load. Restore loads onto the device of the state
+it fills.
 
 The reference checkpoint dialect. `export_encoder_q` writes the query
 encoder under torchvision's names (`module.encoder_q.*`) and tensor layouts,
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from moco_tpu_torch.parallel.mesh import rank, world_size
 from moco_tpu_torch.resilience.integrity import position_path, verify_step, write_manifest
 from moco_tpu_torch.weights import params_from_jax, params_to_jax
 
@@ -183,18 +192,48 @@ def cpu_copy(tree):
     return tree
 
 
-def state_payload(state) -> dict:
-    """Everything a `TrainState` holds, as CPU tensors and numbers."""
+def gather_gradsync(state, group) -> dict | None:
+    """The gradient sync's accumulators of every process, as `acc` rows
+    `[world, *shape]` on the CPU with the mode they belong to (rank 0; None
+    on the others; a collective: every process calls it)."""
+    n, r = world_size(group), rank(group)
+    names = sorted(state.gradsync)
+    acc = {}
+    if names:
+        flat = torch.cat([state.gradsync[k].reshape(-1) for k in names])
+        parts = [torch.empty_like(flat) for _ in range(n)] if r == 0 else None
+        if group is None:
+            parts = [flat]
+        else:
+            dist.gather(flat, parts, dst=0, group=group)
+        if r == 0:
+            rows = torch.stack(parts).cpu()
+            sizes = [state.gradsync[k].numel() for k in names]
+            for k, col in zip(names, rows.split(sizes, dim=1)):
+                acc[k] = col.reshape(n, *state.gradsync[k].shape).clone()
+    return {"mode": state.gradsync_mode, "acc": acc} if r == 0 else None
+
+
+def state_payload(state, optimizer: dict | None = None, gradsync: dict | None = None) -> dict:
+    """Everything a `TrainState` holds, as CPU tensors and numbers.
+    `optimizer` and `gradsync` are the gathered forms of a process group
+    (`ShardedSGD.state_dict()`, `gather_gradsync`); by default this
+    process's own."""
+    if optimizer is None:
+        optimizer = state.optimizer.state_dict()
+    if gradsync is None:
+        gradsync = gather_gradsync(state, None)
     return {
         "step": int(state.step),
         "model_q": cpu_copy(state.model_q.state_dict()),
         "model_k": cpu_copy(state.model_k.state_dict()),
-        "optimizer": cpu_copy(state.optimizer.state_dict()),
+        "optimizer": cpu_copy(optimizer),
         "queue": cpu_copy(state.queue),
         "queue_ptr": int(state.queue_ptr),
         "generator": state.generator.get_state(),
         "data_generator": (None if state.data_generator is None
                            else state.data_generator.get_state()),
+        "gradsync": gradsync,
     }
 
 
@@ -215,11 +254,50 @@ def _check_payload(state, payload: dict) -> None:
                          f"{tuple(state.queue.shape)}")
     if (payload["data_generator"] is None) != (state.data_generator is None):
         raise ValueError("checkpoint and state disagree on the data generator")
+    acc = (payload.get("gradsync") or {}).get("acc", {})
+    if acc:
+        params = dict(state.model_q.named_parameters())
+        if acc.keys() != params.keys():
+            raise ValueError("checkpoint gradsync accumulators name other parameters: "
+                             f"{sorted(acc.keys() ^ params.keys())[:5]}")
+        bad = [k for k, a in acc.items() if a.dim() < 1 or a.shape[1:] != params[k].shape]
+        if bad:
+            raise ValueError(f"checkpoint gradsync accumulator shapes differ at {bad[:5]}")
 
 
-def load_state(state, payload: dict):
+def _load_gradsync(state, saved: dict | None, step: int, group) -> None:
+    """This process's row of the saved accumulators, or fresh zeros (with a
+    logged event) when the checkpoint has none, or another mode's, or was
+    saved at another world size: the accumulators are per-process state of
+    one mode at one world size, and zeros are the cold start."""
+    if not state.gradsync and not (saved and saved["acc"]):
+        return
+    n = world_size(group)
+    acc = saved["acc"] if saved else {}
+    if state.gradsync and acc and saved["mode"] == state.gradsync_mode \
+            and next(iter(acc.values())).shape[0] == n:
+        with torch.no_grad():
+            for k, t in state.gradsync.items():
+                t.copy_(acc[k][rank(group)])
+        return
+    if saved is None:
+        why = "has no gradsync accumulators (an older checkpoint)"
+    elif saved["mode"] != state.gradsync_mode:
+        why = f"was saved under grad_sync={saved['mode']!r}, this run uses " \
+              f"{state.gradsync_mode!r}"
+    else:
+        why = f"was saved by {next(iter(acc.values())).shape[0]} processes, this run has {n}"
+    for t in state.gradsync.values():
+        t.zero_()
+    if rank(group) == 0:
+        _log("ckpt-dialect", f"step {step} {why}: restored without them; the "
+                             "error-feedback/momentum state restarts from zeros")
+
+
+def load_state(state, payload: dict, group=None):
     """Fill `state` in place from a `state_payload` (on the state's
-    device), bit for bit; returns it."""
+    device), bit for bit; returns it. `group` is the process group whose
+    rank picks this process's accumulators."""
     _check_payload(state, payload)
     state.model_q.load_state_dict(payload["model_q"])
     state.model_k.load_state_dict(payload["model_k"])
@@ -231,6 +309,7 @@ def load_state(state, payload: dict):
     state.generator.set_state(payload["generator"])
     if state.data_generator is not None:
         state.data_generator.set_state(payload["data_generator"])
+    _load_gradsync(state, payload.get("gradsync"), state.step, group)
     return state
 
 
@@ -239,24 +318,26 @@ def save_checkpoint(mgr: CheckpointManager, state, step: int,
                     group=None) -> None:
     """Save `state` as step `step`: its position sidecar (with the
     `devices` stamp), then the state, then the integrity manifest; then
-    drop the sidecars of pruned steps. In a process group the state is the
-    same on every process: rank 0 writes, and every process waits at a
-    barrier until it has."""
+    drop the sidecars of pruned steps. In a process group every process
+    gathers its accumulators and momentum slices to the payload, rank 0
+    writes, and every process waits at a barrier until it has."""
+    optimizer = state.optimizer.state_dict()
+    gradsync = gather_gradsync(state, group)
     if group is None or dist.get_rank(group) == 0:
         write_position(mgr.directory, step, position, devices)
-        mgr.save(step, state_payload(state))
+        mgr.save(step, state_payload(state, optimizer, gradsync))
         write_manifest(mgr.directory, step)
         _prune_sidecars(mgr)
     if group is not None:
         dist.barrier(group)
 
 
-def restore_checkpoint(mgr: CheckpointManager, state, step: int | None = None):
+def restore_checkpoint(mgr: CheckpointManager, state, step: int | None = None, group=None):
     """Restore step `step` into `state`; with `step=None` the newest step
     that verifies and loads, walking back past corrupt or partial newer
     ones with a warning. An explicit step fails hard."""
     if step is not None:
-        return load_state(state, mgr.restore(step))
+        return load_state(state, mgr.restore(step), group)
     steps = mgr.all_steps()[::-1]
     if not steps:
         raise FileNotFoundError(f"no checkpoint found in {mgr.directory} to resume from")
@@ -278,7 +359,7 @@ def restore_checkpoint(mgr: CheckpointManager, state, step: int | None = None):
             _log("ckpt-restore", f"restored OLDER step {s} after skipping "
                                  f"{[x[0] for x in skipped]}: up to {steps[0] - s} steps "
                                  "of progress lost")
-        return load_state(state, payload)
+        return load_state(state, payload, group)
     raise FileNotFoundError(f"no restorable checkpoint in {mgr.directory}; all candidates "
                             f"failed: {skipped}")
 
@@ -290,11 +371,11 @@ def resume_dir(mgr: CheckpointManager | None, resume: str) -> str | None:
     return None if mgr is None else mgr.directory
 
 
-def maybe_resume(mgr: CheckpointManager | None, state, resume: str):
+def maybe_resume(mgr: CheckpointManager | None, state, resume: str, group=None):
     """`""`: the fresh state; `"auto"`: the newest restorable step if any,
     else the fresh state; a step number: that step of `mgr`'s directory; a
     path `<ckpt_dir>/<step>`: that step of that directory (the reference's
-    `--resume <path>`)."""
+    `--resume <path>`). `group`: the process group the state runs in."""
     if not resume:
         return state
     if mgr is None and (resume == "auto" or resume.isdigit()):
@@ -302,15 +383,16 @@ def maybe_resume(mgr: CheckpointManager | None, state, resume: str):
     if resume == "auto":
         if mgr.latest_step() is None:
             return state
-        return restore_checkpoint(mgr, state)
+        return restore_checkpoint(mgr, state, group=group)
     if resume.isdigit():
-        return restore_checkpoint(mgr, state, int(resume))
+        return restore_checkpoint(mgr, state, int(resume), group)
     path = os.path.normpath(resume)
     base = os.path.basename(path)
     if not base.isdigit():
         raise ValueError(f"--resume expects 'auto', a step number, or a path ending in a "
                          f"step directory; got {resume!r}")
-    return restore_checkpoint(checkpoint_manager(os.path.dirname(path)), state, int(base))
+    return restore_checkpoint(checkpoint_manager(os.path.dirname(path)), state, int(base),
+                              group)
 
 
 # ---------------------------------------------------------------------------

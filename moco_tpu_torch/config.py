@@ -9,9 +9,11 @@ The port's own copy of the relevant part of `moco_tpu/config.py`
 names, defaults and validation are the same, except that `ckpt_dir`
 defaults to "" (no checkpoints unless asked for) in both configs, so a run
 writes nothing into its working directory by default, and that
-`shuffle_mode`, `grad_allreduce_dtype` and `grad_sync` are checked here
-(the JAX package checks the first two where the step uses them); of
-`grad_sync` only "fused" is ported.
+`shuffle_mode` and `grad_allreduce_dtype` are checked here (the JAX package
+checks them where the step uses them). The gradient-sync knobs and
+`zero_sharding` carry the JAX package's checks and messages; its rule that
+`zero_sharding` excludes `sharding != "dp"` waits for FSDP, which the port
+does not have yet.
 """
 
 from __future__ import annotations
@@ -44,8 +46,19 @@ class PretrainConfig:
     fused_bn_conv: bool = False       # blocks' bn->relu->conv through the fused kernels
     # data parallelism across processes (parallel/)
     collective_chunks: int = 1        # ShuffleBN gathers as N chunk collectives (same bits)
-    grad_sync: str = "fused"          # gradient mean: one flat all-reduce
-    grad_allreduce_dtype: str = "float32"  # its wire dtype: "float32" | "bfloat16"
+    grad_sync: str = "fused"          # gradient sync (parallel/gradsync.py): "fused" (one
+                                      # flat all-reduce) | "bucketed" (a reduce per bucket,
+                                      # launched from the backward) | "quantized" (int8/bf16
+                                      # with error feedback) | "demo" (top-k of a local
+                                      # momentum every grad_sync_cadence steps)
+    grad_sync_bucket_mb: float = 4.0  # bucketed/quantized: MiB of wire bytes a bucket
+    grad_sync_quant_dtype: str = "int8"  # quantized wire dtype: "int8" | "bfloat16"
+    grad_sync_cadence: int = 1        # demo: sync every N steps
+    grad_sync_topk: float = 0.01      # demo: fraction of each leaf's momentum synced
+    grad_sync_demo_beta: float = 0.9  # demo: local momentum decay
+    grad_allreduce_dtype: str = "float32"  # fused/bucketed wire dtype: "float32" | "bfloat16"
+    zero_sharding: bool = False       # ZeRO-1: SGD momentum split 1/n over the processes
+                                      # (parallel/zero.py)
     # data
     dataset: str = "synthetic"        # synthetic | synthetic_texture | cifar10 | imagefolder
     data_dir: str = ""
@@ -108,12 +121,20 @@ class PretrainConfig:
                              "permute/ring")
         if self.collective_chunks < 1:
             raise ValueError(f"collective_chunks must be >= 1, got {self.collective_chunks}")
-        if self.grad_sync in ("bucketed", "quantized", "demo"):
-            raise ValueError(f"grad_sync={self.grad_sync!r} is not ported yet (ROADMAP queue "
-                             "A item 3, gradient-sync strategies and ZeRO-1); use 'fused'")
-        if self.grad_sync != "fused":
+        if self.grad_sync not in ("fused", "bucketed", "quantized", "demo"):
             raise ValueError(f"unknown grad_sync {self.grad_sync!r}; choose from "
                              "fused/bucketed/quantized/demo")
+        if self.grad_sync_bucket_mb <= 0:
+            raise ValueError(f"grad_sync_bucket_mb must be > 0, got {self.grad_sync_bucket_mb}")
+        if self.grad_sync_quant_dtype not in ("int8", "bfloat16"):
+            raise ValueError(f"unknown grad_sync_quant_dtype {self.grad_sync_quant_dtype!r}")
+        if self.grad_sync_cadence < 1:
+            raise ValueError(f"grad_sync_cadence must be >= 1, got {self.grad_sync_cadence}")
+        if not 0.0 < self.grad_sync_topk <= 1.0:
+            raise ValueError(f"grad_sync_topk must be in (0, 1], got {self.grad_sync_topk}")
+        if not 0.0 <= self.grad_sync_demo_beta < 1.0:
+            raise ValueError(f"grad_sync_demo_beta must be in [0, 1), got "
+                             f"{self.grad_sync_demo_beta}")
         if self.grad_allreduce_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown grad_allreduce_dtype {self.grad_allreduce_dtype!r}")
 

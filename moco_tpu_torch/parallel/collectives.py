@@ -1,6 +1,7 @@
-"""ShuffleBN and the gathers across processes (port of
+"""ShuffleBN, the gathers and the gradient reduces across processes (port of
 `moco_tpu/parallel/collectives.py`: `all_gather_batch`, `batch_shuffle`,
-`batch_unshuffle`, `ring_shuffle`) on `torch.distributed`.
+`batch_unshuffle`, `ring_shuffle`, `chained_psum`, `quantized_psum_mean`) on
+`torch.distributed`.
 
 Every function takes the process group (`parallel/mesh.py`); `group=None`
 is one process, where the "global batch" is the local one and nothing is
@@ -14,6 +15,14 @@ communicated.
 - `batch_unshuffle` returns the unshuffled GLOBAL batch, in rank order:
   the keys the step enqueues on every process (the JAX step gets them as
   the sharded output of its region); `local_rows` is this process's part.
+- `all_reduce_buckets` stands in for `chained_psum`: the JAX package ties
+  each bucket's psum to the one before it so that XLA issues them in a
+  fixed order; here each bucket's all-reduce is launched, in order, as soon
+  as it is called, and returns its work handle.
+- `quantized_mean` is `quantized_psum_mean`: int8 with one shared scale per
+  segment (an all-reduce MAX of the stacked absmaxes), summed on an int32
+  carrier, or bf16 summed in bf16; it returns the means and each process's
+  own quantization error, in the JAX package's order of operations.
 - Why ShuffleBN exists: with per-process BatchNorm, a query and its
   positive key normalized in one group would share batch statistics and
   leak which sample is the positive. Shuffling the key batch across
@@ -125,3 +134,82 @@ def ring_shuffle(x: torch.Tensor, group, inverse: bool = False) -> torch.Tensor:
     # process j's tail sits as part 0 on process j+2, its head as part 1 on j+1
     back_tail, back_head = _exchange([(head, -2), (tail, -1)], group)
     return torch.cat([back_head, back_tail])
+
+
+def all_reduce_buckets(flats: list[torch.Tensor], group) -> list:
+    """Launch one SUM all-reduce per flat bucket, in list order, each in
+    place and without waiting; returns the work handles (None with no
+    group). Every process must call it with the same buckets in the same
+    order."""
+    if group is None:
+        return [None] * len(flats)
+    return [dist.all_reduce(f, group=group, async_op=True) for f in flats]
+
+
+def int8_scales(segments: list[torch.Tensor], group) -> torch.Tensor:
+    """One f32 scale per segment, the same on every process: the largest
+    |value| of the segment over all processes (one all-reduce MAX of the
+    stacked absmaxes) over 127. A scale follows its segment, not the
+    bucket: a bucket spans layers whose gradients differ by orders of
+    magnitude, and one bucket-wide scale would round the small ones to 0."""
+    absmax = torch.stack([s.abs().max() for s in segments])
+    if group is not None:
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    return absmax.clamp(min=1e-30) / 127.0
+
+
+class PendingMean:
+    """A `quantized_mean` whose sum is on the wire; `wait()` returns its
+    `(means, errors)`."""
+
+    def __init__(self, work, summed, segments, qs, scales, n: int, wire_dtype: str):
+        self.work, self.summed, self.segments, self.qs = work, summed, segments, qs
+        self.scales, self.n, self.wire_dtype = scales, n, wire_dtype
+
+    def wait(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+        if self.work is not None:
+            self.work.wait()
+        summed = self.summed if self.wire_dtype == "int8" else self.summed.float()
+        means, errs, off = [], [], 0
+        for i, (s, q) in enumerate(zip(self.segments, self.qs)):
+            seg = summed[off:off + s.numel()]
+            off += s.numel()
+            if self.wire_dtype == "int8":
+                means.append(seg.float() * self.scales[i] / self.n)
+                errs.append(s - q.float() * self.scales[i])
+            else:
+                means.append(seg / self.n)
+                errs.append(s - q.float())
+        return means, errs
+
+
+def quantized_mean(segments: list[torch.Tensor], group, wire_dtype: str,
+                   async_op: bool = False):
+    """The mean over `group`'s processes of flat f32 `segments` (one per
+    gradient leaf), sent compressed; returns `(means, errors)`, or with
+    `async_op` a `PendingMean` whose one all-reduce is in flight.
+
+    `int8`: `q = clamp(round(s / scale), -127, 127)` with the shared
+    per-segment scales of `int8_scales`; the whole bucket rides one SUM on
+    an int32 carrier (a sum of n int8 values overflows int8), so the sum is
+    exact and the carrier is 4x the int8 payload the byte accounting counts;
+    `mean = sum * scale / n`. `bfloat16`: cast, one SUM in bf16, back to
+    f32, `/ n`. `errors` are this process's residuals, input minus what it
+    put on the wire: the error-feedback accumulator adds them to the next
+    step's gradient. `torch.round` rounds half to even, as `jnp.round`
+    does."""
+    n = world_size(group)
+    scales = None
+    if wire_dtype == "int8":
+        scales = int8_scales(segments, group)
+        qs = [torch.clamp(torch.round(s / scales[i]), -127, 127).to(torch.int8)
+              for i, s in enumerate(segments)]
+        flat = torch.cat(qs).to(torch.int32)
+    elif wire_dtype == "bfloat16":
+        qs = [s.to(torch.bfloat16) for s in segments]
+        flat = torch.cat(qs)
+    else:
+        raise ValueError(f"unknown quantized wire dtype {wire_dtype!r}")
+    work, = all_reduce_buckets([flat], group)
+    pending = PendingMean(work, flat, segments, qs, scales, n, wire_dtype)
+    return pending if async_op else pending.wait()

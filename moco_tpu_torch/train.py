@@ -14,6 +14,11 @@ of the gradients, BN statistics and metrics (`train_step.py`), and only
 rank 0 prints and writes (checkpoints, their sidecars, the export, the kNN
 baseline); every process restores.
 
+`grad_sync` picks the gradient sync of a process group (fused, bucketed,
+quantized, demo; `parallel/gradsync.py`) and `zero_sharding` splits the SGD
+momentum over it (`parallel/zero.py`); rank 0 prints the sync's bytes a
+step once at the start.
+
 Builds the dataset the config names (wrapped in the decode-once cache when
 `input_cache_mb` > 0; with `input_prestage` the pre-staged epoch cache of
 `data/service/prestage.py` instead, and no cache) and the state, then runs
@@ -58,6 +63,7 @@ from moco_tpu_torch.data.loader import epoch_loader
 from moco_tpu_torch.data.service.prestage import PrestagedDataset
 from moco_tpu_torch.evals.knn import build_feature_fn, encode_dataset
 from moco_tpu_torch.ops.knn import knn_accuracy
+from moco_tpu_torch.parallel.gradsync import GradSync
 from moco_tpu_torch.parallel.mesh import init_distributed, local_batch_size, process_group, \
     rank, shutdown_distributed, world_size
 from moco_tpu_torch.train_state import TrainState, create_train_state
@@ -224,10 +230,20 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
         if is_main:
             print(msg, flush=True)
 
-    state = create_train_state(config, build_encoder(config), dev, seed=config.seed)
+    # under zero_sharding the optimizer splits the momentum over the group;
+    # a restore into it keeps this process's slices (the JAX driver's
+    # shard_opt_state after the resume)
+    state = create_train_state(config, build_encoder(config), dev, seed=config.seed,
+                               group=group)
+    # the gradient sync's per-process accumulators, attached before any
+    # resume so that a restore fills them (or restarts them from zeros)
+    gradsync = GradSync(config, group)
+    gradsync.attach(state)
+    if group is not None:
+        report(f"grad_sync: {gradsync.describe(state.model_q.named_parameters())}")
     mgr = checkpoint_manager(config.ckpt_dir) if config.ckpt_dir else None
-    # every process restores the replicated state
-    state = maybe_resume(mgr, state, config.resume)
+    # every process restores the state, and its own accumulators
+    state = maybe_resume(mgr, state, config.resume, group)
     # the data-stream position: the sidecar of the restored step, else step
     # arithmetic; the resumed epoch skips the batches it already used (the
     # epoch permutation is deterministic, so batch i is the interrupted

@@ -10,10 +10,14 @@ One step, in the reference's order:
    the local slice, L2-normalize, unshuffle, all under `no_grad`;
 3. the local query forward, InfoNCE logits against the local keys and the
    queue, loss;
-4. backward; across processes the mean of the gradients (one flat
-   all-reduce, `parallel/gradsync.py`), of both encoders' BN running
-   statistics, and of the metrics; then SGD with the lr of the schedule at
-   the pre-increment step;
+4. backward; across processes the gradient sync of `config.grad_sync`
+   (`parallel/gradsync.py`: the bucketed and quantized modes launch their
+   reduces from the backward itself; the step waits on every one before
+   the optimizer), the mean of both encoders' BN running statistics and of
+   the metrics; then SGD with the lr of the schedule at the pre-increment
+   step (under ZeRO-1 each process updates its slices and one all-gather
+   makes the parameters whole again, before the enqueue and the next
+   step's EMA);
 5. enqueue the GLOBAL batch's keys AFTER the logits (a batch is never its
    own negatives), so the queue stays the same on every process.
 
@@ -112,6 +116,8 @@ def build_train_step(config, steps_per_epoch: int, group=None,
         logits, labels = infonce_logits(q, k, state.queue, temperature)
         loss = softmax_cross_entropy(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)
+        if group is not None:
+            gradsync.start(state)
         loss.backward()
         with torch.no_grad():
             logits = logits.detach()
@@ -122,7 +128,7 @@ def build_train_step(config, steps_per_epoch: int, group=None,
                        "pos_sim": pos_sim, "neg_sim": neg_sim,
                        "logit_margin": pos_sim - neg_sim}
             if group is not None:
-                gradsync.reduce_(state.model_q.parameters())
+                gradsync.finish(state)
                 # BN running statistics: their mean over processes keeps the
                 # replicas equal (in place of DDP's broadcast of rank 0's)
                 mean_tensors_([b for m in (state.model_q, state.model_k)

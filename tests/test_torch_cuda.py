@@ -857,3 +857,96 @@ def test_one_rank_nccl_step_equals_the_one_card_step(cuda, tmp_path):
     for name in ("model_q", "model_k"):
         a, b = getattr(grouped, name).state_dict(), getattr(alone, name).state_dict()
         assert all(torch.equal(a[k], b[k]) for k in b), name
+
+
+@pytest.mark.parametrize("wire", ["int8", "bfloat16"])
+def test_quantized_mean_and_demo_sync_on_the_card_equal_the_cpu(cuda, wire):
+    """With no group (one process): `quantized_mean` on the card gives the
+    CPU's means and errors bit for bit, and DeMo's `GradSync.finish` the
+    CPU's merged gradient and residues (continuous draws: no top-k ties)."""
+    from types import SimpleNamespace
+
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.parallel.collectives import quantized_mean
+    from moco_tpu_torch.parallel.gradsync import GradSync
+
+    gen = torch.Generator().manual_seed(3)
+    segs = [torch.randn(n, generator=gen) * 10.0 ** e for n, e in ((1, 0), (4097, -3),
+                                                                      (300000, -6))]
+    cpu = quantized_mean(segs, None, wire)
+    card = quantized_mean([s.to(cuda) for s in segs], None, wire)
+    for a, b in zip(cpu, card):
+        assert all(torch.equal(x, y.cpu()) for x, y in zip(a, b))
+
+    def demo(device):
+        module = torch.nn.Module()
+        acc = {}
+        for i, shape in enumerate(((64,), (256, 64, 3, 3), (2048, 128))):
+            g = torch.Generator().manual_seed(10 + i)
+            p = torch.nn.Parameter(torch.zeros(shape, device=device))
+            p.grad = torch.randn(shape, generator=g).to(device)
+            module.register_parameter(f"p{i}", p)
+            acc[f"p{i}"] = torch.randn(shape, generator=g).to(device)
+        state = SimpleNamespace(model_q=module, gradsync=acc, gradsync_mode="demo", step=0)
+        GradSync(PretrainConfig(grad_sync="demo"), None).finish(state)
+        return ({k: p.grad.cpu() for k, p in module.named_parameters()},
+                {k: a.cpu() for k, a in state.gradsync.items()})
+
+    for a, b in zip(demo("cpu"), demo(cuda)):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_one_rank_nccl_sync_modes(cuda, tmp_path):
+    """A tiny pretrain in a one-rank NCCL group, 3 steps of each mode under
+    deterministic cuDNN: `bucketed` (its reduces launched from the
+    backward's hooks) and `zero_sharding` equal `fused` bit for bit; the
+    quantized and DeMo runs give finite losses and nonzero accumulators."""
+    import numpy as np
+
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.parallel.gradsync import GradSync
+    from moco_tpu_torch.parallel.mesh import init_distributed, process_group, \
+        shutdown_distributed
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder, build_train_step
+
+    base = get_preset("imagenet-moco-v2").replace(
+        arch="resnet_tiny", image_size=32, batch_size=8, num_negatives=32, embed_dim=16,
+        compute_dtype="float32", grad_sync_bucket_mb=0.01)
+    rng = np.random.RandomState(0)
+    images = [torch.from_numpy(rng.randn(2, 8, 32, 32, 3).astype(np.float32)).to(cuda)
+              for _ in range(3)]
+
+    def run(group, **overrides):
+        config = base.replace(**overrides)
+        s = create_train_state(config, build_encoder(config), cuda, seed=0, group=group)
+        GradSync(config, group).attach(s)
+        step = build_train_step(config, steps_per_epoch=4, group=group)
+        losses = torch.stack([step(s, im[0], im[1])["loss"] for im in images])
+        return losses, s
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    init_distributed(cuda, rank=0, world_size=1, init_method=f"file://{tmp_path / 'store'}")
+    try:
+        group = process_group()
+        ref_losses, ref = run(group)
+        for overrides in (dict(grad_sync="bucketed"), dict(zero_sharding=True)):
+            losses, s = run(group, **overrides)
+            assert torch.equal(losses, ref_losses), overrides
+            assert torch.equal(s.queue, ref.queue), overrides
+            for name in ("model_q", "model_k"):
+                a, b = getattr(s, name).state_dict(), getattr(ref, name).state_dict()
+                assert all(torch.equal(a[k], b[k]) for k in b), (overrides, name)
+            sa, sb = s.optimizer.state_dict()["state"], ref.optimizer.state_dict()["state"]
+            assert all(torch.equal(sa[i]["momentum_buffer"], sb[i]["momentum_buffer"])
+                       for i in sb), overrides
+        for overrides in (dict(grad_sync="quantized"),
+                          dict(grad_sync="quantized", grad_sync_quant_dtype="bfloat16"),
+                          dict(grad_sync="demo", grad_sync_cadence=2)):
+            losses, s = run(group, **overrides)
+            assert bool(torch.isfinite(losses).all()), overrides
+            assert any(bool(a.any()) for a in s.gradsync.values()), overrides
+    finally:
+        shutdown_distributed()
+        torch.backends.cudnn.deterministic = deterministic

@@ -243,9 +243,9 @@ def test_two_rank_train_shards_crops_checkpoint_and_resume(tmp_path):
 
 
 @pytest.mark.parametrize("field, value, match", [
-    ("grad_sync", "bucketed", "queue A item 3"),
-    ("grad_sync", "quantized", "queue A item 3"),
-    ("grad_sync", "demo", "queue A item 3"),
+    ("grad_sync_bucket_mb", -1.0, "grad_sync_bucket_mb"),
+    ("grad_sync_quant_dtype", "fp8", "unknown grad_sync_quant_dtype"),
+    ("grad_sync_cadence", -2, "grad_sync_cadence"),
     ("grad_sync", "nope", "unknown grad_sync"),
     ("grad_allreduce_dtype", "int8", "unknown grad_allreduce_dtype"),
     ("shuffle_mode", "swap", "unknown shuffle_mode"),

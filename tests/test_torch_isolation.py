@@ -45,13 +45,14 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
     assert proc.returncode == 0, proc.stderr
     expected = list(pkgutil.walk_packages(moco_tpu_torch.__path__, "moco_tpu_torch."))
     assert int(proc.stdout.strip()) == len(expected) >= 15
-    # the checkpoint, evaluation, data-parallel, prestage and export modules
-    # are among those probed
+    # the checkpoint, evaluation, data-parallel (ZeRO-1 included), prestage
+    # and export modules are among those probed
     assert {"moco_tpu_torch.checkpoint", "moco_tpu_torch.resilience.integrity",
             "moco_tpu_torch.ops.knn", "moco_tpu_torch.utils.meters",
             "moco_tpu_torch.evals.knn", "moco_tpu_torch.evals.lincls",
             "moco_tpu_torch.parallel.mesh", "moco_tpu_torch.parallel.collectives",
-            "moco_tpu_torch.parallel.gradsync", "moco_tpu_torch.data.service.prestage",
+            "moco_tpu_torch.parallel.gradsync", "moco_tpu_torch.parallel.zero",
+            "moco_tpu_torch.data.service.prestage",
             "moco_tpu_torch.export_detectron2"} <= {m.name for m in expected}
 
 

@@ -143,7 +143,9 @@ class IndexedImages:
 def run_train(config_kw: dict, out_dir: str, name: str, max_steps: int,
               n_images: int) -> None:
     """`train()` on `IndexedImages`, recording each step's source indices
-    and both views; saves them with the final state."""
+    and both views; saves them with the final state (the optimizer's in
+    the plain SGD's layout, and this process's gradient-sync
+    accumulators)."""
     import moco_tpu_torch.train as driver
     from moco_tpu_torch.config import PretrainConfig
 
@@ -165,7 +167,8 @@ def run_train(config_kw: dict, out_dir: str, name: str, max_steps: int,
     torch.save({"seen": seen, "views": views, "history": history, "step": state.step,
                 "q": state.model_q.state_dict(), "k": state.model_k.state_dict(),
                 "queue": state.queue.clone(), "queue_ptr": state.queue_ptr,
-                "optimizer": state.optimizer.state_dict()},
+                "optimizer": state.optimizer.state_dict(),
+                "gradsync": {k: v.clone() for k, v in state.gradsync.items()}},
                _out(out_dir, name))
 
 
@@ -191,3 +194,83 @@ def run_main(argv: list, out_dir: str) -> None:
     path = os.path.join(out_dir, f"main_rank{os.environ['RANK']}.txt")
     with open(path, "w") as f, contextlib.redirect_stdout(f):
         train.main(argv)
+
+
+def run_modes(inputs: str, out_dir: str) -> None:
+    """For each `(name, config overrides, steps, snapshots)` of `inputs`'
+    runs: the port's state from its seed, the gradient sync's accumulators
+    attached, `steps` steps on this process's rows of the saved images;
+    saves the losses, both encoders, the queue, the full optimizer state,
+    the accumulators, the momentum bytes this process holds, and (with
+    `snapshots`) the query encoder after each step."""
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.parallel.gradsync import GradSync
+    from moco_tpu_torch.parallel.mesh import rank, world_size
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder, build_train_step
+
+    data = torch.load(inputs, weights_only=False)
+    group = _group()
+    n, r = world_size(group), rank(group)
+    for name, overrides, steps, snapshots in data["runs"]:
+        config = PretrainConfig(**{**data["config"], **overrides})
+        state = create_train_state(config, build_encoder(config), "cpu", seed=0, group=group)
+        GradSync(config, group).attach(state)
+        step = build_train_step(config, data["steps_per_epoch"], group=group)
+        losses, snaps = [], []
+        for im_q, im_k in data["images"][:steps]:
+            b = im_q.shape[0] // n
+            m = step(state, im_q[r * b:(r + 1) * b], im_k[r * b:(r + 1) * b])
+            losses.append(float(m["loss"]))
+            if snapshots:
+                snaps.append({k: v.clone() for k, v in state.model_q.state_dict().items()})
+        optimizer = state.optimizer
+        momentum_bytes = (optimizer.momentum_bytes() if hasattr(optimizer, "momentum_bytes")
+                          else sum(s["momentum_buffer"].numel() * 4
+                                   for s in optimizer.state.values()))
+        torch.save({"metrics": losses, "q": state.model_q.state_dict(),
+                    "k": state.model_k.state_dict(), "queue": state.queue.clone(),
+                    "queue_ptr": state.queue_ptr, "optimizer": optimizer.state_dict(),
+                    "gradsync": {k: v.clone() for k, v in state.gradsync.items()},
+                    "momentum_bytes": momentum_bytes, "snapshots": snaps},
+                   _out(out_dir, name))
+
+
+def run_functions(inputs: str, out_dir: str) -> None:
+    """The reduces of `parallel/collectives.py` and DeMo's sync of
+    `parallel/gradsync.py` on this process's slices of the saved per-rank
+    inputs: `quantized_mean` in int8 (with its int32 sum and each
+    segment's int8 values) and bf16, the starvation bucket (0.1 and 1e-5
+    leaves), and `GradSync.finish` of mode demo at step 0 on a module whose
+    gradients and accumulators are the saved ones."""
+    from types import SimpleNamespace
+
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.parallel.collectives import quantized_mean
+    from moco_tpu_torch.parallel.gradsync import GradSync
+    from moco_tpu_torch.parallel.mesh import rank
+
+    data = torch.load(inputs, weights_only=False)
+    group = _group()
+    r = rank(group)
+    segs = [torch.from_numpy(a[r].copy()) for a in data["segments"]]
+    out = {}
+    for wire in ("int8", "bfloat16"):
+        pending = quantized_mean(segs, group, wire, async_op=True)
+        means, errs = pending.wait()
+        out[wire] = {"means": means, "errs": errs, "summed": pending.summed,
+                     "qs": pending.qs}
+    out["starve"] = quantized_mean([torch.full((64,), 0.1), torch.full((64,), 1e-5)], group,
+                                   "int8")[0]
+    module = torch.nn.Module()
+    for name, g in data["demo_grads"].items():
+        module.register_parameter(name, torch.nn.Parameter(torch.zeros(g.shape[1:])))
+        getattr(module, name).grad = torch.from_numpy(g[r].copy())
+    state = SimpleNamespace(model_q=module, gradsync_mode="demo", step=0, gradsync={
+        name: torch.from_numpy(a[r].copy()) for name, a in data["demo_acc"].items()})
+    config = PretrainConfig(grad_sync="demo", grad_sync_topk=data["topk"],
+                            grad_sync_demo_beta=data["beta"])
+    GradSync(config, group).finish(state)
+    out["demo"] = {"delta": {n: p.grad.clone() for n, p in module.named_parameters()},
+                   "acc": {n: a.clone() for n, a in state.gradsync.items()}}
+    torch.save(out, _out(out_dir, "functions"))
