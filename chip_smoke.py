@@ -79,6 +79,30 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             chip_smoke.py --phase7` the script builds the kernels and runs
             phase 7 alone, one process per card, and prints its results as
             one JSON line.
+8.  phase8  the MoCo-v3 path, right after phase 7 on its data: (a)
+            `imagenet-moco-v3-vits` (ViT-S/16, 224 px, bf16, the 4096 ->
+            256 heads, AdamW, the momentum ramp, the asymmetric view pair)
+            at batch 512 through `train.train`, 4 steps and one profiled
+            (imgs/s, peak memory, busy/wall, the attention core's share, the
+            blur's 2 launches a step; remat off), and the port's AdamW step
+            over its parameters timed against `torch.optim.AdamW(fused=True)`;
+            (b) `imagenet-moco-v3-r50` (LARS, T=1, crop-min 0.2) at batch
+            256, 3 steps, with the BN pair's 212 + 106 and the blur's 2
+            launches a step. In every v3 run the blur's launches of the first
+            step (view 1 after normalize, view 2 on the [0, 1] image before
+            solarize) are kept with their inputs and held against the f32
+            plain version on those inputs, within one bf16 ulp; (c) the v3
+            view pair from the same draws on the card (the blur kernel) and
+            the CPU, with a wrong blur (the taps of the next sample) as the
+            control the tolerance must catch, then a ViT-S step at batch 16
+            in f32 on both from the same views and weights (loss, keys,
+            gradient norms); (d) (a)'s backbone exported in the timm
+            dialect, reloaded by `load_for_inference("vit_small")` bit for
+            bit, and 4 `imagenet-lincls-v3` probe steps on it; (e) ViT-S at
+            batch 128, 3 steps, in a one-rank NCCL group and with none, bit
+            for bit. `python3 chip_smoke.py --phase8` runs phase 8 alone;
+            under `torchrun --nproc-per-node <cards> chip_smoke.py --phase8`
+            it runs (a) over every card at 1024 a card, remat on.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -332,6 +356,21 @@ def blur_library(images, taps, radius: int):
     return F.conv2d(y, k.view(b * 3, 1, 1, -1), groups=b * 3)
 
 
+def identity_rows(taps, radius: int):
+    """The samples whose taps are exactly the one-hot identity. A small
+    sigma also rounds its centre tap to 1.0, but its outer taps stay about
+    1e-22 and move a zero pixel off zero."""
+    return (taps[:, radius] == 1.0) & (taps.count_nonzero(dim=1) == 1)
+
+
+def bf16_ulp(ref):
+    """One bf16 ulp of an f32 reference, floored at that of 2^-8: f32
+    reassociation over 23 taps of |x| <= 5 stays below 1e-5."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=2.0**-8))) - 7)
+
+
 def check_blur_kernel(blur) -> dict:
     """gaussian_blur_batch at the step's shape ([256, 224, 224, 3] bf16,
     R = 11, on the R = 11 instantiation): within one bf16 ulp of the f32
@@ -355,14 +394,12 @@ def check_blur_kernel(blur) -> dict:
         fail("gaussian_blur_batch gave other bits on a second run", 1)
     got = got.float()
     ref = blur.gaussian_blur_batch_plain(images.float(), taps, radius)  # f32, unrounded
-    # one bf16 ulp of the reference (ulp floored at that of 2^-8: f32
-    # reassociation over 23 taps of |x| <= 5 stays below 1e-5)
-    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=2.0**-8))) - 7)
+    ulp = bf16_ulp(ref)
     diff = (got - ref).abs()
     if not bool((diff <= ulp).all()):
         fail(f"gaussian_blur_batch disagrees: {int((diff > ulp).sum())} values beyond "
              f"one bf16 ulp (max abs {float(diff.max()):.3e})", 1)
-    ident = taps[:, radius] == 1.0
+    ident = identity_rows(taps, radius)
     if not torch.equal(got[ident], images[ident].float()):
         fail("gaussian_blur_batch changed a sample whose taps are the identity", 1)
     err = float(diff.max())
@@ -1604,6 +1641,530 @@ def run_checkpoint_and_evals(counters: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoCo-v3 path
+# ---------------------------------------------------------------------------
+
+V3_BATCH = 512              # (a) ViT-S/16: the preset's 4096 over its 8-chip reference
+V3_STEPS = 4                # (a): steps through train.train, then one profiled step
+V3_R50_BATCH = 256          # (b) ResNet-50 leg
+V3_R50_STEPS = 3
+V3_CPU_BATCH = 16           # (c) card vs CPU
+V3_GROUP_BATCH = 128        # (e) one-rank NCCL group vs no group
+V3_GROUP_STEPS = 3
+V3_PROBE_STEPS = 4          # (d) imagenet-lincls-v3 probe steps on the export
+V3_RANK_BATCH = 1024        # --phase8 under torchrun: the preset's 4096 over four cards
+# launches a v3 step: the blur on view 1 (after normalize) and on view 2
+# (before solarize); the ResNet-50 leg's 53 BNs in four forwards (k1, k2,
+# q1, q2) and the backward of the two query forwards
+V3_VIT_PER_STEP = {"gaussian_blur_batch": 2}
+V3_R50_PER_STEP = {"channel_sums": 4 * 53, "channel_grad_sums": 2 * 53,
+                   "gaussian_blur_batch": 2}
+V3_CPU_RTOL = 1e-4          # (c): of each tensor's largest entry (f32 sums in other orders)
+V3_GRAD_RTOL = 1e-3         # (c): gradient norms
+# (c): the views. The crop's source positions run to 224 in f32, where one
+# ulp is 1.5e-5, and resample a little differently on the two devices: on
+# an H100 the views differ by 1.1e-4 / 1.8e-4 of their largest entry, and
+# by as much with identity taps, before any blur (both printed by (c)). A
+# wrong blur must land beyond 10x this: the control in `run_v3` checks it.
+V3_VIEW_RTOL = 5e-4
+# the attention core: the q.k and p.v batched products and the softmax, both ways
+ATTENTION_OPS = ("aten::bmm", "aten::_softmax", "aten::_softmax_backward_data")
+
+
+class _Repeat:
+    """`n` samples cycling through a dataset's."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n, self.num_classes = dataset, n, dataset.num_classes
+
+    def __len__(self) -> int:
+        return self.n
+
+    def get_batch(self, indices):
+        import numpy as np
+
+        return self.dataset.get_batch(np.asarray(indices) % len(self.dataset))
+
+
+def _v3_train(config, label: str, counters: dict, dataset, steps: int,
+              per_step: dict, calls: dict | None = None, device="cuda") -> dict:
+    """`train.train` for `steps` steps of a v3 config, every print step's
+    metrics kept; each kernel's launches must be its per-step count (0 for
+    one not in `per_step`) times `steps`. `calls`: NCCL call names to count
+    (in place)."""
+    import torch
+    import torch.distributed as dist
+
+    from moco_tpu_torch import train
+    from moco_tpu_torch.data import augment
+
+    rows = []
+    kernel, seen = augment.gaussian_blur_batch, []
+    first = per_step.get("gaussian_blur_batch", 0)
+
+    def blur_kept(images, taps, radius):
+        # the path's own call; the first step's launches kept on the host
+        out = kernel(images, taps, radius)
+        if len(seen) < first:
+            seen.append((images.cpu(), taps.cpu(), radius, out.cpu()))
+        return out
+
+    def on_step(step, metrics, seconds):
+        rows.append(dict(step=step, seconds=seconds, **metrics))
+        print(f"{label} step {step}: loss {metrics['loss']:.6f} acc1 {metrics['acc1']:.3f} "
+              f"pos_sim {metrics['pos_sim']:.4f} lr {metrics['lr']:.6g} momentum "
+              f"{metrics['momentum']:.6f} step_s {seconds:.4f} imgs_s "
+              f"{config.batch_size / seconds:.1f}", flush=True)
+
+    real = {name: getattr(dist, name) for name in (calls or {})}
+
+    def counting(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return real[name](*args, **kw)
+        return call
+
+    for fn in counters.values():
+        fn.launches = 0
+    for name in real:
+        setattr(dist, name, counting(name))
+    augment.gaussian_blur_batch = blur_kept
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state, history = train.train(config, max_steps=steps, device=device, dataset=dataset,
+                                     on_step=on_step)
+    finally:
+        augment.gaussian_blur_batch = kernel
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name in counters:
+        if launches[name] != per_step.get(name, 0) * steps:
+            fail(f"{label}: {name} launched {launches[name]} times in {steps} steps, expected "
+                 f"{per_step.get(name, 0) * steps}", 1)
+    losses = [h["loss"] for h in history]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: non-finite or missing losses {losses}", 1)
+    steady = [r["seconds"] for r in rows[1:]]
+    max_memory_gib = torch.cuda.max_memory_allocated() / 2**30
+    if len(seen) != first:
+        fail(f"{label}: kept {len(seen)} blur launches of the first step, expected {first}", 1)
+    blur = _hold_blur(seen, label, device)
+    return dict(state=state, losses=losses, launches=launches, rows=rows, blur=blur,
+                max_memory_gib=max_memory_gib,
+                imgs_per_s=(config.batch_size * len(steady) / sum(steady)
+                            if steady else math.nan))
+
+
+def _hold_blur(seen: list, label: str, device) -> list[dict]:
+    """A v3 run's blur launches on their own inputs (`_v3_train` keeps the
+    first step's: view 1's normalized image, view 2's [0, 1] image before
+    solarize), each output against the f32 plain version on the same input
+    and taps: every value within one bf16 ulp (`check_blur_kernel`'s rule),
+    the samples whose taps are the identity unchanged."""
+    import torch
+
+    from moco_tpu_torch.ops import blur
+
+    out = []
+    for i, (images, taps, radius, got) in enumerate(seen):
+        images, taps, got = images.to(device), taps.to(device), got.to(device)
+        if got.dtype != torch.bfloat16 or got.shape != images.shape:
+            fail(f"{label}: blur launch {i + 1} gave {got.dtype} {list(got.shape)} for "
+                 f"{images.dtype} {list(images.shape)}, expected bf16 of the input's shape", 1)
+        ref = blur.gaussian_blur_batch_plain(images.float(), taps, radius)
+        diff = (got.float() - ref).abs()
+        bad = int((diff > bf16_ulp(ref)).sum())
+        if bad:
+            fail(f"{label}: blur launch {i + 1} {list(images.shape)} disagrees with its plain "
+                 f"version on the path's own input: {bad} values beyond one bf16 ulp (max abs "
+                 f"{float(diff.max()):.3e})", 1)
+        ident = identity_rows(taps, radius)
+        if not torch.equal(got[ident], images[ident]):
+            fail(f"{label}: blur launch {i + 1} changed a sample whose taps are the identity", 1)
+        out.append(dict(shape=list(images.shape), lo=float(images.min()),
+                        hi=float(images.max()), blurred=int((~ident).sum()),
+                        max_abs_err=float(diff.max())))
+        del ref, diff
+    torch.cuda.empty_cache()
+    print(f"{label}: the blur on the path's own inputs, first step, within one bf16 ulp of "
+          f"the f32 plain version: " + "; ".join(
+              f"view {i + 1} {r['shape']} in [{r['lo']:.4f}, {r['hi']:.4f}], {r['blurred']} "
+              f"samples blurred, max abs err {r['max_abs_err']:.3e}"
+              for i, r in enumerate(out)), flush=True)
+    return out
+
+
+def _v3_profile(config, state, dataset, label: str, counters: dict, per_step: dict,
+                device="cuda") -> dict:
+    """One steady v3 step under torch.profiler (an unprofiled one first),
+    fed by `epoch_loader` with its batch staged: device busy against the
+    step's wall time (from taking the batch to the metrics on the host),
+    time by category and the attention core's share. In a process group,
+    this process's rows of the global batch, as `train.train` runs them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from moco_tpu_torch.data.augment import aug_config_for, two_crops
+    from moco_tpu_torch.data.loader import epoch_loader
+    from moco_tpu_torch.parallel.mesh import process_group, rank, world_size
+    from moco_tpu_torch.train import host_metrics
+    from moco_tpu_torch.train_step import build_train_step
+
+    group = process_group()
+    n, me = world_size(group), rank(group)
+    b = config.batch_size
+    local = b // n
+    rows = None if group is None else (me * local, b)
+    step_fn = build_train_step(config, steps_per_epoch=len(dataset) // b, group=group)
+    gen = torch.Generator(device=device).manual_seed(7)
+    aug_cfg = aug_config_for(config)
+    loader = epoch_loader(dataset, 99, config.seed, b, device, depth=2, workers=4,
+                          num_processes=n, process_index=me)
+    try:
+        batches = iter(loader)
+        images, _, extents = next(batches)
+        host_metrics(step_fn(state, *two_crops(images, aug_cfg, gen, extents, rows)))
+        deadline = time.time() + 120
+        while loader.qsize() == 0 and time.time() < deadline:
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            images, _, extents = next(batches)
+            x1, x2 = two_crops(images, aug_cfg, gen, extents, rows)
+            metrics = host_metrics(step_fn(state, x1, x2))
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        loader.close_quietly()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if any(launches[name] != per_step.get(name, 0) for name in counters):
+        fail(f"{label} profile: the profiled step launched {launches}, expected {per_step}", 1)
+    if not math.isfinite(metrics["loss"]):
+        fail(f"{label} profile: loss {metrics['loss']}", 1)
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda and e.device_time_total > 0]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    if not kernels:
+        print(f"{label} profile: the profiler recorded no device time (not measured)",
+              flush=True)
+        return dict(busy_ms=math.nan, wall_ms=wall_ms, attention_ms=math.nan)
+    categories = {"port kernels": ("channel_sums_rows", "channel_grad_sums_rows", "blur_rows"),
+                  "matmul": ("gemm", "cublas", "cutlass", "sm90_xmma", "nvjet"),
+                  "softmax": ("softmax",),
+                  "layer norm": ("layer_norm", "layernorm"),
+                  "convolution": ("conv", "cudnn", "fprop", "dgrad", "wgrad"),
+                  "elementwise": ("elementwise", "foreach", "multi_tensor"),
+                  "reduction": ("reduce", "sort", "scan")}
+    totals = dict.fromkeys([*categories, "other"], 0.0)
+    for e in kernels:
+        name = e.key.lower()
+        cat = next((c for c, keys in categories.items() if any(k in name for k in keys)),
+                   "other")
+        totals[cat] += e.device_time_total / 1e3
+    attention_ms = sum(e.self_device_time_total for e in events
+                       if e.key in ATTENTION_OPS) / 1e3
+    blur = [e for e in kernels if "blur_rows" in e.key]
+    print(f"{label} profile: one step, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), idle {wall_ms - busy_ms:.2f} ms; blur_rows "
+          f"{sum(e.count for e in blur)} launches {sum(e.device_time_total for e in blur) / 1e3:.3f}"
+          f" ms; attention core (bmm + softmax, both ways) {attention_ms:.2f} ms "
+          f"({100 * attention_ms / busy_ms:.1f}%)", flush=True)
+    print(f"{label} profile by category (ms): " + ", ".join(
+        f"{c} {t:.2f} ({100 * t / busy_ms:.1f}%)" for c, t in totals.items()), flush=True)
+    for e in sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:12]:
+        print(f"{label} profile kernel {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:110]}", flush=True)
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, attention_ms=attention_ms,
+                categories=totals)
+
+
+def _v3_vits(counters: dict, dataset, batch: int, steps: int, label: str,
+             remat: bool = False, device="cuda") -> tuple:
+    """(a): `imagenet-moco-v3-vits` at `batch` for `steps` steps and a
+    profiled one."""
+    from moco_tpu_torch.config import get_preset
+
+    config = get_preset("imagenet-moco-v3-vits").replace(
+        dataset="synthetic", batch_size=batch, staging_workers=4, prefetch_depth=2,
+        print_freq=1, remat=remat)
+    data = _Repeat(dataset, batch * (steps + 1))
+    r = _v3_train(config, label, counters, data, steps, V3_VIT_PER_STEP, device=device)
+    prof = _v3_profile(config, r["state"], data, label, counters, V3_VIT_PER_STEP, device)
+    return config, r, prof
+
+
+def _time_adamw(state, label: str) -> dict:
+    """The port's AdamW (`ops/optim.py`, optax's f32 bias corrections) and
+    `torch.optim.AdamW(fused=True)` (one fused kernel, f64 corrections),
+    each stepping its own copy of `state`'s optimized parameters with the
+    same gradients: ms a step (CUDA events) against the bound, each
+    parameter, gradient and both moments read once and the parameter and
+    moments written once (7 x 4 bytes a parameter)."""
+    import torch
+
+    from moco_tpu_torch.ops.optim import AdamW
+
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    gen = torch.Generator(device=params[0].device).manual_seed(5)
+    grads = [torch.randn(p.shape, generator=gen, device=p.device) * 1e-3 for p in params]
+
+    def copies():
+        ps = [p.detach().clone().requires_grad_() for p in params]
+        for p, g in zip(ps, grads):
+            p.grad = g
+        return ps
+
+    own = AdamW(copies(), lr=1e-4, weight_decay=0.1)
+    fused = torch.optim.AdamW(copies(), lr=1e-4, weight_decay=0.1, fused=True)
+    n = sum(p.numel() for p in params)
+    r = dict(parameters=n, tensors=len(params), own_ms=time_ms(own.step, 20),
+             fused_ms=time_ms(fused.step, 20), bound_ms=bound(7 * 4 * n, 0)[0])
+    print(f"{label} AdamW over {n} parameters in {len(params)} tensors: the port's "
+          f"{r['own_ms']:.4f} ms a step, torch.optim.AdamW(fused=True) {r['fused_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms (bytes)", flush=True)
+    del own, fused, grads
+    torch.cuda.empty_cache()
+    return r
+
+
+def run_v3(counters: dict, dataset, smi: str) -> dict:
+    """Phase 8, the MoCo-v3 path on the card (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from moco_tpu_torch import checkpoint as ckpt
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.data.augment import apply_view, sample_view, v3_aug_configs
+    from moco_tpu_torch.evals import lincls
+    from moco_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder, build_train_step
+
+    out = {}
+    # (a) ViT-S/16 at full width and depth, bf16, AdamW, the ramp, the pair
+    config, r, prof = _v3_vits(counters, dataset, V3_BATCH, V3_STEPS, "phase8 vits")
+    out["vits"] = dict(batch=V3_BATCH, remat=config.remat, imgs_per_s=r["imgs_per_s"],
+                       max_memory_gib=r["max_memory_gib"], losses=r["losses"],
+                       blur_per_step=r["launches"]["gaussian_blur_batch"] / V3_STEPS, **{
+                           k: prof[k] for k in ("busy_ms", "wall_ms", "attention_ms")})
+    print(f"phase8 vits: ViT-S/16 224 px bf16 batch {V3_BATCH} (remat {config.remat}), "
+          f"{r['imgs_per_s']:.1f} imgs/s over steps 2-{V3_STEPS}, peak memory "
+          f"{r['max_memory_gib']:.2f} GiB, profiled step busy/wall {prof['busy_ms']:.2f}/"
+          f"{prof['wall_ms']:.2f} ms, blur launches a step "
+          f"{out['vits']['blur_per_step']:.0f} ({smi})", flush=True)
+    vits_state = r["state"]
+    out["vits"]["blur"] = r["blur"]
+    out["adamw"] = _time_adamw(vits_state, "phase8 vits")
+
+    # (b) the ResNet-50 leg: LARS, T=1, crop-min 0.2, B=256
+    r50 = get_preset("imagenet-moco-v3-r50").replace(
+        dataset="synthetic", batch_size=V3_R50_BATCH, staging_workers=4, prefetch_depth=2,
+        print_freq=1)
+    r = _v3_train(r50, "phase8 r50", counters, dataset, V3_R50_STEPS, V3_R50_PER_STEP)
+    out["r50"] = dict(imgs_per_s=r["imgs_per_s"], max_memory_gib=r["max_memory_gib"],
+                      losses=r["losses"], blur=r["blur"], per_step={
+                          k: v / V3_R50_STEPS for k, v in r["launches"].items() if v})
+    print(f"phase8 r50: ResNet-50 LARS bf16 batch {V3_R50_BATCH}, {r['imgs_per_s']:.1f} imgs/s "
+          f"over steps 2-{V3_R50_STEPS}, peak memory {r['max_memory_gib']:.2f} GiB, launches a "
+          f"step {out['r50']['per_step']} ({smi})", flush=True)
+    del r
+
+    # (c) one v3 ViT-S step at batch 16, f32: card (the blur kernel) vs CPU
+    # (its plain version), from the same weights and the same draws
+    cfg = get_preset("imagenet-moco-v3-vits").replace(compute_dtype="float32",
+                                                      batch_size=V3_CPU_BATCH)
+    rng = np.random.RandomState(0)
+    u8 = torch.from_numpy(rng.randint(0, 256, (V3_CPU_BATCH, 224, 224, 3), dtype=np.uint8))
+    gen = torch.Generator().manual_seed(3)
+    ext = torch.full((V3_CPU_BATCH,), 224.0)
+    pair = v3_aug_configs(224)
+    draws = [sample_view(ext, ext, c, gen) for c in pair]
+
+    def on(p, dev, **changed):
+        return type(p)(**{k: None if v is None else v.to(dev)
+                          for k, v in {**vars(p), **changed}.items()})
+
+    def identity(taps):
+        one = torch.zeros_like(taps)
+        one[:, taps.shape[1] // 2] = 1.0
+        return one
+
+    res, views, unblurred = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        before = counters["gaussian_blur_batch"].launches
+        views[dev] = [apply_view(u8.to(dev), on(p, dev), c) for p, c in zip(draws, pair)]
+        if dev == "cuda" and counters["gaussian_blur_batch"].launches != before + 2:
+            fail("phase8 check: the card's views did not launch the blur twice", 1)
+        # the same draws with identity taps: crop, jitter, solarize and
+        # normalize alone, to show where the devices' difference arises
+        unblurred[dev] = [apply_view(u8.to(dev), on(p, dev, blur_taps=identity(p.blur_taps)), c)
+                          for p, c in zip(draws, pair)]
+    for i in range(2):
+        ref = views["cpu"][i]
+        err = float((views["cuda"][i].cpu() - ref).abs().max() / ref.abs().max())
+        if err > V3_VIEW_RTOL:
+            fail(f"phase8 check: card and CPU disagree on view {i + 1}: {err:.3e} of its "
+                 "largest entry", 1)
+        out[f"view{i + 1}_err"] = err
+        out[f"view{i + 1}_unblurred_err"] = float(
+            (unblurred["cuda"][i].cpu() - unblurred["cpu"][i]).abs().max() / ref.abs().max())
+    # the control: view 1 on the CPU with each sample blurred by the next
+    # sample's taps, which the tolerance must tell from the card's view
+    wrong = type(draws[0])(**{**vars(draws[0]), "blur_taps": draws[0].blur_taps.roll(1, 0)})
+    ref = views["cpu"][0]
+    control = float((views["cuda"][0].cpu() - apply_view(u8, wrong, pair[0])).abs().max()
+                    / ref.abs().max())
+    if control <= 10 * V3_VIEW_RTOL:
+        fail(f"phase8 check: a wrong blur is {control:.3e} of the largest entry from the "
+             f"card's view 1, not beyond 10x the tolerance {V3_VIEW_RTOL:.0e}", 1)
+    out["view_control_err"] = control
+    for dev in ("cpu", "cuda"):
+        # the same (CPU) views into both steps: the step's own agreement
+        x1, x2 = (v.to(dev) for v in views["cpu"])
+        state = create_train_state(cfg, build_encoder(cfg), dev, seed=0)
+        metrics = build_train_step(cfg, steps_per_epoch=8)(state, x1, x2)
+        with torch.no_grad():
+            keys = torch.nn.functional.normalize(state.model_k(x1), dim=1)
+        grads = {part: torch.stack([p.grad.norm() for p in
+                                    getattr(state.model_q, part).parameters()
+                                    if p.grad is not None]).norm().reshape(1)
+                 for part in ("backbone", "projector", "predictor")}
+        res[dev] = {k: v.detach().cpu() for k, v in dict(
+            loss=metrics["loss"].reshape(1), keys=keys,
+            **{f"grad_norm:{k}": v for k, v in grads.items()}).items()}
+    worst = (0.0, "")
+    for key, ref in res["cpu"].items():
+        err = float((res["cuda"][key] - ref).abs().max() / ref.abs().max().clamp(min=1e-12))
+        if err > (V3_GRAD_RTOL if key.startswith("grad_norm") else V3_CPU_RTOL):
+            fail(f"phase8 check: card and CPU disagree on {key}: {err:.3e} of its largest "
+                 "entry", 1)
+        worst = max(worst, (err, key))
+    print(f"phase8 check: the v3 view pair at 224 px f32 batch {V3_CPU_BATCH} from the same "
+          f"draws, card (blur kernel) vs cpu, {out['view1_err']:.3e} / {out['view2_err']:.3e} "
+          f"of the largest entry (tolerance {V3_VIEW_RTOL:.0e}; with identity taps "
+          f"{out['view1_unblurred_err']:.3e} / {out['view2_unblurred_err']:.3e}; view 1 with "
+          f"the next sample's taps, the control: {control:.3e}); a v3 ViT-S/16 step on the same views and weights over "
+          f"{len(res['cpu'])} tensors, worst {worst[0]:.3e} ({worst[1]}); loss "
+          f"{float(res['cuda']['loss'][0]):.6f} vs {float(res['cpu']['loss'][0]):.6f}",
+          flush=True)
+    out["check_worst"] = worst[0]
+    del res, views
+
+    # (d) the timm export of (a), reloaded bit for bit, and the v3 probe on it
+    with tempfile.TemporaryDirectory(prefix="moco_v3_") as tmp:
+        path = str(Path(tmp) / "vits_timm.npz")
+        flat = ckpt.export_v3_backbone(vits_state, path)
+        model = ckpt.load_for_inference(path, "vit_small", device="cuda")
+        want = vits_state.model_q.backbone.state_dict()
+        got = model.state_dict()
+        bad = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        if bad or want.keys() != got.keys():
+            fail(f"phase8 export: the reloaded backbone differs at {bad[:5]}", 1)
+        probe = get_preset("imagenet-lincls-v3").replace(
+            pretrained=path, dataset="synthetic", batch_size=V3_R50_BATCH, epochs=1,
+            print_freq=1)
+        losses = []
+        fc, best = lincls.train_lincls(
+            probe, max_steps=V3_PROBE_STEPS, device="cuda",
+            dataset=_Repeat(dataset, V3_R50_BATCH * V3_PROBE_STEPS),
+            val_dataset=_Head(dataset, V3_R50_BATCH),
+            on_step=lambda step, m: losses.append(m["loss"]))
+        if len(losses) != V3_PROBE_STEPS or not all(math.isfinite(v) for v in losses):
+            fail(f"phase8 probe: losses {losses}", 1)
+        print(f"phase8 export: {len(flat)} timm entries, {Path(path).stat().st_size} bytes, "
+              f"reloaded by load_for_inference('vit_small') equal bit for bit over "
+              f"{len(want)} tensors; imagenet-lincls-v3 probe {V3_PROBE_STEPS} steps (batch "
+              f"{V3_R50_BATCH}, 1000 classes) losses {[round(v, 4) for v in losses]}, val "
+              f"acc@1 {best:.2f}", flush=True)
+    del vits_state
+
+    # (e) the v3 step in a one-rank NCCL group = no group, bit for bit
+    group_cfg = get_preset("imagenet-moco-v3-vits").replace(
+        dataset="synthetic", batch_size=V3_GROUP_BATCH, staging_workers=4, prefetch_depth=2,
+        print_freq=1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        calls = dict.fromkeys(NCCL_CALLS, 0)
+        alone = _v3_train(group_cfg, "phase8 no group", counters, dataset, V3_GROUP_STEPS,
+                          V3_VIT_PER_STEP)
+        with tempfile.TemporaryDirectory(prefix="moco_nccl_") as tmp:
+            init_distributed("cuda", rank=0, world_size=1,
+                             init_method=f"file://{Path(tmp) / 'store'}")
+            try:
+                grouped = _v3_train(group_cfg, "phase8 one-rank NCCL group", counters, dataset,
+                                    V3_GROUP_STEPS, V3_VIT_PER_STEP, calls)
+            finally:
+                shutdown_distributed()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want_calls = {**dict.fromkeys(NCCL_CALLS, 0), "all_gather": 2 * V3_GROUP_STEPS,
+                  "all_reduce": 3 * V3_GROUP_STEPS}
+    if calls != want_calls:
+        fail(f"phase8 group: NCCL calls {calls}, expected {want_calls} (both views' keys "
+             "gathered; gradients, BN statistics and metrics all-reduced)", 1)
+    diff = _v3_states_differ(grouped["state"], alone["state"])
+    if grouped["losses"] != alone["losses"]:
+        diff.append(f"losses {grouped['losses']} != {alone['losses']}")
+    if diff:
+        fail(f"phase8 group: one-rank group and no group differ in {diff[:6]}", 1)
+    print(f"phase8 group: v3 ViT-S batch {V3_GROUP_BATCH}, {V3_GROUP_STEPS} steps, one-rank NCCL "
+          f"group = no group bit for bit (losses, both models, AdamW moments, generators); "
+          f"NCCL calls a step { {k: v / V3_GROUP_STEPS for k, v in calls.items() if v} }; "
+          f"{grouped['imgs_per_s']:.1f} vs {alone['imgs_per_s']:.1f} imgs/s", flush=True)
+    return out
+
+
+def _v3_states_differ(a, b) -> list[str]:
+    """What differs between two v3 TrainStates, bit for bit."""
+    import torch
+
+    diff = []
+    for name in ("model_q", "model_k"):
+        sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
+        diff += [f"{name}.{k}" for k in sb if not torch.equal(sa[k], sb[k])]
+    oa, ob = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    if oa.keys() != ob.keys() or not ob:
+        diff.append("optimizer state")
+    diff += [f"optimizer {i}.{k}" for i in ob if i in oa for k in ob[i]
+             if not torch.equal(torch.as_tensor(oa[i][k]), torch.as_tensor(ob[i][k]))]
+    if a.step != b.step:
+        diff.append(f"step {a.step} != {b.step}")
+    for g in ("generator", "data_generator"):
+        if not torch.equal(getattr(a, g).get_state(), getattr(b, g).get_state()):
+            diff.append(g)
+    return diff
+
+
+def v3_across_cards(counters: dict, dataset) -> dict:
+    """`--phase8` under torchrun: (a) over every card in one NCCL group at
+    V3_RANK_BATCH a card (the preset's global 4096 on four), remat on."""
+    from moco_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed, world_size
+
+    device = init_distributed("cuda")
+    try:
+        from moco_tpu_torch.parallel.mesh import process_group
+
+        n = world_size(process_group())
+        config, r, prof = _v3_vits(counters, dataset, V3_RANK_BATCH * n, V3_STEPS,
+                                   f"phase8 vits {n} cards", remat=True, device=device)
+        return dict(ranks=n, global_batch=config.batch_size, remat=config.remat,
+                    imgs_per_s=r["imgs_per_s"], max_memory_gib=r["max_memory_gib"],
+                    losses=r["losses"], busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+                    attention_ms=prof["attention_ms"], blur=r["blur"])
+    finally:
+        shutdown_distributed()
+
+
 def main() -> None:
     try:
         import torch
@@ -1643,6 +2204,23 @@ def main() -> None:
                 "conv3x3_dw": fused_conv3x3.conv3x3_dw}
     from moco_tpu_torch.data.datasets import SyntheticDataset
 
+    if "--phase8" in sys.argv[1:]:
+        # phase 8 alone: under `torchrun --nproc-per-node <cards> chip_smoke.py
+        # --phase8` (a) across every card, else the whole phase on one
+        dataset = SyntheticDataset(num_samples=STEPS * BATCH, image_size=224)
+        if "WORLD_SIZE" in os.environ:
+            r = v3_across_cards(counters, dataset)
+            if int(os.environ.get("RANK", 0)) == 0:
+                cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                        "--format=csv,noheader"], capture_output=True,
+                                       text=True, timeout=60, check=True).stdout.split("\n")
+                print(json.dumps({"phase8": r, "cards": [c.strip() for c in cards if c.strip()]}))
+            return
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        print(json.dumps({"phase8": run_v3(counters, dataset, smi)}))
+        return
     if "--phase7" in sys.argv[1:]:
         # phase 7 alone, across every card: under
         # `torchrun --nproc-per-node <cards> chip_smoke.py --phase7`
@@ -1667,6 +2245,10 @@ def main() -> None:
                               FUSED_STEPS)
     run_distributed(counters, dataset)
     sync_modes_in_group(counters, dataset)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    run_v3(counters, dataset, smi)
     del dataset
     print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
           f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "
@@ -1684,9 +2266,6 @@ def main() -> None:
     check_against_cpu()
     check_against_cpu(fused=True, counters={k: counters[k] for k in FUSED_PER_STEP})
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
     run_checkpoint_and_evals(counters, smi)
     print(smi)  # the card's name and power limit, as nvidia-smi prints them
     # name: (source, TPU kernel it replaces, shape reported in the line)

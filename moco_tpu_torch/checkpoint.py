@@ -2,11 +2,13 @@
 
 Full state. A step's checkpoint is `<ckpt_dir>/<step>/state.pt`, one
 `torch.save` of the whole `TrainState`: both encoders' state_dicts (BN
-running statistics included), the SGD momentum buffers, the queue and its
-pointer, the step, and the states of both generators (ShuffleBN's and the
-augmentation's), so a resumed run draws what the uninterrupted one would
-have. The write is atomic: the step is written into a temporary directory
-whose name is not a step, then renamed into place. After each save the
+running statistics included), the optimizer's state (the SGD or LARS
+momentum buffers, AdamW's moments and step counts), the queue and its
+pointer (None and 0 for v3), the step, and the states of both generators
+(ShuffleBN's and the augmentation's), so a resumed run draws what the
+uninterrupted one would have. The write is atomic: the step is written
+into a temporary directory whose name is not a step, then renamed into
+place. After each save the
 integrity manifest and the data-stream position sidecar (with the number
 of processes the state was saved under, `devices`) are written as the JAX
 package writes them (`resilience/integrity.py`), and only the newest
@@ -29,10 +31,13 @@ encoder under torchvision's names (`module.encoder_q.*`) and tensor layouts,
 the dialect of the reference's checkpoints, as `.npz` or `.safetensors`;
 the port's module names map onto torchvision's one for one, and conv and
 linear weights are already [O, I, H, W] and [out, in]. The JAX package and
-the port write the same file for the same weights. `load_for_inference`
-reads any known dialect (`detect_dialect`), drops the contrastive head (the
-linear probe's checkpoint surgery) and checks that what is left is exactly
-the backbone's state. `.safetensors` needs the `safetensors` package.
+the port write the same file for the same weights. MoCo-v3:
+`export_v3_backbone` writes the query backbone, a ViT in the timm dialect
+(`vit_to_timm`) and a ResNet as the `backbone/` tree; `export_vit_encoder`
+a v1/v2 ViT without its head. `load_for_inference` reads any known dialect
+(`detect_dialect`), drops the contrastive head (the linear probe's
+checkpoint surgery) and checks that what is left is exactly the backbone's
+state. `.safetensors` needs the `safetensors` package.
 """
 
 from __future__ import annotations
@@ -249,14 +254,16 @@ def _check_payload(state, payload: dict) -> None:
         bad = [k for k in want if want[k].shape != got[k].shape]
         if bad:
             raise ValueError(f"checkpoint {name} shapes differ at {bad[:5]}")
-    if payload["queue"].shape != state.queue.shape:
+    if (payload["queue"] is None) != (state.queue is None):
+        raise ValueError("checkpoint and state disagree on the queue (a v3 state has none)")
+    if state.queue is not None and payload["queue"].shape != state.queue.shape:
         raise ValueError(f"checkpoint queue {tuple(payload['queue'].shape)} != "
                          f"{tuple(state.queue.shape)}")
     if (payload["data_generator"] is None) != (state.data_generator is None):
         raise ValueError("checkpoint and state disagree on the data generator")
     acc = (payload.get("gradsync") or {}).get("acc", {})
     if acc:
-        params = dict(state.model_q.named_parameters())
+        params = {n: p for n, p in state.model_q.named_parameters() if p.requires_grad}
         if acc.keys() != params.keys():
             raise ValueError("checkpoint gradsync accumulators name other parameters: "
                              f"{sorted(acc.keys() ^ params.keys())[:5]}")
@@ -302,8 +309,9 @@ def load_state(state, payload: dict, group=None):
     state.model_q.load_state_dict(payload["model_q"])
     state.model_k.load_state_dict(payload["model_k"])
     state.optimizer.load_state_dict(payload["optimizer"])
-    with torch.no_grad():
-        state.queue.copy_(payload["queue"])
+    if state.queue is not None:
+        with torch.no_grad():
+            state.queue.copy_(payload["queue"])
     state.queue_ptr = int(payload["queue_ptr"])
     state.step = int(payload["step"])
     state.generator.set_state(payload["generator"])
@@ -557,31 +565,32 @@ def detect_dialect(flat: dict[str, np.ndarray]) -> str:
                      f"got keys like {sorted(flat)[:3]}")
 
 
-def load_pretrained_backbone(path: str) -> dict:
-    """A pretrained ResNet backbone's state_dict (CPU tensors, head
-    dropped) from any ResNet dialect: torchvision `module.encoder_q.*` or a
-    `backbone/*` tree. The timm ViT dialect goes with the v3 path."""
+def load_pretrained_backbone(path: str, num_heads: int = 12) -> dict:
+    """A pretrained backbone's state_dict (CPU tensors, head dropped) from
+    any dialect: torchvision `module.encoder_q.*` or a `backbone/*` tree
+    (ResNets), or timm (ViTs, the fused qkv split into `num_heads` heads)."""
     flat = import_encoder_q(path)
     dialect = detect_dialect(flat)
     if dialect == "v3_tree":
         return params_from_jax(unflatten_tree(flat, "backbone/"),
                                unflatten_tree(flat, "backbone_stats/"))
     if dialect == "timm_vit":
-        raise NotImplementedError(f"{path!r} is a timm ViT checkpoint; the ViT is not "
-                                  "ported yet")
+        return timm_to_vit(flat, num_heads=num_heads)
     return torchvision_to_resnet(flat)
 
 
-def load_for_inference(path: str, arch: str, *, cifar_stem: bool = False, device="cuda"):
+def load_for_inference(path: str, arch: str, *, cifar_stem: bool = False, device="cuda",
+                       image_size: int = 224):
     """The checkpoint surgery every consumer that does not train goes
     through: build the feature-mode backbone of `arch`, load `path` through
-    the dialect table, check that the surgery left EXACTLY the backbone's
-    names (else raise with the missing and extra ones), and return the
-    model on `device` in eval mode, its parameters frozen."""
+    the dialect table (a ViT's qkv split with THIS arch's head count), check
+    that the surgery left EXACTLY the backbone's names (else raise with the
+    missing and extra ones), and return the model on `device` in eval mode,
+    its parameters frozen."""
     from moco_tpu_torch.models import build_backbone
 
-    model = build_backbone(arch, cifar_stem=cifar_stem)
-    state = load_pretrained_backbone(path)
+    model = build_backbone(arch, cifar_stem=cifar_stem, image_size=image_size)
+    state = load_pretrained_backbone(path, num_heads=getattr(model, "num_heads", 12))
     want, got = set(model.state_dict()), set(state)
     if want != got:
         raise ValueError(f"checkpoint surgery mismatch for arch {arch!r}: missing "
@@ -590,3 +599,140 @@ def load_for_inference(path: str, arch: str, *, cifar_stem: bool = False, device
     for p in model.parameters():
         p.requires_grad_(False)
     return model.to(device).eval()
+
+
+# ---------------------------------------------------------------------------
+# the timm ViT dialect and the v3 exports
+# ---------------------------------------------------------------------------
+
+
+def _sincos_pos_embed(gh: int, gw: int, dim: int) -> np.ndarray:
+    """timm's `pos_embed` [1, 1 + gh*gw, dim]: a zero class-token row, then
+    the fixed sin-cos grid (what moco-v3's `vits.py` builds)."""
+    from moco_tpu_torch.models.vit import sincos_2d_position_embedding
+
+    grid = sincos_2d_position_embedding(gh, gw, dim).numpy()
+    return np.concatenate([np.zeros((1, 1, dim), np.float32), grid], axis=1)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().cpu().numpy().astype(np.float32, copy=True))
+
+
+def vit_to_timm(state_dict: dict, prefix: str = "",
+                grid: tuple[int, int] = (14, 14)) -> dict[str, np.ndarray]:
+    """The port's ViT state_dict under timm `VisionTransformer` names, the
+    dialect of moco-v3's ViT checkpoints: `cls_token`, `pos_embed` (the
+    fixed sin-cos buffer, emitted because the dialect has it),
+    `patch_embed.proj.*`, `blocks.N.{norm1, attn.qkv, attn.proj, norm2,
+    mlp.fc1, mlp.fc2}.*`, `norm.*`. The query, key and value kernels [D, H,
+    hd] become the rows of one fused `qkv` [3D, D]; `out` [H, hd, D] becomes
+    `proj` [D, D]. The same file as the JAX package's `vit_to_timm` for the
+    same weights. A `head.*` entry is not written."""
+    sd = state_dict
+    width = int(sd["cls_token"].shape[-1])
+    out: dict[str, np.ndarray] = {
+        f"{prefix}cls_token": _np(sd["cls_token"]),
+        f"{prefix}pos_embed": _sincos_pos_embed(grid[0], grid[1], width),
+        f"{prefix}patch_embed.proj.weight": _np(sd["patch_embed.weight"]),
+        f"{prefix}patch_embed.proj.bias": _np(sd["patch_embed.bias"]),
+    }
+    blocks = sorted({int(k.split(".")[0][len("block"):]) for k in sd if k.startswith("block")})
+    for i in blocks:
+        b, t = f"block{i}.", f"{prefix}blocks.{i}."
+        for ln in ("norm1", "norm2"):
+            out[f"{t}{ln}.weight"] = _np(sd[f"{b}{ln}.weight"])
+            out[f"{t}{ln}.bias"] = _np(sd[f"{b}{ln}.bias"])
+        out[f"{t}attn.qkv.weight"] = np.concatenate(
+            [_np(sd[f"{b}attn.{m}.weight"].reshape(width, width).t()) for m in
+             ("query", "key", "value")], axis=0)
+        out[f"{t}attn.qkv.bias"] = np.concatenate(
+            [_np(sd[f"{b}attn.{m}.bias"].reshape(width)) for m in ("query", "key", "value")])
+        out[f"{t}attn.proj.weight"] = _np(sd[f"{b}attn.out.weight"].reshape(width, width).t())
+        out[f"{t}attn.proj.bias"] = _np(sd[f"{b}attn.out.bias"])
+        for fc, tn in (("mlp_fc1", "mlp.fc1"), ("mlp_fc2", "mlp.fc2")):
+            out[f"{t}{tn}.weight"] = _np(sd[f"{b}{fc}.weight"])
+            out[f"{t}{tn}.bias"] = _np(sd[f"{b}{fc}.bias"])
+    out[f"{prefix}norm.weight"] = _np(sd["norm.weight"])
+    out[f"{prefix}norm.bias"] = _np(sd["norm.bias"])
+    return out
+
+
+def timm_to_vit(flat: dict, num_heads: int = 12, prefix: str = "") -> dict:
+    """The inverse of `vit_to_timm`: the port's ViT state_dict (CPU
+    tensors, no head) from a timm checkpoint with a fused qkv (ours or any
+    timm ViT), the qkv split into `num_heads` heads. `head.*` entries are
+    ignored. A `pos_embed` that is not the fixed sin-cos buffer (a learned
+    or resized one) is refused: the ViT has no positional parameter, so
+    importing it would silently change the token positions."""
+    width = int(flat[f"{prefix}cls_token"].shape[-1])
+    pe = flat.get(f"{prefix}pos_embed")
+    if pe is not None:
+        pe = np.asarray(pe)
+        n = pe.shape[-2] - 1
+        g = int(round(n ** 0.5))
+        expected = _sincos_pos_embed(g, g, width) if g * g == n else None
+        if expected is None or not np.allclose(pe.reshape(expected.shape), expected,
+                                               rtol=1e-3, atol=1e-3):
+            raise ValueError(
+                "timm checkpoint carries a pos_embed that differs from the fixed 2-D "
+                "sin-cos buffer this ViT uses (a learned or resized positional "
+                "embedding). Importing it would silently change token positions; convert "
+                "the checkpoint (or retrain) instead.")
+    hd = width // num_heads
+
+    def t(name):
+        return torch.tensor(np.array(flat[prefix + name], dtype=np.float32))
+
+    out = {"cls_token": t("cls_token"), "patch_embed.weight": t("patch_embed.proj.weight"),
+           "patch_embed.bias": t("patch_embed.proj.bias"), "norm.weight": t("norm.weight"),
+           "norm.bias": t("norm.bias")}
+    n_blocks = 1 + max(int(k[len(prefix):].split(".")[1]) for k in flat
+                       if k.startswith(f"{prefix}blocks."))
+    for i in range(n_blocks):
+        b, s = f"block{i}.", f"blocks.{i}."
+        for ln in ("norm1", "norm2"):
+            out[f"{b}{ln}.weight"] = t(f"{s}{ln}.weight")
+            out[f"{b}{ln}.bias"] = t(f"{s}{ln}.bias")
+        qkv_w, qkv_b = t(f"{s}attn.qkv.weight"), t(f"{s}attn.qkv.bias")
+        for j, m in enumerate(("query", "key", "value")):
+            rows = slice(j * width, (j + 1) * width)
+            out[f"{b}attn.{m}.weight"] = qkv_w[rows].t().reshape(width, num_heads, hd).clone()
+            out[f"{b}attn.{m}.bias"] = qkv_b[rows].reshape(num_heads, hd).clone()
+        out[f"{b}attn.out.weight"] = t(f"{s}attn.proj.weight").t().reshape(
+            num_heads, hd, width).clone()
+        out[f"{b}attn.out.bias"] = t(f"{s}attn.proj.bias")
+        for fc, tn in (("mlp_fc1", "mlp.fc1"), ("mlp_fc2", "mlp.fc2")):
+            out[f"{b}{fc}.weight"] = t(f"{s}{tn}.weight")
+            out[f"{b}{fc}.bias"] = t(f"{s}{tn}.bias")
+    return out
+
+
+def _vit_grid(state_dict: dict, image_size: int) -> tuple[int, int]:
+    """The patch grid of `pos_embed`: the training resolution over the
+    patch embedding's own patch size."""
+    p = int(state_dict["patch_embed.weight"].shape[-1])
+    return image_size // p, image_size // p
+
+
+def export_v3_backbone(state, path: str, image_size: int = 224) -> dict[str, np.ndarray]:
+    """The MoCo-v3 query BACKBONE (projector and predictor dropped: the v3
+    probe reads backbone features), as `.npz` or `.safetensors`: a ViT in
+    the timm dialect, a ResNet as the `backbone/` tree with its BN
+    statistics under `backbone_stats/` (the JAX package's dialects).
+    Returns the flat dict written."""
+    sd = state.model_q.backbone.state_dict()
+    if "patch_embed.weight" in sd:
+        flat = vit_to_timm(sd, grid=_vit_grid(sd, image_size))
+        _save_flat(flat, path)
+        return flat
+    return export_backbone_tree(sd, path)
+
+
+def export_vit_encoder(state, path: str, image_size: int = 224) -> dict[str, np.ndarray]:
+    """A v1/v2 ViT query encoder in the timm dialect, its contrastive
+    `head` dropped."""
+    sd = {k: v for k, v in state.model_q.state_dict().items() if not k.startswith("head.")}
+    flat = vit_to_timm(sd, grid=_vit_grid(sd, image_size))
+    _save_flat(flat, path)
+    return flat

@@ -1,19 +1,21 @@
-"""Configs of the port: the fields the v1/v2 pretrain step, its input
-pipeline, its checkpoints and kNN monitor read (`PretrainConfig`), the
+"""Configs of the port: the fields the v1/v2 and v3 pretrain steps, their
+input pipeline, checkpoints and kNN monitor read (`PretrainConfig`), the
 linear probe's and kNN eval's (`EvalConfig`), the presets, and the flag
 surface of the entry points.
 
 The port's own copy of the relevant part of `moco_tpu/config.py`
 (`PretrainConfig`, `EvalConfig`, the `imagenet-moco-v1`, `imagenet-moco-v2`,
-`cifar10-moco-v1` and `imagenet-lincls` presets, `effective_lr`); field
+`cifar10-moco-v1`, `imagenet-moco-v3-vits`, `-vitb`, `-r50`,
+`imagenet-lincls` and `imagenet-lincls-v3` presets, `effective_lr`); field
 names, defaults and validation are the same, except that `ckpt_dir`
 defaults to "" (no checkpoints unless asked for) in both configs, so a run
 writes nothing into its working directory by default, and that
-`shuffle_mode` and `grad_allreduce_dtype` are checked here (the JAX package
-checks them where the step uses them). The gradient-sync knobs and
-`zero_sharding` carry the JAX package's checks and messages; its rule that
-`zero_sharding` excludes `sharding != "dp"` waits for FSDP, which the port
-does not have yet.
+`shuffle_mode`, `grad_allreduce_dtype`, `optimizer` and `crop_min` are
+checked here (the JAX package checks them where they are used). The
+gradient-sync knobs and `zero_sharding` carry the JAX package's checks and
+messages; its rule that `zero_sharding` excludes `sharding != "dp"` waits
+for FSDP (`sharding`), which the port does not have yet, and
+`zero_sharding` with AdamW or LARS is not ported yet either: it raises.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-VARIANTS = ("v1", "v2")
+VARIANTS = ("v1", "v2", "v3")
+OPTIMIZERS = ("sgd", "adamw", "lars")
 DATASETS = ("synthetic", "synthetic_texture", "cifar10", "imagefolder")
 
 
@@ -29,13 +32,13 @@ DATASETS = ("synthetic", "synthetic_texture", "cifar10", "imagefolder")
 class PretrainConfig:
     # experiment
     name: str = "moco"
-    variant: str = "v2"               # "v1" | "v2"
+    variant: str = "v2"               # "v1" | "v2" | "v3"
     seed: int = 0
     # model (reference flags -a/--arch, --moco-dim/k/m/t, --mlp)
-    arch: str = "resnet50"
+    arch: str = "resnet50"            # resnet18/34/50/101/152 | vit_small/base/large/huge
     embed_dim: int = 128              # --moco-dim
-    num_negatives: int = 65536        # --moco-k
-    momentum_ema: float = 0.999       # --moco-m
+    num_negatives: int = 65536        # --moco-k (v3 has no queue)
+    momentum_ema: float = 0.999       # --moco-m (v3: the base of the cosine ramp, 0.99)
     temperature: float = 0.07         # --moco-t (v2 runs use 0.2)
     mlp_head: bool = False            # --mlp
     cifar_stem: bool = False
@@ -44,6 +47,8 @@ class PretrainConfig:
                                       # exchanges, partial decorrelation)
     compute_dtype: str = "float32"    # "bfloat16" for the ImageNet presets
     fused_bn_conv: bool = False       # blocks' bn->relu->conv through the fused kernels
+    remat: bool = False               # recompute each ViT block in the backward
+                                      # (torch.utils.checkpoint): memory for FLOPs
     # data parallelism across processes (parallel/)
     collective_chunks: int = 1        # ShuffleBN gathers as N chunk collectives (same bits)
     grad_sync: str = "fused"          # gradient sync (parallel/gradsync.py): "fused" (one
@@ -64,6 +69,7 @@ class PretrainConfig:
     data_dir: str = ""
     image_size: int = 224
     aug_plus: bool = False            # --aug-plus (v2 augmentation stack)
+    crop_min: float = 0.0             # v3 --crop-min (0 = the v3 default, 0.08)
     num_workers: int = 0              # ImageFolder decode threads (-j); 0 = its default (8)
     stage_size: int = 0               # ImageFolder canvas shorter side; 0 = its default (512)
     # input pipeline (data/loader.py)
@@ -75,6 +81,7 @@ class PretrainConfig:
     input_prestage: str = ""          # pre-staged epoch cache directory
                                       # (data/service/prestage.py): epochs are row gathers
     # optimization (reference: SGD momentum .9, wd 1e-4, lr .03, batch 256)
+    optimizer: str = "sgd"            # sgd | adamw | lars
     lr: float = 0.03                  # absolute lr; 0.0 = derive from base_lr
     base_lr: float = 0.0              # lr per 256 samples
     batch_size: int = 256
@@ -84,6 +91,7 @@ class PretrainConfig:
     cos: bool = False                 # --cos
     sgd_momentum: float = 0.9
     weight_decay: float = 1e-4
+    momentum_ramp: bool = False       # v3: cosine ramp of the EMA momentum to 1
     print_freq: int = 10              # -p: metrics reach the host on these steps only
     # checkpoints (checkpoint.py)
     ckpt_dir: str = ""                # full-state checkpoints ("" = none)
@@ -137,6 +145,13 @@ class PretrainConfig:
                              f"{self.grad_sync_demo_beta}")
         if self.grad_allreduce_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown grad_allreduce_dtype {self.grad_allreduce_dtype!r}")
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {self.optimizer!r}; choose from {OPTIMIZERS}")
+        if not 0.0 <= self.crop_min <= 1.0:
+            raise ValueError(f"crop_min must be in [0, 1], got {self.crop_min}")
+        if self.zero_sharding and self.optimizer != "sgd":
+            raise ValueError(f"zero_sharding with optimizer={self.optimizer!r} is not ported "
+                             "yet: ZeRO-1 splits the SGD momentum only")
 
     def replace(self, **kw) -> "PretrainConfig":
         return dataclasses.replace(self, **kw)
@@ -160,7 +175,7 @@ def _effective_lr(config) -> float:
 class EvalConfig:
     """Linear probe (`main_lincls.py` defaults) and kNN settings."""
 
-    arch: str = "resnet50"
+    arch: str = "resnet50"            # a ResNet, or vit_* for a v3 ViT export (timm dialect)
     pretrained: str = ""              # --pretrained checkpoint path
     dataset: str = "imagefolder"
     data_dir: str = ""
@@ -245,6 +260,83 @@ PRESETS: dict[str, PretrainConfig | EvalConfig] = {
     ),
     # linear probe and kNN eval on frozen MoCo-v2 features
     "imagenet-lincls": EvalConfig(),
+    # MoCo-v3 linear probe (the v3 reference's `main_lincls.py`: SGD lr
+    # 3 x batch/256, 90 epochs, cosine, wd 0) on a v3 export's backbone
+    "imagenet-lincls-v3": EvalConfig(
+        arch="vit_small",
+        lr=0.0,
+        base_lr=3.0,
+        batch_size=1024,
+        epochs=90,
+        schedule=(),
+        cos=True,
+    ),
+    # MoCo-v3 ViT-S/16, queue-free, AdamW lr 1.5e-4 x batch/256, wd 0.1,
+    # batch 4096, 300 epochs with 40 of warmup, m 0.99 ramped to 1
+    "imagenet-moco-v3-vits": PretrainConfig(
+        name="imagenet-moco-v3-vits",
+        variant="v3",
+        arch="vit_small",
+        embed_dim=256,
+        momentum_ema=0.99,
+        momentum_ramp=True,
+        temperature=0.2,
+        optimizer="adamw",
+        lr=0.0,
+        base_lr=1.5e-4,
+        weight_decay=0.1,
+        batch_size=4096,
+        epochs=300,
+        warmup_epochs=40,
+        cos=True,
+        aug_plus=True,
+        dataset="imagefolder",
+        compute_dtype="bfloat16",
+    ),
+    # MoCo-v3 ViT-B/16: the same recipe at ViT-B's width and depth, remat on
+    "imagenet-moco-v3-vitb": PretrainConfig(
+        name="imagenet-moco-v3-vitb",
+        variant="v3",
+        arch="vit_base",
+        embed_dim=256,
+        momentum_ema=0.99,
+        momentum_ramp=True,
+        temperature=0.2,
+        optimizer="adamw",
+        lr=0.0,
+        base_lr=1.5e-4,
+        weight_decay=0.1,
+        batch_size=4096,
+        epochs=300,
+        warmup_epochs=40,
+        cos=True,
+        aug_plus=True,
+        remat=True,
+        dataset="imagefolder",
+        compute_dtype="bfloat16",
+    ),
+    # MoCo-v3 ResNet-50: LARS lr 0.3 x batch/256, wd 1.5e-6, 100 epochs with
+    # 10 of warmup, T=1.0, crop-min 0.2, m 0.99 ramped
+    "imagenet-moco-v3-r50": PretrainConfig(
+        name="imagenet-moco-v3-r50",
+        variant="v3",
+        arch="resnet50",
+        embed_dim=256,
+        momentum_ema=0.99,
+        momentum_ramp=True,
+        temperature=1.0,
+        optimizer="lars",
+        lr=0.0,
+        base_lr=0.3,
+        weight_decay=1.5e-6,
+        batch_size=4096,
+        epochs=100,
+        warmup_epochs=10,
+        cos=True,
+        crop_min=0.2,
+        dataset="imagefolder",
+        compute_dtype="bfloat16",
+    ),
 }
 
 

@@ -11,13 +11,18 @@ batched, in two separate steps:
 
 Recipes (`aug_config_for`): v1 = RRC(0.2-1) + grayscale .2 BEFORE jitter
 (.4,.4,.4,.4) always + flip; v2 `--aug-plus` = RRC + jitter (.4,.4,.4,.1)
-p=.8 + grayscale .2 + blur sigma U(.1,2) p=.5 + flip. Then ImageNet
+p=.8 + grayscale .2 + blur sigma U(.1,2) p=.5 + flip; v3 = an ASYMMETRIC
+pair (`v3_aug_configs`): RRC(crop_min-1) + jitter (.4,.4,.2,.1) p=.8 +
+grayscale .2 + flip in both views, view 1 blurred always (p=1), view 2
+blurred at p=.1 and solarized at p=.2 (`x >= 0.5 -> 1 - x`). Then ImageNet
 normalize. The flip is folded into the crop's resample matrix. The blur is
-applied last, after normalize, by the kernel over the finished batch (the
-taps are symmetric and sum to 1, so it commutes with flip and normalize):
-the TPU program's order when its Pallas blur is on. The pipeline runs in
-`AugConfig.dtype` (bf16 for the ImageNet preset); contrast's mean and the
-HSV round trip run in f32.
+applied by the kernel over the whole batch: last, after normalize, in a
+view without solarize (the taps are symmetric and sum to 1, so it commutes
+with flip and normalize: the TPU program's order when its Pallas blur is
+on); in a solarizing view on the [0, 1] image before solarize and
+normalize, since solarize does not commute with it (the JAX package's
+in-pipeline order there). The pipeline runs in `AugConfig.dtype` (bf16 for
+the ImageNet preset); contrast's mean and the HSV round trip run in f32.
 
 `augment_batch` draws one view a sample (the linear probe's train crop);
 with `eval_aug_config` (`deterministic=True`) it draws nothing and takes
@@ -62,6 +67,7 @@ class AugConfig(NamedTuple):
     blur_prob: float = 0.0        # v2 uses 0.5
     blur_sigma: tuple[float, float] = (0.1, 2.0)
     flip_prob: float = 0.5
+    solarize_prob: float = 0.0    # v3's second view uses 0.2 (threshold 0.5)
     deterministic: bool = False   # eval: fixed-aspect center crop, no randomness
     grayscale_first: bool = False  # v1 applies RandomGrayscale BEFORE ColorJitter
     rrc_trials: int = 10          # torchvision get_params rejection draws
@@ -95,9 +101,23 @@ def default_eval_crop_frac(image_size: int) -> float:
     return 1.0 if image_size < 96 else 0.875
 
 
-def aug_config_for(config) -> AugConfig:
-    """The recipe for a PretrainConfig: v2 stack with `aug_plus`, else v1;
-    in the config's compute dtype."""
+def v3_aug_configs(out_size: int = 224, min_scale: float = 0.08
+                   ) -> tuple[AugConfig, AugConfig]:
+    """moco-v3's asymmetric per-view recipes: both views jitter
+    (.4,.4,.2,.1) p=.8 + grayscale .2 + flip; view 1 always blurs, view 2
+    blurs at p=.1 and solarizes at p=.2. `min_scale` is `--crop-min`."""
+    base = AugConfig(out_size=out_size, min_scale=min_scale, saturation=0.2, hue=0.1,
+                     jitter_prob=0.8, grayscale_prob=0.2)
+    return base._replace(blur_prob=1.0), base._replace(blur_prob=0.1, solarize_prob=0.2)
+
+
+def aug_config_for(config):
+    """The recipe for a PretrainConfig, in the config's compute dtype: v3,
+    the `(view 1, view 2)` pair with `crop_min or 0.08`; the v2 stack with
+    `aug_plus`; else v1."""
+    if config.variant == "v3":
+        return tuple(c._replace(dtype=config.compute_dtype) for c in
+                     v3_aug_configs(config.image_size, min_scale=config.crop_min or 0.08))
     cfg = v2_aug_config(config.image_size) if config.aug_plus else v1_aug_config(config.image_size)
     return cfg._replace(dtype=config.compute_dtype)
 
@@ -120,6 +140,7 @@ class ViewParams:
     valid_h: torch.Tensor | None = None  # [B] staged content extent (None: the canvas)
     valid_w: torch.Tensor | None = None
     rot: torch.Tensor | None = None      # [B] bool, portrait staged transposed
+    solarize: torch.Tensor | None = None  # [B] bool (None: a recipe without solarize)
 
 
 def _uniform(shape, lo, hi, generator, device) -> torch.Tensor:
@@ -188,8 +209,11 @@ def sample_view(ext_h: torch.Tensor, ext_w: torch.Tensor, cfg: AugConfig,
     gray_apply = torch.rand(b, device=dev, generator=generator) < cfg.grayscale_prob
     taps = blur_weights(b, blur_radius(cfg.out_size), cfg.blur_sigma, cfg.blur_prob,
                         generator, dev)
+    # drawn only by a solarizing recipe: the v1/v2 draws stay as they were
+    solarize = (torch.rand(b, device=dev, generator=generator) < cfg.solarize_prob
+                if cfg.solarize_prob > 0 else None)
     return ViewParams(y0, x0, ch, cw, flip, factors, hue_shift, perm, jitter_apply,
-                      gray_apply, taps, ext_h, ext_w, rot)
+                      gray_apply, taps, ext_h, ext_w, rot, solarize)
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +302,12 @@ def color_jitter(img: torch.Tensor, factors: torch.Tensor, hue_shift: torch.Tens
     return out
 
 
+def solarize(img: torch.Tensor, apply: torch.Tensor) -> torch.Tensor:
+    """torchvision RandomSolarize(threshold=128) on [0, 1] images: pixels
+    >= 0.5 inverted, in the samples where `apply` [B] is set."""
+    return torch.where(_per_sample(apply) & (img >= 0.5), 1.0 - img, img)
+
+
 def normalize(img: torch.Tensor) -> torch.Tensor:
     """(img - mean) / std with the ImageNet constants in the image dtype."""
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
@@ -311,6 +341,11 @@ def apply_view(images_u8: torch.Tensor, p: ViewParams, cfg: AugConfig) -> torch.
     for prob, fn in stages:
         if prob > 0:
             img = fn(img)
+    if cfg.solarize_prob > 0:
+        # solarize does not commute with the blur: blur the [0, 1] image first
+        if cfg.blur_prob > 0:
+            img = gaussian_blur_batch(img, p.blur_taps, blur_radius(cfg.out_size))
+        return normalize(solarize(img, p.solarize))
     img = normalize(img)
     if cfg.blur_prob > 0:
         img = gaussian_blur_batch(img, p.blur_taps, blur_radius(cfg.out_size))
@@ -351,12 +386,13 @@ def _placed(v: torch.Tensor | None, lo: int, total: int) -> torch.Tensor | None:
     return out
 
 
-def two_crops(images_u8: torch.Tensor, cfg: AugConfig, generator: torch.Generator,
+def two_crops(images_u8: torch.Tensor, cfg, generator: torch.Generator,
               extents: torch.Tensor | None = None, rows: tuple[int, int] | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Two independent views (query, key) of a uint8 batch; `extents` [B, 3]
-    `(valid_h, valid_w, rot)` on the batch's device, None for the full
-    canvas.
+    """Two independent views (query, key; v3's view 1, view 2) of a uint8
+    batch; `cfg` is one AugConfig for both views or a `(cfg_view1,
+    cfg_view2)` pair (v3); `extents` [B, 3] `(valid_h, valid_w, rot)` on
+    the batch's device, None for the full canvas.
 
     `rows=(offset, global_batch)`: the batch is rows [offset, offset + B)
     of a global batch split over processes. The draws are made for the
@@ -364,12 +400,14 @@ def two_crops(images_u8: torch.Tensor, cfg: AugConfig, generator: torch.Generato
     every process) and each process keeps its rows, as the JAX step draws
     the global batch's views with one key: the crops do not depend on how
     many processes share the batch."""
+    cfgs = (cfg, cfg) if isinstance(cfg, AugConfig) else tuple(cfg)
     ext_h, ext_w, rot = _split_extents(images_u8, extents)
     if rows is None:
-        views = [sample_view(ext_h, ext_w, cfg, generator, rot) for _ in range(2)]
+        views = [sample_view(ext_h, ext_w, c, generator, rot) for c in cfgs]
     else:
         lo, total = rows
         placed = [_placed(v, lo, total) for v in (ext_h, ext_w, rot)]
-        views = [_rows_of(sample_view(*placed[:2], cfg, generator, placed[2]), lo,
-                          images_u8.shape[0]) for _ in range(2)]
-    return apply_view(images_u8, views[0], cfg), apply_view(images_u8, views[1], cfg)
+        views = [_rows_of(sample_view(*placed[:2], c, generator, placed[2]), lo,
+                          images_u8.shape[0]) for c in cfgs]
+    return (apply_view(images_u8, views[0], cfgs[0]),
+            apply_view(images_u8, views[1], cfgs[1]))

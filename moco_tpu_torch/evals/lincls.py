@@ -5,9 +5,10 @@ reference's `main_lincls.py`: the program behind the 67.5% top-1).
         [--ckpt-dir DIR --resume auto] [--evaluate true] [--max-steps N] [--device cpu]
 
 The reference's semantics:
-- checkpoint surgery: keep the backbone of `module.encoder_q.*`, drop the
-  contrastive head, and require that exactly the backbone is left
-  (`checkpoint.load_for_inference`);
+- checkpoint surgery: keep the backbone of `module.encoder_q.*` (or of a
+  v3 export: the `backbone/` tree of a ResNet, the timm dialect of a ViT,
+  `--arch vit_*`), drop the contrastive head, and require that exactly the
+  backbone is left (`checkpoint.load_for_inference`);
 - the classifier `fc.weight ~ N(0, 0.01)`, `fc.bias = 0`, drawn from a
   seeded generator;
 - only the classifier trains: SGD lr 30, momentum 0.9, wd 0, x0.1 at
@@ -50,7 +51,7 @@ def load_frozen_backbone(config: EvalConfig, device="cuda") -> nn.Module:
     """The feature-mode backbone with the pretrained weights, by checkpoint
     surgery, frozen and in eval mode on `device`."""
     return load_for_inference(config.pretrained, config.arch, cifar_stem=config.cifar_stem,
-                              device=device)
+                              device=device, image_size=config.image_size)
 
 
 def init_classifier(generator: torch.Generator, feat_dim: int, num_classes: int) -> nn.Linear:
@@ -224,7 +225,8 @@ def train_lincls(config: EvalConfig, max_steps: int | None = None, device="cuda"
         if step >= total:
             break
     # the reference's sanity check, against the file on disk
-    sanity_check(model.state_dict(), load_pretrained_backbone(config.pretrained))
+    sanity_check(model.state_dict(), load_pretrained_backbone(
+        config.pretrained, num_heads=getattr(model, "num_heads", 12)))
     return fc, best_acc1
 
 

@@ -1,4 +1,4 @@
-"""Contrastive loss pieces of the MoCo v1/v2 step (port of
+"""Contrastive loss pieces of the MoCo v1/v2 and v3 steps (port of
 `moco_tpu/ops/losses.py` and `telemetry/health.neg_sim_mean`).
 
 Logits and the cross entropy are computed in float32 whatever the encoder's
@@ -56,3 +56,15 @@ def neg_sim_mean(logits: torch.Tensor, labels: torch.Tensor,
     pos = logits.float().gather(1, labels[:, None]).sum()
     n, m = logits.shape
     return (total - pos) / (n * (m - 1)) * temperature
+
+
+def v3_contrastive_loss(q: torch.Tensor, k_all: torch.Tensor, temperature: float,
+                        offset: int = 0) -> torch.Tensor:
+    """One direction of the MoCo-v3 queue-free loss: logits `q . k_all^T / T`
+    in f32 against the keys of the whole global batch `k_all` (the other
+    samples are the negatives), the positive of local row i at global row
+    `offset + i` (`offset` = rank x local batch), the cross entropy scaled
+    by 2T. `q`, `k_all` are L2-normalized; `k_all` carries no gradient."""
+    logits = (q.float() @ k_all.float().t()) / temperature
+    labels = torch.arange(q.shape[0], device=q.device) + offset
+    return softmax_cross_entropy(logits, labels) * (2.0 * temperature)

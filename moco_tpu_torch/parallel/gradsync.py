@@ -36,7 +36,10 @@ changes no number in any mode (scales are per leaf, the int32 sum is exact,
 DeMo is per leaf): only `describe()["buckets"]` may differ from the JAX
 count. Reduced f32 gradients are views of their flat bucket (no copy back).
 
-Every parameter with a gradient is a float leaf: the JAX package's exact
+Only the parameters that train are synced: a frozen ViT patch embedding
+(`requires_grad=False`) has no gradient and fires no hook, where the JAX
+step reduces its zero gradients (`describe` counts the bytes the port
+sends). Every parameter with a gradient is a float leaf: the JAX package's exact
 sums of integer leaves have no PyTorch counterpart. Not
 `DistributedDataParallel`: its `broadcast_buffers` copies rank 0's BatchNorm
 statistics, where the reference takes their mean (the step does that with
@@ -178,8 +181,8 @@ class GradSync:
         process contributes to the wire a step (`sync_bytes_per_step`,
         averaged over DeMo's cadence), and the bytes the port's collectives
         carry (`carried_bytes_per_step`: int8 rides an int32 carrier, 4x
-        its counted payload)."""
-        self.plan(named_params)
+        its counted payload); over the parameters that train."""
+        self.plan([(n, p) for n, p in named_params if p.requires_grad])
         info = {"mode": self.mode, "sync_bytes_per_step": self.sync_bytes_per_step(),
                 "carried_bytes_per_step": self.carried_bytes_per_step()}
         if self.mode in ("bucketed", "quantized"):
@@ -221,10 +224,10 @@ class GradSync:
     # -- state (error feedback / local momentum) --------------------------
     def attach(self, state) -> None:
         """Give `state` fresh zero accumulators, one f32 tensor per query
-        parameter (empty for the stateless modes), and record the mode
-        they belong to."""
+        parameter that trains (empty for the stateless modes), and record
+        the mode they belong to."""
         state.gradsync = ({name: torch.zeros_like(p, dtype=torch.float32)
-                           for name, p in state.model_q.named_parameters()}
+                           for name, p in state.model_q.named_parameters() if p.requires_grad}
                           if self.needs_state else {})
         state.gradsync_mode = self.mode
 

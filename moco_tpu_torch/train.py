@@ -3,6 +3,7 @@
     python -m moco_tpu_torch.train --preset imagenet-moco-v2 --data-dir /data/imagenet \\
         --max-steps 5 [--batch-size B] [--ckpt-dir DIR [--resume auto]] \\
         [--export-path encoder.npz] [--knn-monitor true] [--device cpu]
+    python -m moco_tpu_torch.train --preset imagenet-moco-v3-vits --data-dir ... [...]
     torchrun --nproc-per-node 8 -m moco_tpu_torch.train --preset imagenet-moco-v2 ...
 
 Data parallelism is one process per card, as the reference's `mp.spawn`
@@ -30,6 +31,13 @@ stay on the device except on print steps (`print_freq`), where they reach
 the host in one transfer. It runs on the card unless `--device cpu` is
 given, and raises if CUDA is asked for and absent.
 
+The v3 presets (`imagenet-moco-v3-vits`, `-vitb`, `-r50`) run the
+queue-free v3 step (`v3_step.py`) on the asymmetric view pair, with AdamW
+or LARS; their kNN monitor scores the query BACKBONE's features and their
+export writes the backbone (a ViT in the timm dialect, a ResNet as the
+`backbone/` tree); a v1/v2 ViT exports its encoder without the head in the
+timm dialect.
+
 With `ckpt_dir` the whole state is checkpointed every `ckpt_every_epochs`
 epochs (and when `max_steps` ends the run on such an epoch) with the
 data-stream position it resumes at; `resume` restores it (`"auto"`, a step
@@ -52,8 +60,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from moco_tpu_torch.checkpoint import checkpoint_manager, export_encoder_q, maybe_resume, \
-    read_position, read_recorded_devices, resume_dir, save_checkpoint
+from moco_tpu_torch.checkpoint import checkpoint_manager, export_encoder_q, \
+    export_v3_backbone, export_vit_encoder, maybe_resume, read_position, \
+    read_recorded_devices, resume_dir, save_checkpoint
 from moco_tpu_torch.config import PretrainConfig, add_config_flags, collect_overrides, \
     get_preset, preset_names
 from moco_tpu_torch.data.augment import aug_config_for, two_crops
@@ -72,6 +81,7 @@ from moco_tpu_torch.utils.device import resolve_device, set_precision_policy
 
 METRIC_NAMES = ("loss", "acc1", "acc5", "pos_sim", "neg_sim", "logit_margin", "lr",
                 "queue_ptr")
+V3_METRIC_NAMES = ("loss", "acc1", "pos_sim", "neg_sim", "logit_margin", "lr", "momentum")
 
 
 class DataQualityError(RuntimeError):
@@ -87,7 +97,8 @@ def host_metrics(metrics: dict) -> dict:
 
 
 def print_step(step: int, metrics: dict, seconds: float, batch: int) -> None:
-    shown = " ".join(f"{k} {metrics[k]:.6g}" for k in METRIC_NAMES)
+    names = V3_METRIC_NAMES if "momentum" in metrics else METRIC_NAMES
+    shown = " ".join(f"{k} {metrics[k]:.6g}" for k in names)
     print(f"step {step} {shown} step_s {seconds:.4f} imgs_s {batch / seconds:.1f}",
           flush=True)
 
@@ -105,11 +116,12 @@ def check_decode_rate(dataset, config: PretrainConfig) -> None:
             "canvases would silently waste the run")
 
 
-def make_feature_fn(model):
+def make_feature_fn(model, variant: str = "v2"):
     """The kNN monitor's embedding: the query encoder's L2-normalized output
     in eval mode (BN on its running statistics), without autograd; the
-    encoder goes back to train mode after each batch."""
-    return build_feature_fn(model)
+    encoder goes back to train mode after each batch. v3 embeds with the
+    BACKBONE alone, the features its probe and kNN eval score."""
+    return build_feature_fn(model.backbone if variant == "v3" else model)
 
 
 def knn_monitor(config, feature_fn, state: TrainState, dataset,
@@ -266,7 +278,7 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
     history = []
     feature_fn = monitor_val = None
     if config.knn_monitor:
-        feature_fn = make_feature_fn(state.model_q)
+        feature_fn = make_feature_fn(state.model_q, config.variant)
         monitor_val = _monitor_val_split(config, dataset)
     baseline_path = os.path.join(mgr.directory, "untrained_baseline.json") if mgr else None
     # the kNN monitor runs on every process, as the JAX driver's does; only
@@ -335,7 +347,12 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
         epoch, skip = epoch + 1, 0
         t_last += time.perf_counter() - t_pause  # the printed step time leaves these out
     if config.export_path and is_main:
-        export_encoder_q(state, config.export_path)
+        if config.variant == "v3":
+            export_v3_backbone(state, config.export_path, config.image_size)
+        elif config.arch.startswith("vit"):
+            export_vit_encoder(state, config.export_path, config.image_size)
+        else:
+            export_encoder_q(state, config.export_path)
         print(f"exported encoder -> {config.export_path}", flush=True)
     return state, history
 

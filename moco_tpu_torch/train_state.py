@@ -1,8 +1,11 @@
-"""The MoCo training state (port of `moco_tpu/train_state.py`).
+"""The MoCo training state (port of `moco_tpu/train_state.py` and of the v3
+state of `moco_tpu/v3_step.py`).
 
-One object holds what the step updates: the query encoder and its SGD
-optimizer, the key encoder (an EMA of the query's parameters, never trained
-by gradients), the negative queue and its pointer, the step count, the
+One object holds what the step updates: the query encoder and its
+optimizer (SGD; AdamW or LARS for v3), the key encoder (an EMA of the
+query's parameters, never trained by gradients), the negative queue and its
+pointer (v1/v2; v3 has no queue, and its key encoder is a copy of the
+query's backbone and projector without the predictor), the step count, the
 generators of ShuffleBN's permutations and of the two-crop draws, and the
 gradient sync's per-process accumulators. The step mutates it in place.
 Every process of a data-parallel run builds the same state from the same
@@ -20,6 +23,7 @@ from dataclasses import dataclass, field
 import torch
 from torch import nn
 
+from moco_tpu_torch.ops.optim import LARS, AdamW
 from moco_tpu_torch.ops.queue import init_queue
 from moco_tpu_torch.parallel.zero import ShardedSGD
 
@@ -29,8 +33,8 @@ class TrainState:
     step: int                       # completed steps
     model_q: nn.Module              # query encoder (trained)
     model_k: nn.Module              # key encoder (EMA of model_q's parameters)
-    optimizer: torch.optim.Optimizer  # over model_q's parameters only
-    queue: torch.Tensor             # [K, dim] f32 negative keys, unit rows
+    optimizer: torch.optim.Optimizer  # over model_q's trainable parameters only
+    queue: torch.Tensor | None      # [K, dim] f32 negative keys, unit rows (v3: None)
     queue_ptr: int                  # ring pointer into the queue
     generator: torch.Generator      # ShuffleBN permutations, on the device
     data_generator: torch.Generator | None = None  # train()'s two-crop draws
@@ -40,33 +44,53 @@ class TrainState:
     gradsync_mode: str = "fused"
 
 
-def build_optimizer(config, model_q: nn.Module, group=None) -> torch.optim.SGD:
-    """SGD with momentum and weight decay on EVERY parameter (BN included):
-    `d = g + wd*p; buf = m*buf + d; p -= lr*buf`, the same update as the
-    JAX package's `add_decayed_weights` -> `sgd(momentum)` chain. The lr is
-    set each step from the schedule. With `zero_sharding` and a process
-    group, the same update with the momentum split over the group
-    (`parallel/zero.py`); a restore into it keeps this process's slices."""
+def build_optimizer(config, model_q: nn.Module, group=None) -> torch.optim.Optimizer:
+    """The optimizer of `config.optimizer` over the query encoder's
+    trainable parameters (a frozen patch embedding stays out: the JAX
+    package's `optax.masked`); the lr is set each step from the schedule.
+
+    - `sgd`: momentum and weight decay on every parameter (BN included):
+      `d = g + wd*p; buf = m*buf + d; p -= lr*buf`, the JAX package's
+      `add_decayed_weights` -> `sgd(momentum)` chain. With `zero_sharding`
+      and a process group, the same update with the momentum split over
+      the group (`parallel/zero.py`); a restore into it keeps this
+      process's slices.
+    - `adamw`: `ops/optim.py::AdamW` (betas 0.9/0.999, eps 1e-8),
+      `optax.adamw`'s update with its decay on every parameter.
+    - `lars`: `ops/optim.py::LARS`, `optax.lars` with both masks
+      `ndim > 1`."""
+    params = [p for p in model_q.parameters() if p.requires_grad]
+    if config.optimizer == "adamw":
+        return AdamW(params, lr=config.effective_lr, betas=(0.9, 0.999), eps=1e-8,
+                     weight_decay=config.weight_decay)
+    if config.optimizer == "lars":
+        return LARS(params, lr=config.effective_lr, weight_decay=config.weight_decay,
+                    momentum=config.sgd_momentum)
     kw = dict(lr=config.effective_lr, momentum=config.sgd_momentum,
               weight_decay=config.weight_decay)
     if config.zero_sharding and group is not None:
-        return ShardedSGD(model_q.parameters(), group, **kw)
-    return torch.optim.SGD(model_q.parameters(), **kw)
+        return ShardedSGD(params, group, **kw)
+    return torch.optim.SGD(params, **kw)
 
 
 def create_train_state(config, model: nn.Module, device, seed: int = 0,
                        group=None) -> TrainState:
     """Move `model` (the query encoder) to `device`, copy it into the key
     encoder, and draw the queue from a CPU generator seeded with `seed`, so
-    the state is the same on every device. `group` is the data-parallel
-    process group ZeRO-1 splits the momentum over."""
+    the state is the same on every device. v3: the key encoder is the copy
+    without the predictor, and there is no queue. `group` is the
+    data-parallel process group ZeRO-1 splits the momentum over."""
     device = torch.device(device)
     model_q = model.to(device).train()
     model_k = copy.deepcopy(model_q)
+    queue = None
+    if config.variant == "v3":
+        model_k.predictor = None
+    else:
+        queue_gen = torch.Generator().manual_seed(seed)
+        queue = init_queue(config.num_negatives, config.embed_dim, queue_gen).to(device)
     for p in model_k.parameters():
         p.requires_grad_(False)
-    queue_gen = torch.Generator().manual_seed(seed)
-    queue = init_queue(config.num_negatives, config.embed_dim, queue_gen).to(device)
     shuffle_gen = torch.Generator(device=device).manual_seed(seed + 2)
     data_gen = torch.Generator(device=device).manual_seed(seed + 1)
     return TrainState(step=0, model_q=model_q, model_k=model_k,

@@ -22,7 +22,8 @@ One step, in the reference's order:
    own negatives), so the queue stays the same on every process.
 
 With no process group the step is the one-card step, and a one-process
-group computes the same bits.
+group computes the same bits. `variant="v3"` builds the queue-free v3 step
+of `v3_step.py` instead.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Callable
 import torch
 
 from moco_tpu_torch.models.resnet import build_resnet
+from moco_tpu_torch.models.vit import build_vit
 from moco_tpu_torch.ops.ema import ema_update
 from moco_tpu_torch.ops.losses import (
     contrastive_accuracy,
@@ -53,24 +55,50 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_encoder(config, generator: torch.Generator | None = None):
-    """The ResNet encoder of `config` (v2: MLP head), weights drawn from
-    `generator` (default: seeded with `config.seed`)."""
+    """The encoder of `config`, weights drawn from `generator` (default:
+    seeded with `config.seed`): v1/v2, a ResNet (v2: MLP head) or a ViT
+    with a Dense head of `embed_dim`; v3, `v3_step.V3Model` (a backbone of
+    pooled ResNet or class-token ViT features, the projector and the
+    predictor)."""
     if generator is None:
         generator = torch.Generator().manual_seed(config.seed)
+    dtype = DTYPES[config.compute_dtype]
+    vit = config.arch.startswith("vit")
+    if config.remat and not vit:
+        raise ValueError(f"remat is ported for the ViT only, not for arch {config.arch!r}")
+    if config.variant == "v3":
+        from moco_tpu_torch.v3_step import V3Model
+
+        if vit:
+            backbone = build_vit(config.arch, num_classes=None, dtype=dtype,
+                                 remat=config.remat, image_size=config.image_size,
+                                 generator=generator)
+        else:
+            backbone = build_resnet(config.arch, num_classes=None, cifar_stem=config.cifar_stem,
+                                    dtype=dtype, generator=generator,
+                                    fused_bn_conv=config.fused_bn_conv)
+        return V3Model(backbone, embed_dim=config.embed_dim, generator=generator)
+    if vit:
+        return build_vit(config.arch, num_classes=config.embed_dim, dtype=dtype,
+                         remat=config.remat, image_size=config.image_size, generator=generator)
     return build_resnet(
         config.arch, num_classes=config.embed_dim, mlp_head=config.mlp_head,
-        cifar_stem=config.cifar_stem, dtype=DTYPES[config.compute_dtype],
+        cifar_stem=config.cifar_stem, dtype=dtype,
         generator=generator, fused_bn_conv=config.fused_bn_conv,
     )
 
 
 def lr_schedule(config, steps_per_epoch: int) -> Callable[[int], float]:
-    """step -> lr, evaluated at the integer epoch `floor(step / spe)` like
-    the reference's per-epoch `adjust_learning_rate`."""
+    """step -> lr. v1/v2: evaluated at the integer epoch `floor(step / spe)`
+    like the reference's per-epoch `adjust_learning_rate`; v3: at the
+    fractional epoch `step / spe`, as moco-v3 adjusts every iteration (a
+    floored warmup would run its whole first epoch at lr 0)."""
     lr = config.effective_lr
 
     def sched(step: int) -> float:
-        epoch = math.floor(step / steps_per_epoch)
+        epoch = step / steps_per_epoch
+        if config.variant != "v3":
+            epoch = math.floor(epoch)
         if config.warmup_epochs > 0:
             return warmup_cosine_lr(lr, epoch, config.epochs, config.warmup_epochs)
         if config.cos:
@@ -88,7 +116,12 @@ def build_train_step(config, steps_per_epoch: int, group=None,
     one process). `perm_fn(step, global_batch)` replaces ShuffleBN's drawn
     permutation (a test hands in the JAX package's). Metric values stay on
     the device until the caller reads them, except `lr` and `queue_ptr`,
-    which are host numbers."""
+    which are host numbers. `variant="v3"`: the v3 step
+    (`v3_step.build_v3_train_step`)."""
+    if config.variant == "v3":
+        from moco_tpu_torch.v3_step import build_v3_train_step
+
+        return build_v3_train_step(config, steps_per_epoch, group)
     sched = lr_schedule(config, steps_per_epoch)
     temperature = config.temperature
     chunks = config.collective_chunks

@@ -1,17 +1,21 @@
-"""Carry flax ResNet weights into the port's modules.
+"""Carry flax weights into the port's modules: the ResNets, the ViT and the
+MoCo-v3 heads.
 
 `params_to_jax(state_dict)` is the inverse: the flax trees (numpy leaves)
 of a port state_dict, the layout of the `backbone/` checkpoint dialect.
 
 `params_from_jax(params, batch_stats)` takes the flax `params` and
 `batch_stats` trees as nested mappings of numpy arrays and returns a
-`state_dict` for `models.resnet.ResNet` (the port keeps flax's module names,
-so a path maps to a dotted name):
+`state_dict` for the port's module (the port keeps flax's module names, so
+a path maps to a dotted name):
 
-    conv   kernel [H, W, I, O]  -> weight [O, I, H, W]
-    dense  kernel [in, out]     -> weight [out, in];  bias -> bias
-    BN     scale / bias         -> weight / bias
-    BN     mean / var           -> running_mean / running_var
+    conv       kernel [H, W, I, O]  -> weight [O, I, H, W]
+    dense      kernel [in, out]     -> weight [out, in];  bias -> bias
+    attention  kernel [D, H, hd] or [H, hd, D] -> weight, the same layout;
+               bias [H, hd] -> bias, the same
+    BN, LN     scale / bias         -> weight / bias
+    BN         mean / var           -> running_mean / running_var
+    ViT        cls_token [1, 1, D]  -> cls_token
 """
 
 from __future__ import annotations
@@ -29,9 +33,13 @@ def _leaf(name: str, value) -> tuple[str, np.ndarray]:
     if name == "kernel":
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 3:
+            return "weight", arr
         if arr.ndim == 2:
             return "weight", arr.T
         raise ValueError(f"unexpected kernel rank {arr.ndim}")
+    if name == "cls_token":
+        return "cls_token", arr
     if name == "scale":
         return "weight", arr
     if name == "bias":
@@ -74,8 +82,10 @@ def params_to_jax(state_dict: Mapping) -> tuple[dict, dict]:
         arr = value.detach().cpu().numpy()
         if leaf in inverse:
             tree, key = stats, inverse[leaf]
-        elif leaf == "bias":
-            tree, key = params, "bias"
+        elif leaf in ("bias", "cls_token"):
+            tree, key = params, leaf
+        elif leaf == "weight" and arr.ndim == 3:
+            tree, key = params, "kernel"
         elif leaf == "weight" and arr.ndim == 4:
             tree, key, arr = params, "kernel", arr.transpose(2, 3, 1, 0)
         elif leaf == "weight" and arr.ndim == 2:

@@ -950,3 +950,82 @@ def test_one_rank_nccl_sync_modes(cuda, tmp_path):
     finally:
         shutdown_distributed()
         torch.backends.cudnn.deterministic = deterministic
+
+
+def test_vit_and_heads_on_the_card_match_the_cpu(cuda):
+    """ViT-S/16 in f32 (TF32 off) at 224 px, and the v3 heads (projector and
+    predictor, batch 64), card vs CPU from the same weights: the forward and
+    the parameter gradients of a fixed linear function of the output. Each
+    tensor within 1e-4 of its largest entry, plus 4x what a 1e-6 nudge of
+    the weights moves it on the CPU: gradients that are zero in exact
+    arithmetic (the key biases) or cancel through the heads' BatchNorms are
+    float noise on both devices."""
+    from moco_tpu_torch.models.heads import V3Predictor, V3Projector
+    from moco_tpu_torch.models.vit import build_vit
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 224, 224, 3, generator=gen)
+    w = torch.randn(4, 384, generator=gen)
+    z = torch.randn(64, 384, generator=gen)
+    wz = torch.randn(64, 256, generator=gen)
+    res = {}
+    for dev, nudge in (("cpu", 0.0), ("nudged", 1e-6), ("cuda", 0.0)):
+        vit = build_vit("vit_small", generator=torch.Generator().manual_seed(1))
+        heads = torch.nn.Sequential(
+            V3Projector(384, generator=torch.Generator().manual_seed(2)),
+            V3Predictor(256, generator=torch.Generator().manual_seed(3)))
+        noise = torch.Generator().manual_seed(9)
+        with torch.no_grad():
+            for p in [*vit.parameters(), *heads.parameters()]:
+                p.mul_(1 + nudge * torch.randn(p.shape, generator=noise))
+        on = cuda if dev == "cuda" else torch.device("cpu")
+        vit, heads = vit.to(on), heads.to(on)
+        out = vit(x.to(on))
+        (out * w.to(on)).sum().backward()
+        hout = heads(z.to(on))
+        (hout * wz.to(on)).sum().backward()
+        res[dev] = {"vit": out.detach().cpu(), "heads": hout.detach().cpu(), **{
+            pre + n: p.grad.cpu() for m, pre in ((vit, "vit."), (heads, "heads."))
+            for n, p in m.named_parameters() if p.grad is not None}}
+    assert "vit.patch_embed.weight" not in res["cpu"]
+    for k, ref in res["cpu"].items():
+        floor = float((res["nudged"][k] - ref).abs().max())
+        diff = float((res["cuda"][k] - ref).abs().max())
+        assert diff <= 4 * floor + 1e-4 * float(ref.abs().max()), (k, diff, floor)
+
+
+def test_v3_step_and_solarizing_view_on_the_card(cuda):
+    """The v3 view pair on the card launches the blur kernel twice (view 2
+    on the [0, 1] image before solarize) and agrees with the CPU's plain
+    blur from the same draws; two v3 ViT steps (bf16, AdamW) on the card
+    give finite losses and leave the frozen patch embedding as it was."""
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.data import augment as aug
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder, build_train_step
+
+    u8 = torch.randint(0, 256, (8, 224, 224, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(0))
+    ext = torch.full((8,), 224.0)
+    pair = aug.v3_aug_configs(224)
+    gen = torch.Generator().manual_seed(1)
+    draws = [aug.sample_view(ext, ext, c, gen) for c in pair]
+    before = blur.gaussian_blur_batch.launches
+    views = {}
+    for dev in ("cpu", cuda):
+        moved = [dataclasses.replace(p, **{f.name: None if getattr(p, f.name) is None
+                                           else getattr(p, f.name).to(dev)
+                                           for f in dataclasses.fields(p)}) for p in draws]
+        views[str(dev)] = [aug.apply_view(u8.to(dev), p, c).cpu() for p, c in zip(moved, pair)]
+    assert blur.gaussian_blur_batch.launches == before + 2
+    for got, ref in zip(views["cuda"], views["cpu"]):
+        # the crop's f32 source positions (see chip_smoke.py V3_VIEW_RTOL)
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 5e-4
+    config = get_preset("imagenet-moco-v3-vits").replace(batch_size=8, image_size=224)
+    state = create_train_state(config, build_encoder(config), cuda)
+    patch = state.model_q.backbone.patch_embed.weight.detach().clone()
+    step = build_train_step(config, steps_per_epoch=4)
+    for _ in range(2):
+        m = step(state, *(v.to(cuda) for v in views["cpu"]))
+        assert torch.isfinite(m["loss"]).item()
+    assert torch.equal(state.model_q.backbone.patch_embed.weight, patch)

@@ -53,7 +53,9 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
             "moco_tpu_torch.parallel.mesh", "moco_tpu_torch.parallel.collectives",
             "moco_tpu_torch.parallel.gradsync", "moco_tpu_torch.parallel.zero",
             "moco_tpu_torch.data.service.prestage",
-            "moco_tpu_torch.export_detectron2"} <= {m.name for m in expected}
+            "moco_tpu_torch.export_detectron2", "moco_tpu_torch.v3_step",
+            "moco_tpu_torch.models.vit", "moco_tpu_torch.models.heads",
+            "moco_tpu_torch.ops.optim"} <= {m.name for m in expected}
 
 
 TINY = ["--preset", "imagenet-moco-v2", "--dataset", "synthetic", "--arch", "resnet_tiny",
@@ -71,6 +73,32 @@ def test_driver_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         train.main(TINY)
+
+
+V3_TINY = ["--dataset", "synthetic", "--image-size", "32", "--batch-size", "8",
+           "--embed-dim", "16", "--max-steps", "1"]
+V3_ARCHS = {"imagenet-moco-v3-vits": "vit_tiny", "imagenet-moco-v3-vitb": "vit_tiny",
+            "imagenet-moco-v3-r50": "resnet_tiny"}
+
+
+@pytest.mark.parametrize("preset", sorted(V3_ARCHS))
+def test_v3_presets_run_on_the_cpu_when_asked_and_set_the_policy(preset, capsys):
+    """Each v3 preset through `main` (the arch cut to a tiny one): a step on
+    the CPU with `--device cpu`, the precision policy set, and a raise
+    without it where there is no card."""
+    argv = ["--preset", preset, "--arch", V3_ARCHS[preset]] + V3_TINY
+    _tf32_on()
+    train.main(argv + ["--device", "cpu"])
+    assert _policy_set()
+    out = capsys.readouterr().out
+    assert "step 1 loss" in out and "momentum" in out and "queue_ptr" not in out
+
+
+@pytest.mark.parametrize("preset", sorted(V3_ARCHS))
+def test_v3_presets_without_a_card_raise(preset, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        train.main(["--preset", preset, "--arch", V3_ARCHS[preset]] + V3_TINY)
 
 
 def test_kernel_wrappers_refuse_other_devices():

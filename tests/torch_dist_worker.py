@@ -274,3 +274,57 @@ def run_functions(inputs: str, out_dir: str) -> None:
     out["demo"] = {"delta": {n: p.grad.clone() for n, p in module.named_parameters()},
                    "acc": {n: a.clone() for n, a in state.gradsync.items()}}
     torch.save(out, _out(out_dir, "functions"))
+
+
+def _v3_model(spec: dict):
+    """The tiny V3Model of `spec`: a `vit_tiny` or a 2-stage Bottleneck
+    ResNet backbone with the heads."""
+    from moco_tpu_torch.models import resnet, vit
+    from moco_tpu_torch.v3_step import V3Model
+
+    if spec["arch"] == "vit_tiny":
+        backbone = vit.build_vit("vit_tiny", image_size=spec["image_size"])
+    else:
+        backbone = resnet.ResNet((1, 1), resnet.Bottleneck, width=8, num_classes=None)
+    return V3Model(backbone, embed_dim=spec["embed_dim"], hidden_dim=spec["hidden_dim"])
+
+
+def run_v3_steps(inputs: str, out_dir: str) -> None:
+    """v3 steps of the port from the saved initial weights, this process on
+    its rows of each global batch: saves each step's metrics, the synced
+    gradient of the first step (before the optimizer; the step leaves it
+    in `.grad`), this process's keys of the first batch's view 1 from the
+    initial key model, and both models at the end."""
+    import copy
+
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.ops.losses import l2_normalize
+    from moco_tpu_torch.parallel.gradsync import GradSync
+    from moco_tpu_torch.parallel.mesh import rank, world_size
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_train_step
+
+    data = torch.load(inputs, weights_only=False)
+    group = _group()
+    n, r = world_size(group), rank(group)
+    config = PretrainConfig(**data["config"])
+    state = create_train_state(config, _v3_model(data["model"]), "cpu", seed=0, group=group)
+    GradSync(config, group).attach(state)
+    sd = data["state_dict"]
+    state.model_q.load_state_dict(sd)
+    state.model_k.load_state_dict({k: v for k, v in sd.items()
+                                   if not k.startswith("predictor.")})
+    b = data["images"][0][0].shape[0] // n
+    with torch.no_grad():
+        keys = l2_normalize(copy.deepcopy(state.model_k)(data["images"][0][0][r * b:(r + 1) * b]))
+    step = build_train_step(config, data["steps_per_epoch"], group=group)
+    metrics, grads = [], None
+    for x1, x2 in data["images"]:
+        m = step(state, x1[r * b:(r + 1) * b], x2[r * b:(r + 1) * b])
+        metrics.append({k: float(v) for k, v in m.items()})
+        if grads is None:
+            grads = {k: p.grad.clone() for k, p in state.model_q.named_parameters()
+                     if p.grad is not None}
+    torch.save({"metrics": metrics, "grads": grads, "keys": keys,
+                "q": state.model_q.state_dict(), "k": state.model_k.state_dict()},
+               _out(out_dir, "v3"))
