@@ -103,6 +103,33 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             for bit. `python3 chip_smoke.py --phase8` runs phase 8 alone;
             under `torchrun --nproc-per-node <cards> chip_smoke.py --phase8`
             it runs (a) over every card at 1024 a card, remat on.
+9.  phase9  the run telemetry and learning health, right after phase 8 on
+            its data, under deterministic cuDNN: (a) phase 3's configuration
+            for 10 steps (12 batches an epoch) with `telemetry_dir`,
+            `trace_mode="full"`, `telemetry_stride`, `health_stride` and
+            `telemetry_flush_steps` all 2, with telemetry alone (health off,
+            spans at `steps`), and twice with both off (in the order off,
+            on, telemetry alone, off), metrics on the host at step 1 only:
+            losses, logits, enqueued keys and the whole state equal bit for
+            bit, the kernels' launches equal; its `events.jsonl` holds one
+            run_start naming the card and its datasheet peak, step records
+            1-10 with device_s on the even steps, MFU in (0, 1) on every
+            step, a finite health block on the odd ones, one
+            run_end whose hbm_peak_bytes is within 1% of
+            `max_memory_allocated`; the heartbeat parses, the spans hold
+            stage_batch, decode_slice and h2d_shard; imgs/s with and without
+            telemetry (steps 2-9 on a synchronized clock), MFU and the phase
+            split beside the card's name and power limit; (b) a 4-step run
+            whose `trace.trigger` arms a 2-step capture window with
+            `trace_device_profile`: a trace_capture start and end, and one
+            torch.profiler trace under traces/ naming channel_sums_rows and
+            blur_rows; (d) (a)'s telemetry run in a one-rank NCCL group:
+            comm_s (CUDA events around the gradient sync) and a pod record
+            on the even steps, the state equal to (a)'s bit for bit; (c)
+            `imagenet-moco-v3-vits` at batch 128 (cut for time) with health
+            every 2 steps, 4 steps: MFU on every step, health blocks with
+            the drift and no queue keys, the blur held on the run's own
+            inputs. `python3 chip_smoke.py --phase9` runs phase 9 alone.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -2124,6 +2151,294 @@ def run_v3(counters: dict, dataset, smi: str) -> dict:
     return out
 
 
+PHASE9_STEPS = 10           # (a) and (d): fences (stride 2) on the even steps; the
+                            # timed window is steps 2-9, on 12 batches an epoch
+PHASE9_CAPTURE_STEPS = 4    # (b): a capture window of 2 steps inside a 4-step run
+PHASE9_V3_BATCH = 128       # (c): ViT-S/16, cut from 512 for time
+PHASE9_V3_STEPS = 4
+# (a)'s telemetry: records flushed every 2, fenced and sampled every 2 steps,
+# the health diagnostics every 2 (on state.step 0, 2, 4: records 1, 3, 5)
+PHASE9_TELEMETRY = dict(telemetry_stride=2, health_stride=2, telemetry_flush_steps=2,
+                        trace_mode="full", resilience_sync_steps=2)
+HBM_PEAK_RTOL = 0.01        # run_end's hbm_peak_bytes against max_memory_allocated
+H100_SXM = "NVIDIA H100 80GB HBM3"
+
+
+def _telemetry_train(config, label: str, counters: dict, dataset, steps: int,
+                     per_step: dict = PER_STEP) -> dict:
+    """`train.train` for `steps` steps with every step's loss and logits kept
+    (cloned where the step computes them, no host read), each kernel's
+    launches held to its count a step, and the steady rate over steps 2 to
+    `steps - 1` on a synchronized clock: the card is drained after step 1
+    and before the last step (so the last step's fence still measures its
+    own device time). Metrics reach the host on the first step only
+    (`print_freq`), so the other steps run asynchronously, as a long run's
+    do."""
+    import torch
+
+    from moco_tpu_torch import train, train_step
+
+    losses, logits, clock = [], [], {}
+    real_build, real_logits = train.build_train_step, train_step.infonce_logits
+
+    def capture(*args, **kw):
+        out = real_logits(*args, **kw)
+        logits.append(out[0].detach().clone())
+        return out
+
+    def build(cfg, steps_per_epoch, group=None):
+        step = real_build(cfg, steps_per_epoch, group=group)
+
+        def run(state, im_q, im_k):
+            if state.step == steps - 1:
+                torch.cuda.synchronize()
+                clock["end"] = time.perf_counter()
+            metrics = step(state, im_q, im_k)
+            losses.append(metrics["loss"].detach().clone())
+            if state.step == 1:
+                torch.cuda.synchronize()
+                clock["start"] = time.perf_counter()
+            return metrics
+        return run
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train.build_train_step, train_step.infonce_logits = build, capture
+    try:
+        state, _ = train.train(config, max_steps=steps, device="cuda", dataset=dataset,
+                               on_step=lambda *a: None)
+    finally:
+        train.build_train_step, train_step.infonce_logits = real_build, real_logits
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name in counters:
+        if launches[name] != per_step.get(name, 0) * steps:
+            fail(f"{label}: {name} launched {launches[name]} times in {steps} steps, expected "
+                 f"{per_step.get(name, 0) * steps}", 1)
+    values = [float(v) for v in losses]
+    if len(values) != steps or not all(math.isfinite(v) for v in values):
+        fail(f"{label}: non-finite or missing losses {values}", 1)
+    return dict(state=state, losses=values, logits=logits, launches=launches,
+                max_memory=torch.cuda.max_memory_allocated(),
+                imgs_per_s=config.batch_size * (steps - 2) / (clock["end"] - clock["start"]))
+
+
+def _read_events(tel_dir: Path) -> list[dict]:
+    with open(tel_dir / "events.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_events(records: list[dict], label: str, steps: int, stride: int,
+                  health_stride: int, kind: str, peak) -> list[dict]:
+    """The JAX package's records of a `steps`-step run: one run_start with the
+    card's name and peak, step records 1..steps with device_s on the fenced
+    steps, MFU in (0, 1) on every step, a finite health block on the
+    health-stride steps, one run_end. Returns the step records."""
+    starts = [r for r in records if r["kind"] == "run_start"]
+    ends = [r for r in records if r["kind"] == "run_end"]
+    steps_rec = [r for r in records if r["kind"] == "step"]
+    if len(starts) != 1 or len(ends) != 1:
+        fail(f"{label}: {len(starts)} run_start and {len(ends)} run_end records", 1)
+    if starts[0]["device_kind"] != kind or starts[0]["peak_flops_per_chip"] != peak:
+        fail(f"{label}: run_start names {starts[0]['device_kind']!r} at "
+             f"{starts[0]['peak_flops_per_chip']}, expected {kind!r} at {peak}", 1)
+    if [r["step"] for r in steps_rec] != list(range(1, steps + 1)):
+        fail(f"{label}: step records {[r['step'] for r in steps_rec]}", 1)
+    fenced = [r["step"] for r in steps_rec if "device_s" in r]
+    if fenced != list(range(stride, steps + 1, stride)):
+        fail(f"{label}: device_s on steps {fenced}, expected every {stride}th", 1)
+    if not all(0.0 < r.get("mfu", 0.0) < 1.0 for r in steps_rec):
+        fail(f"{label}: mfu {[r.get('mfu') for r in steps_rec]} not in (0, 1) on every step", 1)
+    with_health = [r["step"] for r in steps_rec if "health" in r]
+    if with_health != list(range(1, steps + 1, health_stride)):
+        fail(f"{label}: health blocks on steps {with_health}", 1)
+    for r in steps_rec:
+        if "health" in r and not all(isinstance(v, float) and math.isfinite(v)
+                                     for v in r["health"].values()):
+            fail(f"{label}: step {r['step']} health block {r['health']} is not finite", 1)
+    return steps_rec
+
+
+def _phase_split(steps_rec: list[dict]) -> dict:
+    """Mean seconds of each phase over steps 2.., the fenced ones for
+    device_s / comm_s; mean MFU over steps 2.."""
+    steady = steps_rec[1:]
+    out = {}
+    for key in ("step_s", "data_s", "host_s", "telemetry_s", "device_s", "comm_s", "mfu"):
+        vals = [r[key] for r in steady if key in r]
+        if vals:
+            out[key] = sum(vals) / len(vals)
+    return out
+
+
+def run_telemetry(counters: dict, dataset, smi: str) -> dict:
+    """Phase 9: the run telemetry and learning health on the card (see the
+    module docstring)."""
+    import tempfile
+
+    import torch
+
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+    from moco_tpu_torch.telemetry.mfu import detect_peak_flops, train_step_flops
+
+    kind = torch.cuda.get_device_name(0)
+    peak = detect_peak_flops(kind)
+    if peak is None or (kind == H100_SXM and peak != 989.4e12):
+        fail(f"phase9: no datasheet peak for {kind!r} ({peak})", 1)
+    base = get_preset("imagenet-moco-v2").replace(
+        dataset="synthetic", batch_size=BATCH, staging_workers=4, prefetch_depth=2,
+        print_freq=1000)
+    # 12 batches an epoch (phase 3's 6, twice): no epoch boundary in a run
+    dataset = _Repeat(dataset, 2 * len(dataset))
+    out = {"device_kind": kind, "peak_flops_per_chip": peak}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="moco_phase9_") as tmp:
+            tmp = Path(tmp)
+            # (a) the v2 step with telemetry and health on, and with both off;
+            # telemetry alone (health off) splits the fence's cost from the
+            # health pull's. In the order off, on, telemetry alone, off.
+            on_cfg = base.replace(telemetry_dir=str(tmp / "a"), **PHASE9_TELEMETRY)
+            off = _telemetry_train(base, "phase9 telemetry off", counters, dataset,
+                                   PHASE9_STEPS)
+            on = _telemetry_train(on_cfg, "phase9 telemetry on", counters, dataset,
+                                  PHASE9_STEPS)
+            tel_cfg = on_cfg.replace(telemetry_dir=str(tmp / "a_tel"), health_stride=0,
+                                     trace_mode="steps")
+            tel = _telemetry_train(tel_cfg, "phase9 telemetry alone", counters, dataset,
+                                   PHASE9_STEPS)
+            off2 = _telemetry_train(base, "phase9 telemetry off, again", counters, dataset,
+                                    PHASE9_STEPS)
+            compare_runs(on, off, "phase9 telemetry and health on vs off", PHASE9_STEPS)
+            compare_runs(tel, off2, "phase9 telemetry alone vs off", PHASE9_STEPS)
+            if not on["launches"] == off["launches"] == tel["launches"]:
+                fail(f"phase9: launches {on['launches']} with telemetry, {off['launches']} "
+                     "without", 1)
+            tel_fenced = [r["step"] for r in _read_events(tmp / "a_tel")
+                          if r["kind"] == "step" and "device_s" in r]
+            if tel_fenced != list(range(2, PHASE9_STEPS + 1, 2)):
+                fail(f"phase9 (a): telemetry alone fenced steps {tel_fenced}", 1)
+            records = _read_events(tmp / "a")
+            steps_rec = _check_events(records, "phase9 (a)", PHASE9_STEPS, 2, 2, kind, peak)
+            tel_split = _phase_split([r for r in _read_events(tmp / "a_tel")
+                                      if r["kind"] == "step"])
+            (end,) = [r for r in records if r["kind"] == "run_end"]
+            if abs(end["hbm_peak_bytes"] - on["max_memory"]) > HBM_PEAK_RTOL * on["max_memory"]:
+                fail(f"phase9: hbm_peak_bytes {end['hbm_peak_bytes']} against "
+                     f"max_memory_allocated {on['max_memory']}", 1)
+            if any("comm_s" in r for r in steps_rec) or any(r["kind"] == "pod"
+                                                             for r in records):
+                fail("phase9 (a): comm_s or a pod record with no process group", 1)
+            with open(tmp / "a" / "heartbeat.json") as f:
+                beat = json.load(f)
+            with open(tmp / "a" / "spans.jsonl") as f:
+                spans = [json.loads(line) for line in f]
+            names = {s["name"] for s in spans}
+            if beat["phase"] != "run_end" or not {"stage_batch", "decode_slice", "h2d_shard",
+                                                  "step"} <= names:
+                fail(f"phase9 (a): heartbeat {beat}, spans {sorted(names)}", 1)
+            split = _phase_split(steps_rec)
+            health = [r["health"] for r in steps_rec if "health" in r]
+            out["a"] = dict(imgs_per_s_on=on["imgs_per_s"], imgs_per_s_off=off["imgs_per_s"],
+                            imgs_per_s_telemetry_alone=tel["imgs_per_s"],
+                            imgs_per_s_off_again=off2["imgs_per_s"], split=split,
+                            split_telemetry_alone=tel_split,
+                            hbm_peak_bytes=end["hbm_peak_bytes"],
+                            max_memory=on["max_memory"], health=health[-1],
+                            mfu_timed=train_step_flops(on_cfg) * on["imgs_per_s"] / BATCH / peak)
+            print(f"phase9 (a) ({smi}): imagenet-moco-v2 B={BATCH}, {PHASE9_STEPS} steps, "
+                  f"metrics on the host at step 1 only; imgs/s over steps 2-{PHASE9_STEPS - 1} "
+                  f"(synchronized clock), in run order: off {off['imgs_per_s']:.1f}, telemetry "
+                  f"+ health (stride 2) {on['imgs_per_s']:.1f}, telemetry alone (fence at "
+                  f"stride 2, spans at steps) {tel['imgs_per_s']:.1f}, off "
+                  f"{off2['imgs_per_s']:.1f}; telemetry alone, phases (mean s, steps 2-"
+                  f"{PHASE9_STEPS}): " + ", ".join(f"{k} {v:.6f}" for k, v in tel_split.items())
+                  + f"; telemetry + health: MFU {split['mfu']:.4f} over the "
+                  f"records of steps 2-{PHASE9_STEPS}, {out['a']['mfu_timed']:.4f} from the "
+                  f"timed rate (peak {peak:.4g} FLOP/s); phases (mean s, steps 2-"
+                  f"{PHASE9_STEPS}): " + ", ".join(f"{k} {v:.6f}" for k, v in split.items()
+                                                   if k != "mfu")
+                  + f"; hbm_peak_bytes {end['hbm_peak_bytes']} vs max_memory_allocated "
+                  f"{on['max_memory']}; spans {len(spans)} ({sorted(names)}); health at step "
+                  f"{steps_rec[-2]['step']}: {health[-1]}", flush=True)
+
+            # (b) a capture window from the trigger file, with a device profile
+            cap_dir = tmp / "b"
+            cap_dir.mkdir()
+            (cap_dir / "trace.trigger").write_text("")
+            cap_cfg = base.replace(telemetry_dir=str(cap_dir), telemetry_stride=2,
+                                   trace_device_profile=True, trace_capture_steps=2)
+            _telemetry_train(cap_cfg, "phase9 capture", counters, dataset,
+                             PHASE9_CAPTURE_STEPS)
+            actions = [r["action"] for r in _read_events(cap_dir)
+                       if r.get("event") == "trace_capture"]
+            traces = sorted((cap_dir / "traces").rglob("trace_*.json"))
+            text = traces[0].read_text() if len(traces) == 1 else ""
+            missing = [k for k in ("channel_sums_rows", "blur_rows") if k not in text]
+            if actions != ["start", "end"] or len(traces) != 1 or missing:
+                fail(f"phase9 (b): capture events {actions}, traces {traces}, kernels "
+                     f"missing from the trace {missing}", 1)
+            out["b"] = dict(trace_bytes=len(text), kernels=["channel_sums_rows", "blur_rows"])
+            print(f"phase9 (b): trace.trigger armed a capture window (events {actions}); "
+                  f"torch.profiler trace {traces[0].relative_to(cap_dir)} ({len(text)} bytes) "
+                  "names channel_sums_rows and blur_rows", flush=True)
+
+            # (d) (a)'s telemetry run in a one-rank NCCL group
+            grp_cfg = on_cfg.replace(telemetry_dir=str(tmp / "d"))
+            init_distributed("cuda", rank=0, world_size=1,
+                             init_method=f"file://{tmp / 'store'}")
+            try:
+                grouped = _telemetry_train(grp_cfg, "phase9 one-rank NCCL group", counters,
+                                           dataset, PHASE9_STEPS)
+            finally:
+                shutdown_distributed()
+            compare_runs(grouped, on, "phase9 one-rank NCCL group vs no group, telemetry on",
+                         PHASE9_STEPS)
+            evens = list(range(2, PHASE9_STEPS + 1, 2))
+            records = _read_events(tmp / "d")
+            steps_rec = _check_events(records, "phase9 (d)", PHASE9_STEPS, 2, 2, kind, peak)
+            comm = [r["step"] for r in steps_rec if "comm_s" in r]
+            pods = [r for r in records if r["kind"] == "pod"]
+            if comm != evens or [p["step"] for p in pods] != evens or any(
+                    p["hosts"] != 1 for p in pods):
+                fail(f"phase9 (d): comm_s on steps {comm}, pod records "
+                     f"{[(p['step'], p['hosts']) for p in pods]}", 1)
+            gsplit = _phase_split(steps_rec)
+            out["d"] = dict(imgs_per_s=grouped["imgs_per_s"], split=gsplit, pod=pods[-1])
+            print(f"phase9 (d): one-rank NCCL group, {grouped['imgs_per_s']:.1f} imgs/s; comm_s "
+                  f"(device time, fused all-reduce) {[r['comm_s'] for r in steps_rec if 'comm_s' in r]}"
+                  f" s on steps {comm}; pod records at {[p['step'] for p in pods]}: {pods[-1]}",
+                  flush=True)
+            del on, off, tel, off2, grouped
+
+            # (c) the v3 leg: ViT-S/16 at B=128 with health every 2 steps
+            v3_cfg = get_preset("imagenet-moco-v3-vits").replace(
+                dataset="synthetic", batch_size=PHASE9_V3_BATCH, staging_workers=4,
+                prefetch_depth=2, print_freq=1, telemetry_dir=str(tmp / "c"),
+                telemetry_stride=2, health_stride=2, telemetry_flush_steps=2)
+            r = _v3_train(v3_cfg, "phase9 (c) vits", counters, dataset, PHASE9_V3_STEPS,
+                          V3_VIT_PER_STEP)
+            steps_rec = _check_events(_read_events(tmp / "c"), "phase9 (c)", PHASE9_V3_STEPS,
+                                      2, 2, kind, peak)
+            blocks = [rec["health"] for rec in steps_rec if "health" in rec]
+            if not all("pdrift" in b and not any(k.startswith("q") for k in b)
+                       for b in blocks):
+                fail(f"phase9 (c): v3 health blocks {blocks}", 1)
+            vsplit = _phase_split(steps_rec)
+            out["c"] = dict(imgs_per_s=r["imgs_per_s"], split=vsplit, health=blocks[-1],
+                            blur=r["blur"])
+            print(f"phase9 (c): imagenet-moco-v3-vits B={PHASE9_V3_BATCH}, {r['imgs_per_s']:.1f} "
+                  f"imgs/s (metrics on the host every step), MFU {vsplit['mfu']:.4f} over steps "
+                  f"2-{PHASE9_V3_STEPS}; health {blocks[-1]}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
 def _v3_states_differ(a, b) -> list[str]:
     """What differs between two v3 TrainStates, bit for bit."""
     import torch
@@ -2221,6 +2536,16 @@ def main() -> None:
                              timeout=60, check=True).stdout.strip().splitlines()[0]
         print(json.dumps({"phase8": run_v3(counters, dataset, smi)}))
         return
+    if "--phase9" in sys.argv[1:]:
+        # phase 9 alone, on one card
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        r = run_telemetry(counters, SyntheticDataset(num_samples=STEPS * BATCH,
+                                                     image_size=224), smi)
+        print(smi)
+        print(json.dumps({"phase9": r}, default=str))
+        return
     if "--phase7" in sys.argv[1:]:
         # phase 7 alone, across every card: under
         # `torchrun --nproc-per-node <cards> chip_smoke.py --phase7`
@@ -2249,6 +2574,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     run_v3(counters, dataset, smi)
+    run_telemetry(counters, dataset, smi)
     del dataset
     print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
           f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "

@@ -16,6 +16,9 @@ gradient-sync knobs and `zero_sharding` carry the JAX package's checks and
 messages; its rule that `zero_sharding` excludes `sharding != "dp"` waits
 for FSDP (`sharding`), which the port does not have yet, and
 `zero_sharding` with AdamW or LARS is not ported yet either: it raises.
+The telemetry, tracing and learning-health fields carry the JAX package's
+defaults and checks; `collapse_rollback` raises (the rollback is not ported
+yet).
 """
 
 from __future__ import annotations
@@ -93,6 +96,47 @@ class PretrainConfig:
     weight_decay: float = 1e-4
     momentum_ramp: bool = False       # v3: cosine ramp of the EMA momentum to 1
     print_freq: int = 10              # -p: metrics reach the host on these steps only
+    tb_dir: str = ""                  # tensorboardX scalar logdir ("" = off)
+    profile_dir: str = ""             # torch.profiler trace of steps [profile_start,
+    profile_start: int = 10           # profile_stop) into this directory ("" = off)
+    profile_stop: int = 20
+    # run telemetry (telemetry/): step phases, MFU, device memory, events
+    telemetry_dir: str = ""           # events.jsonl, heartbeat.json and spans.jsonl
+                                      # land here ("" = telemetry off: the step loop
+                                      # does no telemetry work)
+    telemetry_flush_steps: int = 50   # buffered-record flush cadence, in records
+    heartbeat_secs: float = 1.0       # min seconds between heartbeat.json writes
+    telemetry_stride: int = 16        # every N steps the fence pulls the loss to the
+                                      # host (device_s, comm_s) and memory is sampled;
+                                      # the other steps stay asynchronous (0 = never)
+    peak_flops_per_chip: float = 0.0  # MFU denominator override; 0 = the card's
+                                      # datasheet peak (telemetry/mfu.py; an unknown
+                                      # device reports no MFU)
+    trace_mode: str = "off"           # spans: "off" (capture windows still armable) |
+                                      # "steps" (one a step / staged batch) | "full"
+                                      # (+ decode slices, H2D copies, phase segments)
+    trace_capture_steps: int = 50     # capture-window length in steps (SIGUSR1,
+                                      # <telemetry_dir>/trace.trigger, anomalies)
+    trace_capture_budget: int = 3     # capture windows a run (0 = captures off)
+    trace_slow_step_k: float = 3.0    # arm a capture when step_s (or data_s) exceeds
+                                      # k x its rolling p95
+    trace_device_profile: bool = False  # capture windows also record a torch.profiler
+                                      # trace into <telemetry_dir>/traces/
+    # learning health (telemetry/health.py, resilience/sentinel.py)
+    health_stride: int = 0            # 0 = off; N = the collapse diagnostics every N
+                                      # steps, the step records' `health` block (the
+                                      # trajectory is the same bits either way)
+    collapse_window: int = 50         # CollapseSentinel window, in observations
+    collapse_min_step: int = 0        # predicates evaluate only past this step
+    collapse_acc1: float = 0.0        # predicate: acc1 below this over a window (0 = off)
+    collapse_emb_std: float = 0.0     # predicate: embedding std <= this (0 = off;
+                                      # needs health_stride > 0)
+    collapse_margin: float = 0.0      # predicate: logit margin <= this (0 = off)
+    collapse_rollback: bool = False   # a fired predicate raises into the rollback
+                                      # (not ported yet: refused)
+    resilience_sync_steps: int = 16   # process groups: every N steps the ranks'
+                                      # telemetry vectors are all-gathered into one
+                                      # `pod` record (0 = never)
     # checkpoints (checkpoint.py)
     ckpt_dir: str = ""                # full-state checkpoints ("" = none)
     ckpt_every_epochs: int = 1
@@ -152,6 +196,36 @@ class PretrainConfig:
         if self.zero_sharding and self.optimizer != "sgd":
             raise ValueError(f"zero_sharding with optimizer={self.optimizer!r} is not ported "
                              "yet: ZeRO-1 splits the SGD momentum only")
+        if self.trace_mode not in ("off", "steps", "full"):
+            raise ValueError(f"unknown trace_mode {self.trace_mode!r}; choose from "
+                             "off/steps/full")
+        if self.trace_capture_steps < 1:
+            raise ValueError(f"trace_capture_steps must be >= 1, got "
+                             f"{self.trace_capture_steps}")
+        if self.trace_capture_budget < 0:
+            raise ValueError(f"trace_capture_budget must be >= 0, got "
+                             f"{self.trace_capture_budget}")
+        if self.trace_slow_step_k <= 1.0:
+            raise ValueError(f"trace_slow_step_k must be > 1, got {self.trace_slow_step_k}")
+        if self.health_stride < 0:
+            raise ValueError(f"health_stride must be >= 0, got {self.health_stride}")
+        if self.collapse_window < 1:
+            raise ValueError(f"collapse_window must be >= 1, got {self.collapse_window}")
+        if self.collapse_min_step < 0:
+            raise ValueError(f"collapse_min_step must be >= 0, got {self.collapse_min_step}")
+        for knob in ("collapse_acc1", "collapse_emb_std", "collapse_margin"):
+            if getattr(self, knob) < 0:
+                raise ValueError(f"{knob} must be >= 0 (0 disables the predicate), "
+                                 f"got {getattr(self, knob)}")
+        if self.collapse_emb_std and not self.health_stride:
+            raise ValueError("collapse_emb_std needs health_stride > 0: the embedding-"
+                             "std predicate consumes the stride-sampled in-graph "
+                             "diagnostics and would otherwise watch an empty stream")
+        if self.collapse_rollback:
+            raise ValueError("collapse_rollback is not ported yet: it raises into the "
+                             "bounded checkpoint rollback, which comes with the "
+                             "resilience slice; a fired predicate logs a `health` "
+                             "incident instead")
 
     def replace(self, **kw) -> "PretrainConfig":
         return dataclasses.replace(self, **kw)

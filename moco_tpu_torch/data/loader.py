@@ -16,6 +16,11 @@
   transient read fault retries only its sub-slice, with backoff, without
   reordering or duplicating batches.
 - `epoch_loader`: one epoch of batches through a `Prefetcher`.
+- Spans (`telemetry/trace.py`, the JAX package's names and categories): one
+  `stage_batch` per batch on the coordinator, and at `trace_mode="full"`
+  (or in a capture window) a `decode_slice` per worker sub-slice and an
+  `h2d_shard` per host-to-device copy under it. The default tracer records
+  nothing.
 - `stage_eval_batch`: one padded eval batch on the device.
 
 On `device="cpu"` nothing is pinned and there are no streams: each batch is
@@ -32,6 +37,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from moco_tpu_torch.telemetry.trace import null_tracer
 
 
 def epoch_permutation(n: int, epoch: int, seed: int, global_batch: int) -> np.ndarray:
@@ -133,12 +140,13 @@ class Prefetcher:
     freshly pinned memory, and only with `workers=1`. `depth` is the ready
     queue's capacity in device batches. `trim_h2d` copies only the canvas
     prefix that the batch's extents cover (rounded up to 64). `stats` is an
-    optional `InputPipelineStats`."""
+    optional `InputPipelineStats`; `tracer` a `telemetry/trace.py::Tracer`
+    (default: the null tracer)."""
 
     def __init__(self, dataset, indices: np.ndarray, batch: int, device,
                  depth: int = 2, retries: int = 3, backoff_secs: float = 0.5,
                  join_timeout: float = 5.0, workers: int = 1, stats=None,
-                 trim_h2d: bool = False):
+                 trim_h2d: bool = False, tracer=None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self.device = torch.device(device)
@@ -156,6 +164,10 @@ class Prefetcher:
         self._stats = stats
         if stats is not None:
             stats.note_workers(self.workers)
+        # the coordinator thread has no span stack of its own: its batch
+        # spans parent under the constructing thread's current span
+        self._tracer = tracer if tracer is not None else null_tracer()
+        self._trace_parent = self._tracer.current_context()
         self._cuda = self.device.type == "cuda"
         # the copies' own stream, made here so a missing card raises in the
         # caller's thread
@@ -185,9 +197,13 @@ class Prefetcher:
                 task = self._tasks.get(timeout=0.1)
             except queue.Empty:
                 continue
-            b, lo, hi, idx, canvas, collector = task
+            b, lo, hi, idx, canvas, collector, trace_ctx = task
             try:
-                self._read_slice_into(b, idx, canvas, lo, hi)
+                # a detail span continuing the coordinator's stage_batch
+                # span (explicit parent: thread-locals do not cross threads)
+                with self._tracer.span("decode_slice", cat="input", detail=True,
+                                       parent=trace_ctx, batch=b, lo=lo, hi=hi):
+                    self._read_slice_into(b, idx, canvas, lo, hi)
                 collector.done_ok()
             except Exception as e:  # routed to the coordinator, which raises it
                 collector.done_err(e)
@@ -231,10 +247,12 @@ class Prefetcher:
         try:
             for b in range(self.num_batches):
                 t0 = time.perf_counter()
-                if self._pool_built:
-                    item = self._stage_pooled(b)
-                else:
-                    item = self._stage_first(b)
+                with self._tracer.span("stage_batch", cat="input",
+                                       parent=self._trace_parent, batch=b) as sp:
+                    if self._pool_built:
+                        item = self._stage_pooled(b, sp.context())
+                    else:
+                        item = self._stage_first(b)
                 if item is None:  # close() during staging
                     return
                 staged_s = time.perf_counter() - t0
@@ -287,7 +305,7 @@ class Prefetcher:
             hosts[0] = hosts[0][:, :th, :tw].contiguous()
         if self._cuda:
             hosts = [h.pin_memory() for h in hosts]
-        return self._to_device(hosts)
+        return self._to_device(b, hosts)
 
     def _get_canvas(self) -> _Canvas | None:
         """Pop a pooled canvas; None on close()."""
@@ -298,7 +316,7 @@ class Prefetcher:
                 continue
         return None
 
-    def _stage_pooled(self, b: int):
+    def _stage_pooled(self, b: int, trace_ctx=None):
         """Decode one batch into a pooled canvas (fanned out to the workers,
         or by this thread with one worker), copy it to the device, and
         recycle the canvas once the copy has completed. None when close()
@@ -310,14 +328,14 @@ class Prefetcher:
             batch_idx = self.indices[b * self.batch:(b + 1) * self.batch]
             if self.workers == 1:
                 self._read_slice_into(b, batch_idx, canvas, 0, self.batch)
-            elif not self._fan_out(b, batch_idx, canvas):
+            elif not self._fan_out(b, batch_idx, canvas, trace_ctx):
                 return None
             imgs = canvas.imgs_t
             if self.trim_h2d:
                 th, tw = trim_extent(imgs.shape, canvas.extents)
                 if (th, tw) != tuple(imgs.shape[1:3]):
                     imgs = canvas.compact(th, tw)
-            item = self._to_device([imgs, canvas.labels_t, canvas.extents_t], copy=True)
+            item = self._to_device(b, [imgs, canvas.labels_t, canvas.extents_t], copy=True)
             if item[1] is not None:
                 # the copy must COMPLETE before the canvas is written again
                 item[1].synchronize()
@@ -325,14 +343,15 @@ class Prefetcher:
             self._free.put(canvas)
         return item
 
-    def _fan_out(self, b: int, batch_idx: np.ndarray, canvas: _Canvas) -> bool:
+    def _fan_out(self, b: int, batch_idx: np.ndarray, canvas: _Canvas,
+                 trace_ctx=None) -> bool:
         """Hand balanced contiguous row ranges to the workers and wait for
         all of them; raise the first worker error; False on close()."""
         collector = _BatchCollector()
         w = self.workers
         for c in range(w):
             lo, hi = self.batch * c // w, self.batch * (c + 1) // w
-            self._tasks.put((b, lo, hi, batch_idx[lo:hi], canvas, collector))
+            self._tasks.put((b, lo, hi, batch_idx[lo:hi], canvas, collector, trace_ctx))
         pending, err = w, None
         while pending:
             try:
@@ -348,16 +367,19 @@ class Prefetcher:
             raise err
         return True
 
-    def _to_device(self, hosts: list, copy: bool = False):
+    def _to_device(self, b: int, hosts: list, copy: bool = False):
         """(device tensors, event of their copy or None). On the CPU the
         tensors are the host ones, copied first where `copy` says the host
-        memory is recycled."""
-        if not self._cuda:
-            return tuple(h.clone() if copy else h for h in hosts), None
-        with torch.cuda.stream(self._stream):
-            dev = tuple(h.to(self.device, non_blocking=True) for h in hosts)
-            event = torch.cuda.Event()
-            event.record(self._stream)
+        memory is recycled. The `h2d_shard` detail span times the enqueue
+        of the copy (on a card the copy itself runs on the side stream)."""
+        with self._tracer.span("h2d_shard", cat="input", detail=True, batch=b,
+                               rows=f"0:{hosts[0].shape[0]}"):
+            if not self._cuda:
+                return tuple(h.clone() if copy else h for h in hosts), None
+            with torch.cuda.stream(self._stream):
+                dev = tuple(h.to(self.device, non_blocking=True) for h in hosts)
+                event = torch.cuda.Event()
+                event.record(self._stream)
         return dev, event
 
     def _put(self, item) -> bool:
@@ -435,14 +457,15 @@ def epoch_loader(dataset, epoch: int, seed: int, global_batch: int, device,
                  skip_batches: int = 0, retries: int = 3, backoff_secs: float = 0.5,
                  depth: int = 2, workers: int = 1, stats=None,
                  trim_h2d: bool = False, num_processes: int = 1,
-                 process_index: int = 0) -> Prefetcher:
+                 process_index: int = 0, tracer=None) -> Prefetcher:
     """One epoch of this process's batches on `device`: its contiguous
     slice of every global batch of the epoch's permutation, which depends on
     `(seed, epoch)` alone. `skip_batches` drops the first N global batches
     at the index level (no decode, no copy), to resume mid-epoch;
     `retries`/`backoff_secs` set the transient-read retry policy;
     `depth`/`workers`/`stats`/`trim_h2d` configure the staging (config:
-    `prefetch_depth`, `staging_workers`, `h2d_trim`)."""
+    `prefetch_depth`, `staging_workers`, `h2d_trim`); `tracer` records its
+    spans."""
     perm = epoch_permutation(len(dataset), epoch, seed, global_batch)
     local = host_shard(perm, global_batch, num_processes, process_index)
     batch = global_batch // num_processes
@@ -450,7 +473,7 @@ def epoch_loader(dataset, epoch: int, seed: int, global_batch: int, device,
         local = local[skip_batches * batch:]
     return Prefetcher(dataset, local, batch, device, depth=depth, retries=retries,
                       backoff_secs=backoff_secs, workers=workers, stats=stats,
-                      trim_h2d=trim_h2d)
+                      trim_h2d=trim_h2d, tracer=tracer)
 
 
 def stage_eval_batch(item, batch: int, device, pad_label: int | None = None):

@@ -1,1 +1,2 @@
-"""Checkpoint integrity sidecars of the port."""
+"""Resilience of the port: checkpoint integrity sidecars, the typed errors
+and the learning-health sentinel."""

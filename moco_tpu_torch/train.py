@@ -45,8 +45,24 @@ number, or `<ckpt_dir>/<step>`), and the resumed epoch skips the batches it
 already used, so a resumed run is the uninterrupted one. `export_path`
 writes the query encoder in the reference's checkpoint dialect at the end.
 `knn_monitor` scores a kNN top-1 of the query encoder's embedding at step 0
-and every `knn_every_epochs` epochs (and at the run's last). Telemetry,
-preemption and rollback are not ported yet.
+and every `knn_every_epochs` epochs (and at the run's last).
+
+With `telemetry_dir` (`--telemetry-dir`) every rank builds a
+`telemetry.RunTelemetry` and rank 0 writes the JAX package's
+`events.jsonl` (run_start, a step record a step with data / host /
+telemetry seconds, imgs/s, MFU against the card's peak, device and host
+memory, device_s and comm_s on every `telemetry_stride`-th step, fenced by
+pulling the loss to the host; pod records under a process group every
+`resilience_sync_steps` steps; incidents; run_end), `heartbeat.json` and
+the spans of `trace_mode` (`spans.jsonl`, with the Prefetcher's staging
+spans); `tools/telemetry_report.py` reads it. With `telemetry_dir=""` the
+loop does no telemetry work. `health_stride` adds the collapse diagnostics
+to the stride steps' metrics (the records' `health` block) and the
+`collapse_*` thresholds arm a `CollapseSentinel`, whose fired predicate is
+one `health` incident. `tb_dir` writes tensorboardX scalars where the
+package is installed; `profile_dir` a `torch.profiler` trace of steps
+[`profile_start`, `profile_stop`). Preemption and rollback are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -75,18 +91,17 @@ from moco_tpu_torch.ops.knn import knn_accuracy
 from moco_tpu_torch.parallel.gradsync import GradSync
 from moco_tpu_torch.parallel.mesh import init_distributed, local_batch_size, process_group, \
     rank, shutdown_distributed, world_size
+from moco_tpu_torch.resilience.errors import DataQualityError
+from moco_tpu_torch.resilience.sentinel import CollapseSentinel
 from moco_tpu_torch.train_state import TrainState, create_train_state
 from moco_tpu_torch.train_step import build_encoder, build_train_step
 from moco_tpu_torch.utils.device import resolve_device, set_precision_policy
+from moco_tpu_torch.utils.logging import ProfilerWindow, ScalarWriter
+from moco_tpu_torch.utils.meters import Throughput
 
 METRIC_NAMES = ("loss", "acc1", "acc5", "pos_sim", "neg_sim", "logit_margin", "lr",
                 "queue_ptr")
 V3_METRIC_NAMES = ("loss", "acc1", "pos_sim", "neg_sim", "logit_margin", "lr", "momentum")
-
-
-class DataQualityError(RuntimeError):
-    """The decode-failure rate crossed `decode_abort_rate`: enough zero
-    canvases to poison training, so going on would waste the run."""
 
 
 def host_metrics(metrics: dict) -> dict:
@@ -204,8 +219,9 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
     (default: print it); `seconds` is the host time per step since the
     previous print, ending with the metrics on the host, which waits for the
     device. `stats` is an optional `InputPipelineStats` the input pipeline
-    reports to. In a process group (`parallel/mesh.py::init_distributed`)
-    this process trains its slice of each global batch on `device`."""
+    reports to (with telemetry on, the telemetry's own by default). In a
+    process group (`parallel/mesh.py::init_distributed`) this process trains
+    its slice of each global batch on `device`."""
     set_precision_policy()
     dev = resolve_device(device)
     group = process_group()
@@ -224,10 +240,6 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
                                     image_size=config.image_size,
                                     stage_size=config.stage_size,
                                     num_workers=config.num_workers)
-    if config.input_cache_mb and not config.input_prestage:
-        # a prestage already holds every canvas; caching it again would
-        # duplicate in RAM what the page cache shares
-        dataset = CachedDataset(dataset, config.input_cache_mb, stats=stats)
     if len(dataset) < config.batch_size:
         raise ValueError(f"the dataset holds {len(dataset)} samples, fewer than one batch "
                          f"of {config.batch_size}")
@@ -242,119 +254,251 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
         if is_main:
             print(msg, flush=True)
 
-    # under zero_sharding the optimizer splits the momentum over the group;
-    # a restore into it keeps this process's slices (the JAX driver's
-    # shard_opt_state after the resume)
-    state = create_train_state(config, build_encoder(config), dev, seed=config.seed,
-                               group=group)
-    # the gradient sync's per-process accumulators, attached before any
-    # resume so that a restore fills them (or restarts them from zeros)
-    gradsync = GradSync(config, group)
-    gradsync.attach(state)
-    if group is not None:
-        report(f"grad_sync: {gradsync.describe(state.model_q.named_parameters())}")
-    mgr = checkpoint_manager(config.ckpt_dir) if config.ckpt_dir else None
-    # every process restores the state, and its own accumulators
-    state = maybe_resume(mgr, state, config.resume, group)
-    # the data-stream position: the sidecar of the restored step, else step
-    # arithmetic; the resumed epoch skips the batches it already used (the
-    # epoch permutation is deterministic, so batch i is the interrupted
-    # run's batch i). Positions count global batches, so a restore at
-    # another world size resumes at the same place.
-    pos = None
-    if state.step:
-        ckpt_from = resume_dir(mgr, config.resume)
-        pos = read_position(ckpt_from, state.step)
-        saved_under = read_recorded_devices(ckpt_from, state.step)
-        report(f"resumed at step {state.step}" + (
-            f" (saved under {saved_under} processes, now {world})"
-            if saved_under not in (None, world) else ""))
-    epoch, skip = pos if pos is not None else divmod(state.step, steps_per_epoch)
+    # run telemetry: every rank builds one (the pod all-gather needs every
+    # rank's vector), rank 0 alone writes; None when off, and then the loop
+    # below runs no telemetry code. Built before the cache wrap, so that
+    # the cache reports into its input statistics.
+    telemetry = None
+    if config.telemetry_dir:
+        from moco_tpu_torch.telemetry.run import RunTelemetry, health_block
 
-    step_fn = build_train_step(config, steps_per_epoch, group=group)
-    aug_cfg = aug_config_for(config)
-    # each process draws the views of the whole global batch and keeps its rows
-    rows = None if group is None else (me * local_b, config.batch_size)
-    history = []
-    feature_fn = monitor_val = None
-    if config.knn_monitor:
-        feature_fn = make_feature_fn(state.model_q, config.variant)
-        monitor_val = _monitor_val_split(config, dataset)
-    baseline_path = os.path.join(mgr.directory, "untrained_baseline.json") if mgr else None
-    # the kNN monitor runs on every process, as the JAX driver's does; only
-    # rank 0 reports and writes
-    if config.knn_monitor and state.step == 0:
-        # what random features score on the same data, before any step
-        acc0, is_val = knn_monitor(config, feature_fn, state, dataset, monitor_val)
-        tag0 = "knn_val_top1_untrained" if is_val else "knn_train_top1_untrained"
-        history.append({"step": 0, tag0: acc0})
-        report(f"Epoch [-1] kNN({'val' if is_val else 'train'}) top-1 {100 * acc0:.2f}% "
-               f"(UNTRAINED baseline; chance {100.0 / dataset.num_classes:.2f}%)")
-        if baseline_path and is_main:
-            _write_json(baseline_path, {tag0: acc0})  # a resumed run cannot measure it
-    elif config.knn_monitor and baseline_path and os.path.exists(baseline_path):
-        try:
-            with open(baseline_path) as f:
-                baseline = dict(json.load(f))
-        except (OSError, ValueError, TypeError):
-            baseline = {}  # unreadable: the history carries no baseline
-        if baseline:
-            history.append({"step": 0, **baseline})
-            report(f"kNN untrained baseline {baseline}, restored from {baseline_path}")
-    since, t_last = 0, time.perf_counter()
-    while state.step < total:
-        epoch_start_step = state.step
-        loader = epoch_loader(dataset, epoch, config.seed, config.batch_size, dev,
-                              skip_batches=skip, depth=config.prefetch_depth,
-                              workers=config.staging_workers, stats=stats,
-                              trim_h2d=config.h2d_trim, num_processes=world,
-                              process_index=me)
-        next_batch = skip
-        try:
-            for i, (images, _labels, extents) in enumerate(loader, start=skip):
-                if i >= steps_per_epoch or state.step >= total:
-                    break
-                im_q, im_k = two_crops(images, aug_cfg, state.data_generator, extents, rows)
-                metrics = step_fn(state, im_q, im_k)
-                next_batch = i + 1
-                since += 1
-                check_decode_rate(dataset, config)
-                if i % config.print_freq == 0:
-                    metrics = host_metrics(metrics)
-                    seconds = (time.perf_counter() - t_last) / since
-                    history.append(metrics)
-                    if is_main:
-                        on_step(state.step, metrics, seconds)
-                    since, t_last = 0, time.perf_counter()
-        finally:
-            loader.close_quietly()
-        finished = state.step >= total
-        t_pause = time.perf_counter()
-        # epochs with no step (a resume at an epoch's end) report and save nothing
-        if config.knn_monitor and state.step > epoch_start_step and (
-                (epoch + 1) % config.knn_every_epochs == 0 or epoch == config.epochs - 1
-                or finished):
-            acc, is_val = knn_monitor(config, feature_fn, state, dataset, monitor_val)
-            tag = "knn_val_top1" if is_val else "knn_train_top1"
-            history.append({"step": state.step, tag: acc})
-            report(f"Epoch [{epoch}] kNN({'val' if is_val else 'train'}) top-1 "
-                   f"{100 * acc:.2f}%")
-        if mgr is not None and state.step > epoch_start_step \
-                and (epoch + 1) % config.ckpt_every_epochs == 0:
-            position = (epoch + 1, 0) if next_batch >= steps_per_epoch else (epoch, next_batch)
-            save_checkpoint(mgr, state, state.step, position=position, devices=world,
-                            group=group)
-        epoch, skip = epoch + 1, 0
-        t_last += time.perf_counter() - t_pause  # the printed step time leaves these out
-    if config.export_path and is_main:
-        if config.variant == "v3":
-            export_v3_backbone(state, config.export_path, config.image_size)
-        elif config.arch.startswith("vit"):
-            export_vit_encoder(state, config.export_path, config.image_size)
+        telemetry = RunTelemetry(config, n_chips=world, n_procs=world, process_index=me,
+                                 steps_per_epoch=steps_per_epoch, device=dev)
+        if stats is None:
+            stats = telemetry.input_stats
         else:
-            export_encoder_q(state, config.export_path)
-        print(f"exported encoder -> {config.export_path}", flush=True)
+            telemetry.input_stats = stats
+    tracer = telemetry.tracer if telemetry is not None else None
+    writer = ScalarWriter(config.tb_dir if is_main else "")
+    profiler = ProfilerWindow(config.profile_dir if is_main else "", config.profile_start,
+                              config.profile_stop)
+    # the learning-health sentinel: armed when a predicate has a threshold
+    collapse = None
+    if config.collapse_acc1 or config.collapse_emb_std or config.collapse_margin:
+        collapse = CollapseSentinel(
+            config.collapse_window, acc1_floor=config.collapse_acc1,
+            emb_std_eps=config.collapse_emb_std, margin_eps=config.collapse_margin,
+            min_step=config.collapse_min_step, rollback=config.collapse_rollback)
+    state = None
+    try:
+        if config.input_cache_mb and not config.input_prestage:
+            # a prestage already holds every canvas; caching it again would
+            # duplicate in RAM what the page cache shares
+            dataset = CachedDataset(dataset, config.input_cache_mb, stats=stats)
+
+        # under zero_sharding the optimizer splits the momentum over the group;
+        # a restore into it keeps this process's slices (the JAX driver's
+        # shard_opt_state after the resume)
+        state = create_train_state(config, build_encoder(config), dev, seed=config.seed,
+                                   group=group)
+        # the gradient sync's per-process accumulators, attached before any
+        # resume so that a restore fills them (or restarts them from zeros)
+        gradsync = GradSync(config, group)
+        gradsync.attach(state)
+        if group is not None:
+            report(f"grad_sync: {gradsync.describe(state.model_q.named_parameters())}")
+        mgr = checkpoint_manager(config.ckpt_dir) if config.ckpt_dir else None
+        # every process restores the state, and its own accumulators
+        state = maybe_resume(mgr, state, config.resume, group)
+        if telemetry is not None:
+            # the sync plan: mode, knobs, the JAX package's analytic bytes a step
+            plan = gradsync.describe(state.model_q.named_parameters())
+            plan.pop("carried_bytes_per_step")  # the port's own count, not in the schema
+            telemetry.set_grad_sync(dict(plan, sharding="dp"))
+        # the state's bytes a device, recorded once its first step has made
+        # the optimizer's buffers
+        sharding_pending = telemetry is not None
+        # the data-stream position: the sidecar of the restored step, else step
+        # arithmetic; the resumed epoch skips the batches it already used (the
+        # epoch permutation is deterministic, so batch i is the interrupted
+        # run's batch i). Positions count global batches, so a restore at
+        # another world size resumes at the same place.
+        pos = None
+        if state.step:
+            ckpt_from = resume_dir(mgr, config.resume)
+            pos = read_position(ckpt_from, state.step)
+            saved_under = read_recorded_devices(ckpt_from, state.step)
+            report(f"resumed at step {state.step}" + (
+                f" (saved under {saved_under} processes, now {world})"
+                if saved_under not in (None, world) else ""))
+        epoch, skip = pos if pos is not None else divmod(state.step, steps_per_epoch)
+
+        step_fn = build_train_step(config, steps_per_epoch, group=group)
+        aug_cfg = aug_config_for(config)
+        # each process draws the views of the whole global batch and keeps its rows
+        rows = None if group is None else (me * local_b, config.batch_size)
+        history = []
+        feature_fn = monitor_val = None
+        if config.knn_monitor:
+            feature_fn = make_feature_fn(state.model_q, config.variant)
+            monitor_val = _monitor_val_split(config, dataset)
+        baseline_path = (os.path.join(mgr.directory, "untrained_baseline.json")
+                         if mgr else None)
+        # the kNN monitor runs on every process, as the JAX driver's does; only
+        # rank 0 reports and writes
+        if config.knn_monitor and state.step == 0:
+            # what random features score on the same data, before any step
+            acc0, is_val = knn_monitor(config, feature_fn, state, dataset, monitor_val)
+            tag0 = "knn_val_top1_untrained" if is_val else "knn_train_top1_untrained"
+            history.append({"step": 0, tag0: acc0})
+            report(f"Epoch [-1] kNN({'val' if is_val else 'train'}) top-1 {100 * acc0:.2f}% "
+                   f"(UNTRAINED baseline; chance {100.0 / dataset.num_classes:.2f}%)")
+            if is_main:
+                writer.write(0, {tag0: acc0})
+            if telemetry is not None:
+                telemetry.event("knn_eval", step=0, tag=tag0, acc=float(acc0))
+            if baseline_path and is_main:
+                _write_json(baseline_path, {tag0: acc0})  # a resumed run cannot measure it
+        elif config.knn_monitor and baseline_path and os.path.exists(baseline_path):
+            try:
+                with open(baseline_path) as f:
+                    baseline = dict(json.load(f))
+            except (OSError, ValueError, TypeError):
+                baseline = {}  # unreadable: the history carries no baseline
+            if baseline:
+                history.append({"step": 0, **baseline})
+                report(f"kNN untrained baseline {baseline}, restored from {baseline_path}")
+        since, t_last = 0, time.perf_counter()
+        while state.step < total:
+            epoch_start_step = state.step
+            loader = epoch_loader(dataset, epoch, config.seed, config.batch_size, dev,
+                                  skip_batches=skip, depth=config.prefetch_depth,
+                                  workers=config.staging_workers, stats=stats,
+                                  trim_h2d=config.h2d_trim, num_processes=world,
+                                  process_index=me, tracer=tracer)
+            next_batch = skip
+            # the rolling rate sheds the epoch's first-step stall
+            throughput = Throughput(world, window=32)
+            if telemetry is not None:
+                telemetry.timer.epoch_start()
+            try:
+                for i, (images, _labels, extents) in enumerate(loader, start=skip):
+                    if i >= steps_per_epoch or state.step >= total:
+                        break
+                    if telemetry is not None:
+                        telemetry.timer.mark_data()
+                    profiler.maybe_toggle(state.step)
+                    im_q, im_k = two_crops(images, aug_cfg, state.data_generator, extents,
+                                           rows)
+                    metrics = step_fn(state, im_q, im_k)
+                    # telemetry's comm stamps and the stride's health
+                    # diagnostics leave the metrics the meters see
+                    gs_pre = metrics.pop("gs_comm_pre", None)
+                    gs_post = metrics.pop("gs_comm_post", None)
+                    health_dev = {k: metrics.pop(k) for k in
+                                  [k for k in metrics if k.startswith("h_")]}
+                    next_batch = i + 1
+                    since += 1
+                    if telemetry is not None:
+                        telemetry.timer.mark_dispatch()
+                        if sharding_pending:
+                            from moco_tpu_torch.telemetry.run import state_bytes_per_device
+
+                            sharding_pending = False
+                            telemetry.set_sharding(dict(mode="dp", mesh_shape={"data": world},
+                                                        **state_bytes_per_device(state)))
+                        # stride-gated fence: the other steps stay asynchronous
+                        telemetry.timer.maybe_fence(state.step, metrics["loss"],
+                                                    comm_pre=gs_pre, comm_post=gs_post)
+                    if collapse is not None:
+                        # the diagnostics are real on stride steps only
+                        collapse.observe(state.step, {"logit_margin": metrics["logit_margin"],
+                                                      "acc1": metrics["acc1"], **health_dev},
+                                         pos=(epoch, i))
+                    check_decode_rate(dataset, config)
+                    if (telemetry is not None and group is not None
+                            and config.resilience_sync_steps > 0
+                            and state.step % config.resilience_sync_steps == 0):
+                        # every rank's telemetry vector in one all-gather;
+                        # rank 0 folds them into a `pod` record
+                        telemetry.pod_record(state.step, _all_gather_rows(
+                            telemetry.pod_vector(), dev, group))
+                    step_loss = None
+                    if i % config.print_freq == 0:
+                        metrics = host_metrics(metrics)
+                        step_loss = metrics["loss"]
+                        seconds = (time.perf_counter() - t_last) / since
+                        history.append(metrics)
+                        if is_main:
+                            on_step(state.step, metrics, seconds)
+                            writer.write(state.step, dict(
+                                metrics, imgs_per_sec=throughput.rolling_imgs_per_sec,
+                                imgs_per_sec_per_chip=throughput.rolling_imgs_per_sec
+                                / max(world, 1)))
+                        since, t_last = 0, time.perf_counter()
+                    throughput.update(config.batch_size)
+                    if telemetry is not None:
+                        health = health_block(health_dev, metrics) if health_dev else None
+                        phases = telemetry.timer.finish_step()
+                        if telemetry.on_step(state.step, phases, throughput, loss=step_loss,
+                                             health=health):
+                            writer.flush()
+            finally:
+                loader.close_quietly()
+            if collapse is not None:
+                # the epoch's last observation, before any checkpoint of it
+                collapse.flush()
+            finished = state.step >= total
+            t_pause = time.perf_counter()
+            if telemetry is not None and state.step > epoch_start_step:
+                telemetry.event("epoch_summary", epoch=epoch, step=state.step,
+                                imgs_per_sec=round(throughput.imgs_per_sec, 2),
+                                imgs_per_sec_rolling=round(throughput.rolling_imgs_per_sec,
+                                                           2))
+            # epochs with no step (a resume at an epoch's end) report and save nothing
+            if config.knn_monitor and state.step > epoch_start_step and (
+                    (epoch + 1) % config.knn_every_epochs == 0 or epoch == config.epochs - 1
+                    or finished):
+                if telemetry is not None:
+                    # a supervisor widens its staleness window for the eval
+                    telemetry.phase_beat("eval", state.step)
+                acc, is_val = knn_monitor(config, feature_fn, state, dataset, monitor_val)
+                tag = "knn_val_top1" if is_val else "knn_train_top1"
+                history.append({"step": state.step, tag: acc})
+                report(f"Epoch [{epoch}] kNN({'val' if is_val else 'train'}) top-1 "
+                       f"{100 * acc:.2f}%")
+                if is_main:
+                    writer.write(state.step, {tag: acc})
+                if telemetry is not None:
+                    telemetry.event("knn_eval", step=state.step, epoch=epoch, tag=tag,
+                                    acc=float(acc))
+            if mgr is not None and state.step > epoch_start_step \
+                    and (epoch + 1) % config.ckpt_every_epochs == 0:
+                position = ((epoch + 1, 0) if next_batch >= steps_per_epoch
+                            else (epoch, next_batch))
+                save_checkpoint(mgr, state, state.step, position=position, devices=world,
+                                group=group)
+            epoch, skip = epoch + 1, 0
+            t_last += time.perf_counter() - t_pause  # the printed step time leaves these out
+        if config.export_path and is_main:
+            if config.variant == "v3":
+                export_v3_backbone(state, config.export_path, config.image_size)
+            elif config.arch.startswith("vit"):
+                export_vit_encoder(state, config.export_path, config.image_size)
+            else:
+                export_encoder_q(state, config.export_path)
+            print(f"exported encoder -> {config.export_path}", flush=True)
+    finally:
+        # land the profiler trace and the run_end record even when the loop
+        # raises
+        profiler.close()
+        if telemetry is not None:
+            telemetry.close(scalar_drops=writer.dropped,
+                            last_step=state.step if state is not None else 0,
+                            preempted=False, resized=False)
+        writer.close()
     return state, history
+
+
+def _all_gather_rows(vector: np.ndarray, device, group) -> np.ndarray:
+    """Every rank's float64 `vector`, gathered into `[world, len]` (one
+    `all_gather` on the group's device)."""
+    import torch.distributed as dist
+
+    local = torch.as_tensor(vector, dtype=torch.float64, device=device)
+    rows = [torch.empty_like(local) for _ in range(world_size(group))]
+    dist.all_gather(rows, local, group=group)
+    return torch.stack(rows).cpu().numpy()
 
 
 def main(argv=None) -> None:

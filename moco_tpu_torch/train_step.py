@@ -29,6 +29,7 @@ of `v3_step.py` instead.
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable
 
 import torch
@@ -49,6 +50,7 @@ from moco_tpu_torch.parallel.collectives import all_gather_batch, batch_shuffle,
     batch_unshuffle, local_rows, ring_shuffle
 from moco_tpu_torch.parallel.gradsync import GradSync, mean_tensors_
 from moco_tpu_torch.parallel.mesh import world_size
+from moco_tpu_torch.telemetry import health
 from moco_tpu_torch.train_state import TrainState
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -108,6 +110,17 @@ def lr_schedule(config, steps_per_epoch: int) -> Callable[[int], float]:
     return sched
 
 
+def comm_stamp(device: torch.device):
+    """A gradient-sync timestamp on `device`'s compute stream: a recorded
+    timing CUDA event, or the host clock on the CPU (gloo blocks the host).
+    `telemetry/timing.py::comm_seconds` turns a pair into seconds."""
+    if device.type == "cuda":
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(device))
+        return event
+    return time.perf_counter()
+
+
 def build_train_step(config, steps_per_epoch: int, group=None,
                      perm_fn: Callable[[int, int], torch.Tensor] | None = None):
     """Return `step(state, im_q, im_k) -> metrics`, updating `state` in
@@ -117,7 +130,16 @@ def build_train_step(config, steps_per_epoch: int, group=None,
     permutation (a test hands in the JAX package's). Metric values stay on
     the device until the caller reads them, except `lr` and `queue_ptr`,
     which are host numbers. `variant="v3"`: the v3 step
-    (`v3_step.build_v3_train_step`)."""
+    (`v3_step.build_v3_train_step`).
+
+    With `health_stride > 0` the metrics of a stride step (`state.step %
+    health_stride == 0`, before the increment) also hold the `h_*`
+    diagnostics of `telemetry/health.py`, on the device: the embeddings'
+    std and participation ratio and the gradient norms by layer group from
+    this process's slice and local gradients (averaged over the group with
+    the other metrics), the queue's norms and age, the query-key drift.
+    With telemetry on and a process group, `gs_comm_pre` / `gs_comm_post`
+    stamp the gradient sync (`comm_stamp`) for the driver's phase timer."""
     if config.variant == "v3":
         from moco_tpu_torch.v3_step import build_v3_train_step
 
@@ -126,6 +148,8 @@ def build_train_step(config, steps_per_epoch: int, group=None,
     temperature = config.temperature
     chunks = config.collective_chunks
     gradsync = None if group is None else GradSync(config, group)
+    stride = config.health_stride
+    time_comm = group is not None and bool(config.telemetry_dir)
 
     def key_path(state: TrainState, im_k: torch.Tensor):
         """(this process's keys, the global batch's keys in rank order)."""
@@ -142,6 +166,7 @@ def build_train_step(config, steps_per_epoch: int, group=None,
 
     def step(state: TrainState, im_q: torch.Tensor, im_k: torch.Tensor) -> dict:
         lr = sched(state.step)
+        on_stride = stride > 0 and state.step % stride == 0
         ema_update(state.model_k, state.model_q, config.momentum_ema)
         with torch.no_grad():
             k, k_global = key_path(state, im_k)
@@ -160,8 +185,13 @@ def build_train_step(config, steps_per_epoch: int, group=None,
             metrics = {"loss": loss.detach(), "acc1": acc1, "acc5": acc5,
                        "pos_sim": pos_sim, "neg_sim": neg_sim,
                        "logit_margin": pos_sim - neg_sim}
+            if on_stride:  # the local gradients, before the sync replaces them
+                metrics.update(health.region_health(
+                    q.detach(), k, health.param_grads(state.model_q), state.step, stride))
             if group is not None:
+                comm_pre = comm_stamp(loss.device) if time_comm else None
                 gradsync.finish(state)
+                comm_post = comm_stamp(loss.device) if time_comm else None
                 # BN running statistics: their mean over processes keeps the
                 # replicas equal (in place of DDP's broadcast of rank 0's)
                 mean_tensors_([b for m in (state.model_q, state.model_k)
@@ -169,12 +199,23 @@ def build_train_step(config, steps_per_epoch: int, group=None,
                 values = torch.stack([v.float() for v in metrics.values()])
                 mean_tensors_([values], group)
                 metrics = dict(zip(metrics, values.unbind()))
+        # the replicated state before the update: the queue before the
+        # enqueue, the query encoder before the optimizer, the key encoder
+        # after the EMA
+        if on_stride:
+            metrics.update(health.queue_health(state.queue, state.step, config.batch_size,
+                                               stride))
+            metrics.update(health.param_drift(state.model_q.parameters(),
+                                              state.model_k.parameters(), state.step, stride))
         for g in state.optimizer.param_groups:
             g["lr"] = lr
         state.optimizer.step()
         with torch.no_grad():
             state.queue_ptr = dequeue_and_enqueue(state.queue, state.queue_ptr, k_global)
         state.step += 1
-        return {**metrics, "lr": lr, "queue_ptr": state.queue_ptr}
+        out = {**metrics, "lr": lr, "queue_ptr": state.queue_ptr}
+        if time_comm:
+            out.update(gs_comm_pre=comm_pre, gs_comm_post=comm_post)
+        return out
 
     return step

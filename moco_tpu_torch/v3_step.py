@@ -33,8 +33,11 @@ One step, in the JAX step's order:
 
 The metrics: `loss`, `acc1` (q1 against the gathered k2, raw cosines),
 `pos_sim` (q1 . k2 of the local positives), `neg_sim` (at T = 1),
-`logit_margin`, `lr`, `momentum`. With no process group the step is the
-one-card step, and a one-process group computes the same bits.
+`logit_margin`, `lr`, `momentum`; on a `health_stride` step also the `h_*`
+diagnostics of the v1/v2 step (q1 and the local k2, the local gradients,
+the drift over the EMA-covered parameters: the predictor stays out) but no
+queue's. With no process group the step is the one-card step, and a
+one-process group computes the same bits.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from moco_tpu_torch.ops.losses import l2_normalize, neg_sim_mean, v3_contrastive
 from moco_tpu_torch.parallel.collectives import all_gather_batch
 from moco_tpu_torch.parallel.gradsync import GradSync, mean_tensors_
 from moco_tpu_torch.parallel.mesh import rank
+from moco_tpu_torch.telemetry import health
 from moco_tpu_torch.train_state import TrainState
 
 
@@ -84,16 +88,19 @@ def build_v3_train_step(config, steps_per_epoch: int, group=None):
     device; `group` is the data-parallel process group (None: one
     process). Metric values stay on the device except `lr` and `momentum`,
     which are host numbers."""
-    from moco_tpu_torch.train_step import lr_schedule
+    from moco_tpu_torch.train_step import comm_stamp, lr_schedule
 
     sched = lr_schedule(config, steps_per_epoch)
     total_steps = config.epochs * steps_per_epoch
     temperature = config.temperature
     chunks = config.collective_chunks
     gradsync = None if group is None else GradSync(config, group)
+    stride = config.health_stride
+    time_comm = group is not None and bool(config.telemetry_dir)
 
     def step(state: TrainState, x1: torch.Tensor, x2: torch.Tensor) -> dict:
         lr = sched(state.step)
+        on_stride = stride > 0 and state.step % stride == 0
         m = (momentum_schedule(config.momentum_ema, state.step, total_steps)
              if config.momentum_ramp else config.momentum_ema)
         ema_update(state.model_k, state.model_q, m)
@@ -120,16 +127,31 @@ def build_v3_train_step(config, steps_per_epoch: int, group=None):
             neg_sim = neg_sim_mean(logits, labels, 1.0)
             metrics = {"loss": loss.detach(), "acc1": acc1, "pos_sim": pos_sim,
                        "neg_sim": neg_sim, "logit_margin": pos_sim - neg_sim}
+            if on_stride:  # the local gradients, before the sync replaces them
+                metrics.update(health.region_health(
+                    q1.detach(), k2, health.param_grads(state.model_q), state.step, stride))
             if group is not None:
+                comm_pre = comm_stamp(loss.device) if time_comm else None
                 gradsync.finish(state)
+                comm_post = comm_stamp(loss.device) if time_comm else None
                 mean_tensors_(bn_buffers(state.model_q) + bn_buffers(state.model_k), group)
                 values = torch.stack([v.float() for v in metrics.values()])
                 mean_tensors_([values], group)
                 metrics = dict(zip(metrics, values.unbind()))
+        if on_stride:
+            # the key model's parameters and the query's of the same names
+            # (no predictor), the query's before the update
+            q_params = dict(state.model_q.named_parameters())
+            k_named = list(state.model_k.named_parameters())
+            metrics.update(health.param_drift([q_params[n] for n, _ in k_named],
+                                              [p for _, p in k_named], state.step, stride))
         for g in state.optimizer.param_groups:
             g["lr"] = lr
         state.optimizer.step()
         state.step += 1
-        return {**metrics, "lr": lr, "momentum": m}
+        out = {**metrics, "lr": lr, "momentum": m}
+        if time_comm:
+            out.update(gs_comm_pre=comm_pre, gs_comm_post=comm_post)
+        return out
 
     return step

@@ -250,6 +250,10 @@ def test_two_rank_train_shards_crops_checkpoint_and_resume(tmp_path):
     ("grad_allreduce_dtype", "int8", "unknown grad_allreduce_dtype"),
     ("shuffle_mode", "swap", "unknown shuffle_mode"),
     ("collective_chunks", 0, "collective_chunks"),
+    ("health_stride", -1, "health_stride must be >= 0"),
+    ("collapse_rollback", True, "collapse_rollback is not ported yet"),
+    ("collapse_emb_std", 0.01, "collapse_emb_std needs health_stride > 0"),
+    ("trace_mode", "verbose", "unknown trace_mode"),
 ])
 def test_config_rejects_what_is_not_ported(field, value, match):
     from moco_tpu_torch.config import PretrainConfig

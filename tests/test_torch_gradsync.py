@@ -252,7 +252,12 @@ def test_sync_bytes_per_step_equal_the_jax_number(overrides):
 _BAD_KNOBS = [dict(grad_sync="turbo"), dict(grad_sync_bucket_mb=0),
               dict(grad_sync_quant_dtype="int4"), dict(grad_sync_cadence=0),
               dict(grad_sync_topk=0.0), dict(grad_sync_topk=1.5),
-              dict(grad_sync_demo_beta=1.0)]
+              dict(grad_sync_demo_beta=1.0),
+              # the telemetry and learning-health knobs (the JAX messages too)
+              dict(health_stride=-2), dict(collapse_window=0), dict(collapse_min_step=-1),
+              dict(collapse_margin=-0.1), dict(collapse_emb_std=0.01),
+              dict(trace_mode="all"), dict(trace_capture_steps=0),
+              dict(trace_capture_budget=-1), dict(trace_slow_step_k=1.0)]
 
 
 @pytest.mark.parametrize("bad", _BAD_KNOBS)

@@ -56,6 +56,37 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
             "moco_tpu_torch.export_detectron2", "moco_tpu_torch.v3_step",
             "moco_tpu_torch.models.vit", "moco_tpu_torch.models.heads",
             "moco_tpu_torch.ops.optim"} <= {m.name for m in expected}
+    # the run telemetry, its logging and the learning-health sentinel
+    assert {"moco_tpu_torch.telemetry", "moco_tpu_torch.telemetry.registry",
+            "moco_tpu_torch.telemetry.trace", "moco_tpu_torch.telemetry.timing",
+            "moco_tpu_torch.telemetry.device", "moco_tpu_torch.telemetry.mfu",
+            "moco_tpu_torch.telemetry.pod", "moco_tpu_torch.telemetry.health",
+            "moco_tpu_torch.telemetry.run", "moco_tpu_torch.utils.logging",
+            "moco_tpu_torch.resilience.errors",
+            "moco_tpu_torch.resilience.sentinel"} <= {m.name for m in expected}
+
+
+def test_span_layer_imports_without_torch_or_numpy():
+    """`telemetry/trace.py` and `telemetry/registry.py` stay stdlib-only (an
+    out-of-process supervisor imports them), as the JAX package's do."""
+    probe = textwrap.dedent("""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("torch", "numpy", "jax", "moco_tpu"):
+                    raise ImportError(f"imported {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        from moco_tpu_torch.telemetry import trace, registry
+        from moco_tpu_torch.telemetry import Tracer, MetricsRegistry
+        print(trace.SPANS_FILENAME, registry.EVENTS_FILENAME)
+    """)
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["spans.jsonl", "events.jsonl"]
 
 
 TINY = ["--preset", "imagenet-moco-v2", "--dataset", "synthetic", "--arch", "resnet_tiny",
