@@ -130,6 +130,30 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             every 2 steps, 4 steps: MFU on every step, health blocks with
             the drift and no queue keys, the blur held on the run's own
             inputs. `python3 chip_smoke.py --phase9` runs phase 9 alone.
+10. phase10 the resilience of the driver, right after phase 9 on its data,
+            under deterministic cuDNN, at phase 3's configuration: (a) 10 steps
+            with `loss_sentinel` off, on, on, off: imgs/s over steps 2-9 on a
+            synchronized clock, how many of the sentinel's checks waited for
+            their copy, losses, logits, enqueued keys and state equal bit for
+            bit; (d) on (a)'s state, a synchronous save against two
+            `wait=False` saves (the first with cold pinned memory), each
+            followed at once by a step that updates the state in place: the
+            call's hold, save plus step against a step alone, the manifest
+            absent until `finalize_checkpoints`, the async-saved step
+            restored equal to the synchronous one; (b) 2 steps an epoch, a
+            checkpoint each, `nan_at_step=3`: the sentinel's and the rollback's
+            events (in `events.jsonl` too), final step 5 after 7 executed
+            steps, the time from detection to the restored state, steps 3-5
+            equal to a pass resumed by hand from step 2 with the same skip;
+            (c) a real SIGTERM after step 3 of 5: the emergency checkpoint
+            at (0, 3) with its manifest, the heartbeat's `preempt_exit`, the
+            resumed run's losses, logits, enqueued keys and state equal to
+            the uninterrupted run's; (e) `watchdog_secs` 2 and a 3.3 s slow
+            step: one flag naming step 2, none in two kNN monitor runs held
+            3 s longer; (f) `python -m moco_tpu_torch.train --chaos
+            sigterm_at_step=2` (96 px, batch 64) exits 43. Every run's
+            kernels launch their counts a step executed. `python3
+            chip_smoke.py --phase10` runs phase 10 alone.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -2439,6 +2463,361 @@ def run_telemetry(counters: dict, dataset, smi: str) -> dict:
     return out
 
 
+PHASE10_STEPS = 10          # (a): the sentinel off, on, on, off; timed over steps 2-9
+PHASE10_ROLLBACK = dict(steps_per_epoch=2, epochs=3, max_rollbacks=3)
+PHASE10_NAN_AT = 3          # (b): poisons epoch 1's first batch; restored at step 2,
+PHASE10_ROLLBACK_END = 5    # the rerun skips that batch: steps 3-5 from batches 1, 0, 1
+PHASE10_PREEMPT_STEPS = 5   # (c): uninterrupted run, and SIGTERM after step 3
+PHASE10_SIGTERM_AT = 3
+PHASE10_WATCHDOG_S = 2.0    # (e): the watchdog's interval (polled every 0.5 s), under
+PHASE10_SLOW_MS = 3300      # the slow step's sleep: one flag by 2.5 s, a second needs 4 s
+PHASE10_KNN_SLEEP_S = 3.0   # (e): added to each kNN monitor run inside the loop
+
+
+def _kept_train(config, label: str, counters: dict, dataset, max_steps, run=None) -> dict:
+    """`train.train` (or `run(config)` for another entry) with every executed
+    step's loss (a device copy) and logits kept, each kernel's launches held
+    to its count a step over the steps executed (a rollback executes some
+    twice). Returns the state, history, losses, logits, executed steps and
+    launches."""
+    import torch
+
+    from moco_tpu_torch import train, train_step
+
+    losses, logits = [], []
+    real_build, real_logits = train.build_train_step, train_step.infonce_logits
+
+    def capture(*args, **kw):
+        out = real_logits(*args, **kw)
+        logits.append(out[0].detach().clone())
+        return out
+
+    def build(cfg, steps_per_epoch, group=None):
+        step = real_build(cfg, steps_per_epoch, group=group)
+
+        def one(state, im_q, im_k):
+            metrics = step(state, im_q, im_k)
+            losses.append(metrics["loss"].detach().clone())
+            return metrics
+        return one
+
+    for fn in counters.values():
+        fn.launches = 0
+    train.build_train_step, train_step.infonce_logits = build, capture
+    try:
+        if run is None:
+            state, history = train.train(config, max_steps=max_steps, device="cuda",
+                                         dataset=dataset, on_step=lambda *a: None)
+        else:
+            state, history = run(config)
+    finally:
+        train.build_train_step, train_step.infonce_logits = real_build, real_logits
+    torch.cuda.synchronize()
+    executed = len(losses)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name in counters:
+        if launches[name] != PER_STEP.get(name, 0) * executed:
+            fail(f"{label}: {name} launched {launches[name]} times in {executed} steps, "
+                 f"expected {PER_STEP.get(name, 0) * executed}", 1)
+    return dict(state=state, history=history, losses=[float(v) for v in losses],
+                logits=logits, executed=executed, launches=launches)
+
+
+def _same_steps(a: dict, b: dict, label: str, a_slice: slice, b_slice: slice,
+                states: bool = True) -> None:
+    """Fail unless the kept losses and logits of two runs' step ranges (and,
+    with `states`, their final states) are equal bit for bit."""
+    import torch
+
+    diff = _states_equal(a["state"], b["state"]) if states else []
+    la, lb = a["losses"][a_slice], b["losses"][b_slice]
+    if la != lb:
+        diff.append(f"losses {la} != {lb}")
+    ga, gb = a["logits"][a_slice], b["logits"][b_slice]
+    if len(ga) != len(gb) or not all(torch.equal(x, y) for x, y in zip(ga, gb)):
+        diff.append("logits")
+    if diff:
+        fail(f"{label}: the runs differ in {diff[:6]} (deterministic cuDNN was on)", 1)
+
+
+def run_resilience(counters: dict, dataset, smi: str) -> dict:
+    """Phase 10: the resilience of the driver on the card (see the module
+    docstring). (d) runs right after (a) on its state, so that its first
+    asynchronous save is the process's first (cold pinned memory)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from moco_tpu_torch import checkpoint as ckpt
+    from moco_tpu_torch import train
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.resilience import ChaosPlan, NaNSentinel, StepWatchdog, chaos_context
+    from moco_tpu_torch.resilience.integrity import manifest_path, verify_step
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder
+    from moco_tpu_torch.utils import logging as mlog
+
+    base = get_preset("imagenet-moco-v2").replace(
+        dataset="synthetic", batch_size=BATCH, staging_workers=4, prefetch_depth=2,
+        print_freq=1000)
+    # 12 batches an epoch (phase 3's 6, twice)
+    dataset = _Repeat(dataset, 2 * len(dataset))
+    events = []
+
+    def sink(kind, msg, fields):
+        events.append((time.perf_counter(), kind, msg))
+
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    real_sentinel, real_watchdog, real_knn = train.NaNSentinel, train.StepWatchdog, \
+        train.knn_monitor
+    made = []
+
+    class KeptSentinel(NaNSentinel):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    class KeptWatchdog(StepWatchdog):
+        def __init__(self, interval):
+            super().__init__(interval)
+            made.append(self)
+
+    mlog.add_event_sink(sink)
+    train.NaNSentinel, train.StepWatchdog = KeptSentinel, KeptWatchdog
+    try:
+        with tempfile.TemporaryDirectory(prefix="moco_phase10_") as tmp:
+            tmp = Path(tmp)
+            # (a) the sentinel off, on, on, off
+            off_cfg = base.replace(loss_sentinel=False)
+            runs = []
+            for label, cfg in (("off", off_cfg), ("on", base), ("on, again", base),
+                               ("off, again", off_cfg)):
+                made.clear()
+                r = _telemetry_train(cfg, f"phase10 (a) sentinel {label}", counters, dataset,
+                                     PHASE10_STEPS)
+                sentinels = [m for m in made if isinstance(m, NaNSentinel)]
+                if (len(sentinels) == 1) != cfg.loss_sentinel:
+                    fail(f"phase10 (a): {len(sentinels)} sentinels with loss_sentinel "
+                         f"{cfg.loss_sentinel}", 1)
+                if sentinels and sentinels[0].checks != PHASE10_STEPS:
+                    fail(f"phase10 (a): the sentinel checked {sentinels[0].checks} of "
+                         f"{PHASE10_STEPS} losses", 1)
+                r["blocked"] = sentinels[0].blocked if sentinels else None
+                runs.append(r)
+            off, on, on2, off2 = runs
+            compare_runs(on, off, "phase10 (a) sentinel on vs off", PHASE10_STEPS)
+            compare_runs(on2, off2, "phase10 (a) sentinel on vs off, again", PHASE10_STEPS)
+            out["a"] = dict(imgs_per_s_off=off["imgs_per_s"], imgs_per_s_on=on["imgs_per_s"],
+                            imgs_per_s_on_again=on2["imgs_per_s"],
+                            imgs_per_s_off_again=off2["imgs_per_s"],
+                            blocked=[on["blocked"], on2["blocked"]], checks=PHASE10_STEPS)
+            print(f"phase10 (a) ({smi}): imagenet-moco-v2 B={BATCH}, {PHASE10_STEPS} steps, "
+                  f"imgs/s over steps 2-{PHASE10_STEPS - 1} (synchronized clock), in run "
+                  f"order: sentinel off {off['imgs_per_s']:.1f}, on {on['imgs_per_s']:.1f}, on "
+                  f"{on2['imgs_per_s']:.1f}, off {off2['imgs_per_s']:.1f}; checks that waited "
+                  f"for their copy {on['blocked']} and {on2['blocked']} of {PHASE10_STEPS}; "
+                  "losses, logits, enqueued keys and state equal bit for bit; launches "
+                  f"{on['launches']}", flush=True)
+            state = off2["state"]
+            del off, on, on2, runs
+
+            # (d) the asynchronous save against the synchronous one, on (a)'s state
+            images, _, extents = (torch.from_numpy(a).to("cuda")
+                                  for a in dataset.get_batch(np.arange(BATCH)))
+            step0 = state.step
+            sync_mgr = ckpt.checkpoint_manager(str(tmp / "d_sync"))
+            async_mgr = ckpt.checkpoint_manager(str(tmp / "d_async"))
+            _, sync_s = _cuda_time(lambda: ckpt.save_checkpoint(sync_mgr, state, step0,
+                                                                position=(0, step0)))
+            holds, after_s, finalize_s = [], [], []
+            for n in range(2):
+                if n == 1:  # a step alone, against which the second save's step is read
+                    _, plain_step_s = _cuda_time(
+                        lambda: _step_logits(base, state, images, extents))
+                step = state.step
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt.save_checkpoint(async_mgr, state, step, position=(0, step), wait=False)
+                holds.append(time.perf_counter() - t0)
+                if os.path.exists(manifest_path(async_mgr.directory, step)):
+                    fail("phase10 (d): the manifest exists before finalize_checkpoints", 1)
+                # the next step updates the state in place right behind the copies
+                _step_logits(base, state, images, extents)
+                torch.cuda.synchronize()
+                after_s.append(time.perf_counter() - t0)
+                _, s = _cuda_time(lambda: ckpt.finalize_checkpoints(async_mgr))
+                finalize_s.append(s)
+                if verify_step(async_mgr.directory, step) is not None or not os.path.exists(
+                        manifest_path(async_mgr.directory, step)):
+                    fail(f"phase10 (d): step {step}'s manifest after finalize: "
+                         f"{verify_step(async_mgr.directory, step)}", 1)
+                if n == 0:
+                    # the state the first async save restores to is the synchronous one
+                    a = create_train_state(base, build_encoder(base), "cuda", seed=1)
+                    b = create_train_state(base, build_encoder(base), "cuda", seed=2)
+                    ckpt.restore_checkpoint(sync_mgr, a, step0)
+                    ckpt.restore_checkpoint(async_mgr, b, step0)
+                    diff = _states_equal(a, b)
+                    if diff or not _states_equal(b, state):
+                        fail(f"phase10 (d): the async-saved step restores differently from "
+                             f"the synchronous save ({diff[:5]}), or equals the stepped "
+                             "state", 1)
+                    del a, b
+            nbytes = os.path.getsize(os.path.join(sync_mgr.step_dir(step0), ckpt.STATE_FILE))
+            out["d"] = dict(sync_save_s=sync_s, async_hold_s=holds, plain_step_s=plain_step_s,
+                            step_after_save_s=after_s, finalize_s=finalize_s, bytes=nbytes)
+            print(f"phase10 (d): {nbytes} bytes; synchronous save {sync_s:.4f} s; "
+                  f"asynchronous save returns in {holds[0]:.4f} s (first, cold pinned "
+                  f"memory) and {holds[1]:.4f} s (second); save + the next step "
+                  f"{after_s[0]:.4f} / {after_s[1]:.4f} s against {plain_step_s:.4f} s for a "
+                  f"step alone (synchronized clock); finalize waited {finalize_s[0]:.4f} / "
+                  f"{finalize_s[1]:.4f} s; the manifest appeared at finalize; the async-saved "
+                  "step restores equal to the synchronous save bit for bit", flush=True)
+            del state
+            torch.cuda.empty_cache()
+
+            # (b) a rollback: NaN injected at step 3, restored from the epoch-1 save
+            rb_cfg = base.replace(ckpt_dir=str(tmp / "b"), telemetry_dir=str(tmp / "b_tel"),
+                                  **PHASE10_ROLLBACK)
+            events.clear()
+            t0 = time.perf_counter()
+            with chaos_context(ChaosPlan(nan_at_step=PHASE10_NAN_AT)):
+                rb = _kept_train(rb_cfg, "phase10 (b) rollback", counters, dataset, None)
+            rb_s = time.perf_counter() - t0
+            kinds = [k for _, k, _ in events]
+            t_detect = next(t for t, k, _ in events if k == "sentinel")
+            t_restored = next(t for t, k, m in events if k == "rollback" and "advancing" in m)
+            if rb["state"].step != PHASE10_ROLLBACK_END or rb["executed"] != 7 \
+                    or kinds.count("rollback") != 2 or "sentinel" not in kinds:
+                fail(f"phase10 (b): final step {rb['state'].step} after {rb['executed']} "
+                     f"executed steps, events {kinds}", 1)
+            tel_kinds = [r.get("event") for r in _read_events(tmp / "b_tel")
+                         if r["kind"] == "event"]
+            if "sentinel" not in tel_kinds or "rollback" not in tel_kinds:
+                fail(f"phase10 (b): events.jsonl holds {tel_kinds}", 1)
+            if ckpt.checkpoint_manager(rb_cfg.ckpt_dir).all_steps() != [2, 3, 5]:
+                fail(f"phase10 (b): kept steps "
+                     f"{ckpt.checkpoint_manager(rb_cfg.ckpt_dir).all_steps()}", 1)
+            # the same pass by hand: resumed from the restored step, the same skip
+            ref = _kept_train(
+                rb_cfg, "phase10 (b) resumed by hand", counters, dataset, None,
+                run=lambda cfg: train._train_once(
+                    cfg.replace(ckpt_dir=str(tmp / "b_ref"), telemetry_dir="",
+                                resume=str(tmp / "b" / "2")),
+                    None, "cuda", dataset, lambda *a: None, None,
+                    data_advance=PHASE10_NAN_AT, poison_pos=(1, 0)))
+            _same_steps(rb, ref, "phase10 (b) rollback vs the resumed pass",
+                        slice(4, None), slice(None))
+            out["b"] = dict(final_step=rb["state"].step, executed=rb["executed"],
+                            run_s=rb_s, detect_to_restored_s=t_restored - t_detect)
+            print(f"phase10 (b): nan_at_step={PHASE10_NAN_AT}, 2 steps an epoch: sentinel at "
+                  f"step {PHASE10_NAN_AT}, rollback to step 2, final step {rb['state'].step} "
+                  f"after {rb['executed']} executed steps ({rb_s:.2f} s in all); detection to "
+                  f"restored state {t_restored - t_detect:.4f} s; steps 3-5 equal a pass "
+                  "resumed by hand from step 2 skipping epoch 1's batch 0 bit for bit "
+                  "(losses, logits, state)", flush=True)
+            del rb, ref
+            torch.cuda.empty_cache()
+
+            # (c) SIGTERM mid-epoch, the emergency checkpoint, the resume
+            whole = _kept_train(base, "phase10 (c) uninterrupted", counters, dataset,
+                                PHASE10_PREEMPT_STEPS)
+            pre_cfg = base.replace(ckpt_dir=str(tmp / "c"), telemetry_dir=str(tmp / "c_tel"))
+            events.clear()
+            with chaos_context(ChaosPlan(sigterm_at_step=PHASE10_SIGTERM_AT)):
+                cut = _kept_train(pre_cfg, "phase10 (c) preempted", counters, dataset,
+                                  PHASE10_PREEMPT_STEPS)
+            with open(tmp / "c_tel" / "heartbeat.json") as f:
+                beat = json.load(f)
+            mgr = ckpt.checkpoint_manager(pre_cfg.ckpt_dir)
+            if cut["state"].step != PHASE10_SIGTERM_AT or cut["history"][-1] != {
+                    "step": PHASE10_SIGTERM_AT, "preempted": True} \
+                    or mgr.all_steps() != [PHASE10_SIGTERM_AT] \
+                    or ckpt.read_position(mgr.directory, PHASE10_SIGTERM_AT) != (
+                        0, PHASE10_SIGTERM_AT) \
+                    or verify_step(mgr.directory, PHASE10_SIGTERM_AT) is not None \
+                    or beat["phase"] != "preempt_exit" \
+                    or not any(k == "preempt" and "caught signal" in m for _, k, m in events):
+                fail(f"phase10 (c): stopped at {cut['state'].step}, history end "
+                     f"{cut['history'][-1]}, steps {mgr.all_steps()}, heartbeat "
+                     f"{beat['phase']}, events {[k for _, k, _ in events]}", 1)
+            resumed = _kept_train(pre_cfg.replace(resume="auto", telemetry_dir=""),
+                                  "phase10 (c) resumed", counters, dataset,
+                                  PHASE10_PREEMPT_STEPS)
+            _same_steps(cut, whole, "phase10 (c) preempted vs uninterrupted, steps 1-3",
+                        slice(None), slice(0, PHASE10_SIGTERM_AT), states=False)
+            _same_steps(resumed, whole, "phase10 (c) resumed vs uninterrupted",
+                        slice(None), slice(PHASE10_SIGTERM_AT, None))
+            out["c"] = dict(stopped=PHASE10_SIGTERM_AT, position=[0, PHASE10_SIGTERM_AT],
+                            heartbeat=beat["phase"])
+            print(f"phase10 (c): a real SIGTERM after step {PHASE10_SIGTERM_AT} stopped the "
+                  f"run there; emergency checkpoint at position (0, {PHASE10_SIGTERM_AT}) "
+                  "with its manifest, heartbeat preempt_exit; the resumed run's steps "
+                  f"{PHASE10_SIGTERM_AT + 1}-{PHASE10_PREEMPT_STEPS} (losses, logits, "
+                  "enqueued keys) and final state equal the uninterrupted run's bit for bit",
+                  flush=True)
+            del whole, cut, resumed
+            torch.cuda.empty_cache()
+
+            # (e) the watchdog: one flag for the slow step, none in the kNN monitor
+            def slow_knn(config, feature_fn, state, *args, **kw):
+                if state.step:  # the in-loop runs, under watchdog.suspended()
+                    time.sleep(PHASE10_KNN_SLEEP_S)
+                return real_knn(config, feature_fn, state, *args, **kw)
+
+            wd_cfg = base.replace(steps_per_epoch=2, knn_monitor=True, knn_bank_size=BATCH,
+                                  num_classes=10, watchdog_secs=PHASE10_WATCHDOG_S)
+            made.clear()
+            events.clear()
+            train.knn_monitor = slow_knn
+            with chaos_context(ChaosPlan(slow_at_step=3, slow_ms=PHASE10_SLOW_MS)):
+                wd = _kept_train(wd_cfg, "phase10 (e) watchdog", counters, dataset, 3)
+            train.knn_monitor = real_knn
+            (dog,) = [m for m in made if isinstance(m, StepWatchdog)]
+            flags = [m for _, k, m in events if k == "watchdog"]
+            knn_runs = [h for h in wd["history"] if "knn_train_top1" in h]
+            if dog.stalls != 1 or len(flags) != 1 or "last completed step 2" not in flags[0] \
+                    or [h["step"] for h in knn_runs] != [2, 3]:
+                fail(f"phase10 (e): {dog.stalls} stalls, flags {flags}, kNN runs at "
+                     f"{[h['step'] for h in knn_runs]}", 1)
+            out["e"] = dict(stalls=dog.stalls, flag=flags[0])
+            print(f"phase10 (e): watchdog_secs {PHASE10_WATCHDOG_S}, a {PHASE10_SLOW_MS} ms "
+                  f"slow step 3: one flag ({flags[0]!r}); none in the two kNN monitor runs "
+                  f"(each held {PHASE10_KNN_SLEEP_S} s longer)", flush=True)
+            del wd
+            torch.cuda.empty_cache()
+
+            # (f) the CLI exits 43 after an injected SIGTERM (cut to 96 px and
+            # batch 64: the CLI draws its own 2048 synthetic images)
+            cmd = [sys.executable, "-m", "moco_tpu_torch.train", "--preset",
+                   "imagenet-moco-v2", "--dataset", "synthetic", "--image-size", "96",
+                   "--batch-size", "64", "--steps-per-epoch", "4", "--max-steps", "4",
+                   "--print-freq", "1", "--chaos", "sigterm_at_step=2",
+                   "--ckpt-dir", str(tmp / "f"), "--telemetry-dir", str(tmp / "f_tel")]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            cli_s = time.perf_counter() - t0
+            with open(tmp / "f_tel" / "heartbeat.json") as f:
+                beat = json.load(f)
+            if proc.returncode != 43 or ckpt.checkpoint_manager(
+                    str(tmp / "f")).all_steps() != [2] or beat["phase"] != "preempt_exit":
+                fail(f"phase10 (f): exit {proc.returncode}, heartbeat {beat}, stderr "
+                     f"{proc.stderr[-2000:]}", 1)
+            out["f"] = dict(returncode=proc.returncode, seconds=cli_s)
+            print(f"phase10 (f): `python -m moco_tpu_torch.train ... --chaos "
+                  f"sigterm_at_step=2` exited {proc.returncode} (EXIT_PREEMPTED) in "
+                  f"{cli_s:.1f} s with an emergency checkpoint at step 2", flush=True)
+    finally:
+        mlog.remove_event_sink(sink)
+        train.NaNSentinel, train.StepWatchdog, train.knn_monitor = \
+            real_sentinel, real_watchdog, real_knn
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
 def _v3_states_differ(a, b) -> list[str]:
     """What differs between two v3 TrainStates, bit for bit."""
     import torch
@@ -2546,6 +2925,16 @@ def main() -> None:
         print(smi)
         print(json.dumps({"phase9": r}, default=str))
         return
+    if "--phase10" in sys.argv[1:]:
+        # phase 10 alone, on one card
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        r = run_resilience(counters, SyntheticDataset(num_samples=STEPS * BATCH,
+                                                      image_size=224), smi)
+        print(smi)
+        print(json.dumps({"phase10": r}, default=str))
+        return
     if "--phase7" in sys.argv[1:]:
         # phase 7 alone, across every card: under
         # `torchrun --nproc-per-node <cards> chip_smoke.py --phase7`
@@ -2575,6 +2964,7 @@ def main() -> None:
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     run_v3(counters, dataset, smi)
     run_telemetry(counters, dataset, smi)
+    run_resilience(counters, dataset, smi)
     del dataset
     print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
           f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "

@@ -26,6 +26,17 @@ size. A restore with no step walks back from the newest step past any that
 fails its manifest or its load. Restore loads onto the device of the state
 it fills.
 
+Asynchronous saves. `save_checkpoint(..., wait=False)` writes the position
+sidecar first, then snapshots the state into pinned host memory with
+`non_blocking` copies queued on the current stream, the stream the next
+step runs on, so the step's in-place updates of the parameters, momentum
+and queue come after the copies; a writer thread waits on the copies'
+CUDA event, then serializes and renames the step into place (and prunes
+the steps past `max_to_keep`). The integrity manifest is deferred to the
+next save or to `finalize_checkpoints`, which join the writer first, so
+nothing else touches the directory while it writes; a step the process
+died writing has no manifest and restores as unverified.
+
 The reference checkpoint dialect. `export_encoder_q` writes the query
 encoder under torchvision's names (`module.encoder_q.*`) and tensor layouts,
 the dialect of the reference's checkpoints, as `.npz` or `.safetensors`;
@@ -46,6 +57,7 @@ import json
 import os
 import shutil
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -53,13 +65,17 @@ import torch.distributed as dist
 
 from moco_tpu_torch.parallel.mesh import rank, world_size
 from moco_tpu_torch.resilience.integrity import position_path, verify_step, write_manifest
+from moco_tpu_torch.utils.logging import emit_event
 from moco_tpu_torch.weights import params_from_jax, params_to_jax
 
 STATE_FILE = "state.pt"
 
 
 def _log(event: str, msg: str) -> None:
+    """A `ckpt-*` event: its line on stderr, the event to the run's sinks
+    (`events.jsonl` with telemetry on)."""
     print(f"[{event}] {msg}", file=sys.stderr, flush=True)
+    emit_event(event, msg)
 
 
 # ---------------------------------------------------------------------------
@@ -76,6 +92,9 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         os.makedirs(self.directory, exist_ok=True)
+        self.pending_manifest: int | None = None  # an async save's step, until finalized
+        self._writer: threading.Thread | None = None
+        self._writer_error: BaseException | None = None
 
     def step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
@@ -106,6 +125,31 @@ class CheckpointManager:
         os.replace(tmp, final)
         for s in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self.step_dir(s), ignore_errors=True)
+
+    def save_async(self, step: int, payload: dict, ready=None) -> None:
+        """`save(step, payload)` on a writer thread, once `ready` (a CUDA
+        event behind the payload's copies, or None) has completed."""
+        self.wait_until_finished()
+
+        def write():
+            try:
+                if ready is not None:
+                    ready.synchronize()
+                self.save(step, payload)
+            except BaseException as e:  # re-raised by wait_until_finished
+                self._writer_error = e
+
+        self._writer = threading.Thread(target=write, name=f"ckpt-writer-{step}")
+        self._writer.start()
+
+    def wait_until_finished(self) -> None:
+        """Join the writer thread, if any; re-raise what it raised."""
+        writer, self._writer = self._writer, None
+        if writer is not None:
+            writer.join()
+        err, self._writer_error = self._writer_error, None
+        if err is not None:
+            raise err
 
     def restore(self, step: int) -> dict:
         """The payload of step `step`, its tensors on the CPU."""
@@ -185,15 +229,21 @@ def _prune_sidecars(mgr: CheckpointManager) -> None:
 # ---------------------------------------------------------------------------
 
 
-def cpu_copy(tree):
+def cpu_copy(tree, non_blocking: bool = False):
     """A copy of a nest of dicts, lists and tensors with every tensor on the
-    CPU."""
+    CPU. `non_blocking`: the copy does not wait for the device; each CUDA
+    tensor goes into fresh pinned memory by a copy queued on the current
+    stream (complete once an event recorded after it has)."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        t = tree.detach()
+        if non_blocking and t.is_cuda:
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return out.copy_(t, non_blocking=True)
+        return t.to("cpu", copy=True)
     if isinstance(tree, dict):
-        return {k: cpu_copy(v) for k, v in tree.items()}
+        return {k: cpu_copy(v, non_blocking) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(cpu_copy(v) for v in tree)
+        return type(tree)(cpu_copy(v, non_blocking) for v in tree)
     return tree
 
 
@@ -219,21 +269,26 @@ def gather_gradsync(state, group) -> dict | None:
     return {"mode": state.gradsync_mode, "acc": acc} if r == 0 else None
 
 
-def state_payload(state, optimizer: dict | None = None, gradsync: dict | None = None) -> dict:
+def state_payload(state, optimizer: dict | None = None, gradsync: dict | None = None,
+                  non_blocking: bool = False) -> dict:
     """Everything a `TrainState` holds, as CPU tensors and numbers.
     `optimizer` and `gradsync` are the gathered forms of a process group
     (`ShardedSGD.state_dict()`, `gather_gradsync`); by default this
-    process's own."""
+    process's own. `non_blocking`: see `cpu_copy`."""
+
+    def copy(tree):
+        return cpu_copy(tree, non_blocking)
+
     if optimizer is None:
         optimizer = state.optimizer.state_dict()
     if gradsync is None:
         gradsync = gather_gradsync(state, None)
     return {
         "step": int(state.step),
-        "model_q": cpu_copy(state.model_q.state_dict()),
-        "model_k": cpu_copy(state.model_k.state_dict()),
-        "optimizer": cpu_copy(optimizer),
-        "queue": cpu_copy(state.queue),
+        "model_q": copy(state.model_q.state_dict()),
+        "model_k": copy(state.model_k.state_dict()),
+        "optimizer": copy(optimizer),
+        "queue": copy(state.queue),
         "queue_ptr": int(state.queue_ptr),
         "generator": state.generator.get_state(),
         "data_generator": (None if state.data_generator is None
@@ -323,17 +378,51 @@ def load_state(state, payload: dict, group=None):
 
 def save_checkpoint(mgr: CheckpointManager, state, step: int,
                     position: tuple[int, int] | None = None, devices: int | None = None,
-                    group=None) -> None:
+                    group=None, wait: bool = True) -> None:
     """Save `state` as step `step`: its position sidecar (with the
     `devices` stamp), then the state, then the integrity manifest; then
     drop the sidecars of pruned steps. In a process group every process
     gathers its accumulators and momentum slices to the payload, rank 0
-    writes, and every process waits at a barrier until it has."""
+    writes, and every process waits at a barrier until it has.
+
+    `wait=False` returns once the state's copies are queued (see the module
+    docstring): the payload is written on a thread and the manifest, the
+    sidecar pruning and the barrier wait for the next save or
+    `finalize_checkpoints`. A pending save is finalized first either way."""
+    finalize_checkpoints(mgr, group)
     optimizer = state.optimizer.state_dict()
     gradsync = gather_gradsync(state, group)
     if group is None or dist.get_rank(group) == 0:
         write_position(mgr.directory, step, position, devices)
-        mgr.save(step, state_payload(state, optimizer, gradsync))
+        if wait:
+            mgr.save(step, state_payload(state, optimizer, gradsync))
+            write_manifest(mgr.directory, step)
+            _prune_sidecars(mgr)
+        else:
+            payload = state_payload(state, optimizer, gradsync, non_blocking=True)
+            ready = None
+            device = next(state.model_q.parameters()).device
+            if device.type == "cuda":
+                ready = torch.cuda.Event()
+                # behind every copy queued on the stream the next step runs on
+                ready.record(torch.cuda.current_stream(device))
+            mgr.save_async(step, payload, ready)
+    if not wait:
+        mgr.pending_manifest = step
+    elif group is not None:
+        dist.barrier(group)
+
+
+def finalize_checkpoints(mgr: CheckpointManager, group=None) -> None:
+    """Wait for a pending async save to land, then write its deferred
+    integrity manifest and prune the sidecars (rank 0), and meet the other
+    processes at a barrier. Idempotent; nothing to do when no save is
+    pending."""
+    step, mgr.pending_manifest = mgr.pending_manifest, None
+    if step is None:
+        return
+    if group is None or dist.get_rank(group) == 0:
+        mgr.wait_until_finished()
         write_manifest(mgr.directory, step)
         _prune_sidecars(mgr)
     if group is not None:

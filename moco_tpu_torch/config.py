@@ -16,9 +16,12 @@ gradient-sync knobs and `zero_sharding` carry the JAX package's checks and
 messages; its rule that `zero_sharding` excludes `sharding != "dp"` waits
 for FSDP (`sharding`), which the port does not have yet, and
 `zero_sharding` with AdamW or LARS is not ported yet either: it raises.
-The telemetry, tracing and learning-health fields carry the JAX package's
-defaults and checks; `collapse_rollback` raises (the rollback is not ported
-yet).
+The telemetry, tracing, learning-health and resilience fields carry the
+JAX package's defaults and checks. The port adds checks of its own to the
+resilience knobs, which the JAX package leaves unchecked: `max_rollbacks`,
+`watchdog_secs`, `loader_retries` and `loader_backoff_secs` must be >= 0,
+and `chaos` must parse (with the JAX parser's message) and must not ask
+for `resize_at_step`, since the elastic resize is not ported yet.
 """
 
 from __future__ import annotations
@@ -100,6 +103,8 @@ class PretrainConfig:
     profile_dir: str = ""             # torch.profiler trace of steps [profile_start,
     profile_start: int = 10           # profile_stop) into this directory ("" = off)
     profile_stop: int = 20
+    debug_nans: bool = False          # autograd anomaly mode with its NaN check for the
+                                      # run, and a finite-loss check on print steps
     # run telemetry (telemetry/): step phases, MFU, device memory, events
     telemetry_dir: str = ""           # events.jsonl, heartbeat.json and spans.jsonl
                                       # land here ("" = telemetry off: the step loop
@@ -132,17 +137,29 @@ class PretrainConfig:
     collapse_emb_std: float = 0.0     # predicate: embedding std <= this (0 = off;
                                       # needs health_stride > 0)
     collapse_margin: float = 0.0      # predicate: logit margin <= this (0 = off)
-    collapse_rollback: bool = False   # a fired predicate raises into the rollback
-                                      # (not ported yet: refused)
-    resilience_sync_steps: int = 16   # process groups: every N steps the ranks'
-                                      # telemetry vectors are all-gathered into one
-                                      # `pod` record (0 = never)
+    collapse_rollback: bool = False   # a fired predicate raises CollapseError into the
+                                      # bounded rollback (max_rollbacks-capped) instead of
+                                      # logging a `health` incident
+    resilience_sync_steps: int = 16   # process groups: every N steps the ranks agree on
+                                      # the preemption flag and the decode counters in
+                                      # one all-gather that also carries the telemetry's
+                                      # `pod` record (0 = never: no preemption or decode
+                                      # abort under a group)
     # checkpoints (checkpoint.py)
     ckpt_dir: str = ""                # full-state checkpoints ("" = none)
     ckpt_every_epochs: int = 1
     resume: str = ""                  # "" | "auto" | <step> | <ckpt_dir>/<step>
     export_path: str = ""             # write encoder_q (.npz/.safetensors) at the end
     steps_per_epoch: int | None = None  # derived from the dataset unless set
+    # fault tolerance (resilience/)
+    loss_sentinel: bool = True        # every-step non-finite loss check (one-step lag)
+    max_rollbacks: int = 3            # consecutive rollbacks before the run aborts
+                                      # (0 = a non-finite loss raises at once)
+    watchdog_secs: float = 0.0        # flag when no step completes within this (0 = off)
+    loader_retries: int = 3           # transient read retries a batch (Prefetcher)
+    loader_backoff_secs: float = 0.5  # base backoff between retries (doubling)
+    chaos: str = ""                   # fault-injection spec, e.g. "sigterm_at_step=100"
+                                      # (resilience/chaos.py; also MOCO_TPU_CHAOS)
     # kNN monitor (train.py::knn_monitor)
     knn_monitor: bool = False         # kNN top-1 at step 0 and every knn_every_epochs
     knn_every_epochs: int = 1         # the run's final epoch always reports
@@ -221,11 +238,14 @@ class PretrainConfig:
             raise ValueError("collapse_emb_std needs health_stride > 0: the embedding-"
                              "std predicate consumes the stride-sampled in-graph "
                              "diagnostics and would otherwise watch an empty stream")
-        if self.collapse_rollback:
-            raise ValueError("collapse_rollback is not ported yet: it raises into the "
-                             "bounded checkpoint rollback, which comes with the "
-                             "resilience slice; a fired predicate logs a `health` "
-                             "incident instead")
+        for knob in ("max_rollbacks", "watchdog_secs", "loader_retries",
+                     "loader_backoff_secs"):
+            if getattr(self, knob) < 0:
+                raise ValueError(f"{knob} must be >= 0, got {getattr(self, knob)}")
+        if self.chaos:
+            from moco_tpu_torch.resilience.chaos import parse_chaos_spec, refuse_unported
+
+            refuse_unported(parse_chaos_spec(self.chaos))
 
     def replace(self, **kw) -> "PretrainConfig":
         return dataclasses.replace(self, **kw)

@@ -14,7 +14,8 @@
   running train step. Batches are BIT-IDENTICAL to one-worker staging
   (contiguous sub-slices of the same index order into disjoint rows), and a
   transient read fault retries only its sub-slice, with backoff, without
-  reordering or duplicating batches.
+  reordering or duplicating batches. Each read attempt first polls the
+  installed `ChaosPlan`'s `loader_error_at_batch` (the fault drills).
 - `epoch_loader`: one epoch of batches through a `Prefetcher`.
 - Spans (`telemetry/trace.py`, the JAX package's names and categories): one
   `stage_batch` per batch on the coordinator, and at `trace_mode="full"`
@@ -38,6 +39,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from moco_tpu_torch.resilience.chaos import active_chaos
 from moco_tpu_torch.telemetry.trace import null_tracer
 
 
@@ -216,6 +218,9 @@ class Prefetcher:
         while True:
             t0 = time.perf_counter()
             try:
+                plan = active_chaos()
+                if plan is not None:  # an injected transient fault (the drills)
+                    plan.maybe_loader_error(b)
                 if hasattr(self.dataset, "get_batch_into"):
                     canvas.labels[lo:hi] = self.dataset.get_batch_into(
                         idx, canvas.imgs[lo:hi], canvas.extents[lo:hi])
@@ -274,6 +279,9 @@ class Prefetcher:
         attempt = 0
         while True:
             try:
+                plan = active_chaos()
+                if plan is not None:
+                    plan.maybe_loader_error(b)
                 return self.dataset.get_batch(self.indices[b * self.batch:(b + 1) * self.batch])
             except OSError as e:
                 attempt += 1

@@ -1,11 +1,10 @@
 """Typed fault-tolerance errors (port of `moco_tpu/resilience/errors.py`).
 
-The type encodes the recovery policy: `NonFiniteLossError` (and its
+The type encodes the recovery policy: the Prefetcher retries
+`TransientDataError` with backoff, `NonFiniteLossError` (and its
 `CollapseError`) asks the driver for a checkpoint rollback, and
-`DataQualityError` is a deliberate run-ender that no layer catches. The
-rollback itself is not ported yet (`collapse_rollback` is refused by the
-config); the classes are, so the sentinel raises what the JAX package's
-does."""
+`RollbackExhaustedError` and `DataQualityError` are deliberate run-enders
+that no layer catches (`main()` turns them into their exit codes)."""
 
 from __future__ import annotations
 

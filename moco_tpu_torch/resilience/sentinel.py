@@ -1,22 +1,96 @@
-"""Windowed learning-health sentinel (port of `moco_tpu/resilience/sentinel.py`'s
-`CollapseSentinel`; `NaNSentinel` comes with the rollback).
+"""Every-step learning sentinels (port of `moco_tpu/resilience/sentinel.py`):
+the non-finite loss check and the windowed collapse predicates.
+
+`NaNSentinel` checks EVERY step's loss with a one-step lag: step k's loss is
+held, and checked after step k+1 has been launched, so the host read of
+step k overlaps step k+1 on the card and never stalls the queue. On the
+card the held value is an independent copy: a `non_blocking` copy of the
+loss into one slot of a 2-slot pinned host buffer, with a CUDA event a
+slot, so nothing the next step reuses is read. A non-finite value raises
+`NonFiniteLossError(step, value, pos)`, which the driver answers with a
+bounded checkpoint rollback (`train.train`).
 
 `CollapseSentinel` evaluates windowed predicates over the learning-health
 scalars the step computes (`telemetry/health.py`): an acc1 floor sustained
 over W observations, embedding std pinned at ~0, a vanishing logit margin.
 The scalars are held as device tensors for one step and pulled to the host
-while the next step runs, so the read never stalls the pipeline. A fired
-predicate logs ONE structured `health` incident per excursion (re-armed
-after a clean window); `rollback=True` raises `CollapseError` instead,
-which the config refuses until the rollback is ported.
+while the next step runs. A fired predicate logs ONE structured `health`
+incident per excursion (re-armed after a clean window); `rollback=True`
+raises `CollapseError` into the same rollback instead.
 """
 
 from __future__ import annotations
 
+import math
 from collections import deque
 
-from moco_tpu_torch.resilience.errors import CollapseError
+import torch
+
+from moco_tpu_torch.resilience.errors import CollapseError, NonFiniteLossError
 from moco_tpu_torch.utils.logging import log_event
+
+
+class NaNSentinel:
+    """Hold each step's loss for one step, then check that it is finite.
+
+    `observe(step, loss, pos)` holds step k's loss and checks step k-1's;
+    `flush()` checks the one still held (at an epoch's and the run's end,
+    so no step goes unchecked). `loss` is a tensor (on the card or the CPU)
+    or a plain float (an injected fault). `checks` counts the checks and
+    `blocked` those of a card's loss that found its copy not yet complete
+    (the host then waited for the step before it; the step just launched
+    keeps the card busy meanwhile).
+    """
+
+    def __init__(self) -> None:
+        self._pending: tuple | None = None
+        self._host: torch.Tensor | None = None  # 2 pinned f32 slots
+        self._events: list = []
+        self._slot = 0
+        self.checks = 0
+        self.blocked = 0
+
+    def _hold(self, loss):
+        """(event or None, an independent copy of `loss`)."""
+        if not isinstance(loss, torch.Tensor):
+            return None, float(loss)
+        loss = loss.detach()
+        if not loss.is_cuda:
+            return None, loss.clone()
+        if self._host is None:
+            self._host = torch.empty(2, dtype=torch.float32, pin_memory=True)
+            self._events = [torch.cuda.Event(), torch.cuda.Event()]
+        slot, self._slot = self._slot, 1 - self._slot
+        # queued behind the step on the stream that computed the loss; the
+        # slot was last read when the step before this one was checked
+        self._host[slot:slot + 1].copy_(loss.float().reshape(1), non_blocking=True)
+        self._events[slot].record()
+        return self._events[slot], self._host[slot]
+
+    def observe(self, step: int, loss, pos: tuple[int, int] | None = None) -> None:
+        """`pos` is the `(epoch, batch_index)` the step consumed; it rides
+        the error, so the rollback skips the poisoned batch itself even
+        after earlier skips have drifted the step-to-batch mapping."""
+        prev, self._pending = self._pending, (int(step), *self._hold(loss), pos)
+        if prev is not None:
+            self._check(*prev)
+
+    def flush(self) -> None:
+        prev, self._pending = self._pending, None
+        if prev is not None:
+            self._check(*prev)
+
+    def _check(self, step: int, event, held, pos: tuple[int, int] | None) -> None:
+        self.checks += 1
+        if event is not None:
+            if not event.query():
+                self.blocked += 1
+                event.synchronize()  # a failed launch raises here, as itself
+        value = float(held)
+        if not math.isfinite(value):
+            log_event("sentinel", f"non-finite loss {value!r} at step {step}; requesting "
+                                  "rollback")
+            raise NonFiniteLossError(step, value, pos)
 
 
 class CollapseSentinel:

@@ -61,15 +61,36 @@ to the stride steps' metrics (the records' `health` block) and the
 `collapse_*` thresholds arm a `CollapseSentinel`, whose fired predicate is
 one `health` incident. `tb_dir` writes tensorboardX scalars where the
 package is installed; `profile_dir` a `torch.profiler` trace of steps
-[`profile_start`, `profile_stop`). Preemption and rollback are not ported
-yet.
+[`profile_start`, `profile_stop`).
+
+Resilience (`resilience/`): `loss_sentinel` checks every step's loss one
+step late (a pinned copy the host reads after the next step is launched);
+a non-finite loss, or a fired collapse predicate with `collapse_rollback`,
+makes `train` restore the last good checkpoint, skip the data stream
+through the poisoned batch and run again, up to `max_rollbacks`
+consecutive rollbacks (`RollbackExhaustedError` then). SIGTERM/SIGINT sets
+a flag the loop polls after each step (under a group the ranks agree on it
+every `resilience_sync_steps` steps): the run stops at that step, writes a
+synchronous emergency checkpoint at the mid-epoch position, marks the
+heartbeat `preempt_exit` and returns with `preempted` in its history.
+Epoch-end checkpoints are asynchronous (`save_checkpoint(wait=False)`).
+`watchdog_secs` flags a step that does not end in time (the kNN monitor
+runs with it suspended); `debug_nans` turns on autograd's anomaly mode with
+its NaN check for the run and checks the loss on print steps;
+`loader_retries`/`loader_backoff_secs` set the Prefetcher's retries; `chaos`
+(or `MOCO_TPU_CHAOS`) installs a fault-injection plan for the drills.
+`main()` exits through the codes of `resilience/exitcodes.py`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
+import math
 import os
+import sys
 import time
 from typing import Callable
 
@@ -77,8 +98,8 @@ import numpy as np
 import torch
 
 from moco_tpu_torch.checkpoint import checkpoint_manager, export_encoder_q, \
-    export_v3_backbone, export_vit_encoder, maybe_resume, read_position, \
-    read_recorded_devices, resume_dir, save_checkpoint
+    export_v3_backbone, export_vit_encoder, finalize_checkpoints, maybe_resume, \
+    read_position, read_recorded_devices, resume_dir, save_checkpoint
 from moco_tpu_torch.config import PretrainConfig, add_config_flags, collect_overrides, \
     get_preset, preset_names
 from moco_tpu_torch.data.augment import aug_config_for, two_crops
@@ -91,12 +112,20 @@ from moco_tpu_torch.ops.knn import knn_accuracy
 from moco_tpu_torch.parallel.gradsync import GradSync
 from moco_tpu_torch.parallel.mesh import init_distributed, local_batch_size, process_group, \
     rank, shutdown_distributed, world_size
-from moco_tpu_torch.resilience.errors import DataQualityError
-from moco_tpu_torch.resilience.sentinel import CollapseSentinel
+from moco_tpu_torch.resilience.chaos import active_chaos, clear_chaos, install_chaos, \
+    parse_chaos_spec, refuse_unported
+from moco_tpu_torch.resilience.errors import CollapseError, DataQualityError, \
+    NonFiniteLossError, RollbackExhaustedError
+from moco_tpu_torch.resilience.exitcodes import EXIT_CONFIG_ERROR, EXIT_DATA_QUALITY, \
+    EXIT_PREEMPTED, EXIT_ROLLBACK_EXHAUSTED
+from moco_tpu_torch.resilience.preemption import PreemptionHandler
+from moco_tpu_torch.resilience.sentinel import CollapseSentinel, NaNSentinel
+from moco_tpu_torch.resilience.watchdog import StepWatchdog
+from moco_tpu_torch.telemetry.health import crush_key_params
 from moco_tpu_torch.train_state import TrainState, create_train_state
 from moco_tpu_torch.train_step import build_encoder, build_train_step
 from moco_tpu_torch.utils.device import resolve_device, set_precision_policy
-from moco_tpu_torch.utils.logging import ProfilerWindow, ScalarWriter
+from moco_tpu_torch.utils.logging import ProfilerWindow, ScalarWriter, log_event
 from moco_tpu_torch.utils.meters import Throughput
 
 METRIC_NAMES = ("loss", "acc1", "acc5", "pos_sim", "neg_sim", "logit_margin", "lr",
@@ -118,11 +147,10 @@ def print_step(step: int, metrics: dict, seconds: float, batch: int) -> None:
           flush=True)
 
 
-def check_decode_rate(dataset, config: PretrainConfig) -> None:
+def check_decode_rate(failed: int, total: int, config: PretrainConfig) -> None:
     """Raise `DataQualityError` once the cumulative decode-failure rate
-    exceeds `decode_abort_rate` (after at least one batch's worth)."""
-    failed = getattr(dataset, "decode_failures", 0)
-    total = getattr(dataset, "decode_total", 0)
+    `failed / total` exceeds `decode_abort_rate` (after at least one
+    batch's worth)."""
     if config.decode_abort_rate and total >= config.batch_size \
             and failed / total > config.decode_abort_rate:
         raise DataQualityError(
@@ -214,15 +242,107 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
     """Run up to step `max_steps` (default: the whole schedule) on `dataset`
     (default: the one the config names), resuming first if the config says
     so. Returns the state and a history: the metrics of each print step as
-    host numbers, and `{"step", "knn_*_top1"}` for each kNN monitor run.
+    host numbers, `{"step", "knn_*_top1"}` for each kNN monitor run, and
+    `{"step", "preempted": True}` last when a preemption ended the run.
     `on_step(step, metrics, seconds)` sees every print step on rank 0
     (default: print it); `seconds` is the host time per step since the
     previous print, ending with the metrics on the host, which waits for the
     device. `stats` is an optional `InputPipelineStats` the input pipeline
     reports to (with telemetry on, the telemetry's own by default). In a
     process group (`parallel/mesh.py::init_distributed`) this process trains
-    its slice of each global batch on `device`."""
+    its slice of each global batch on `device`.
+
+    Fault tolerance: SIGTERM/SIGINT finishes the step in flight, writes an
+    emergency checkpoint at the mid-epoch position and returns; a
+    non-finite loss (or, with `collapse_rollback`, a fired collapse
+    predicate) makes a bounded rollback: restore the last good checkpoint,
+    advance the data stream past the poisoned batch, and run again,
+    raising `RollbackExhaustedError` after `max_rollbacks` consecutive
+    rollbacks that made no progress past the poisoned step. A rollback
+    changes the data stream, so the run that follows is not the
+    uninterrupted one; a preempted and resumed run is, bit for bit. The
+    plan of `config.chaos` is installed for the call (an already active
+    plan wins, with a `chaos` event) and cleared after it."""
     set_precision_policy()
+    installed_chaos = False
+    if config.chaos:
+        if active_chaos() is None:
+            plan = parse_chaos_spec(config.chaos)
+            if plan is not None:
+                # fire-once markers across restarts, as an env plan keeps them
+                plan.state_dir = os.environ.get("MOCO_TPU_CHAOS_STATE") or None
+            install_chaos(plan)
+            installed_chaos = True
+        else:
+            log_event("chaos", f"--chaos {config.chaos!r} IGNORED: a plan is already active "
+                               f"for this process ({active_chaos()!r}) — unset MOCO_TPU_CHAOS "
+                               "to use the CLI spec")
+    rollbacks, last_nan_step, data_advance, poison_pos = 0, -1, 0, None
+    run_config = config
+    try:
+        refuse_unported(active_chaos())
+        while True:
+            try:
+                return _train_once(run_config, max_steps, device, dataset, on_step, stats,
+                                   data_advance, poison_pos)
+            except NonFiniteLossError as e:
+                if not config.ckpt_dir or config.max_rollbacks <= 0:
+                    raise
+                # consecutive = no progress: a poisoned step at or before the
+                # last one means the run never got past it
+                rollbacks = rollbacks + 1 if e.step <= last_nan_step else 1
+                last_nan_step = max(last_nan_step, e.step)
+                if rollbacks > config.max_rollbacks:
+                    raise RollbackExhaustedError(
+                        f"{rollbacks} consecutive rollbacks without progress past step "
+                        f"{last_nan_step} (max_rollbacks={config.max_rollbacks}): the "
+                        "divergence is structural, not a poisoned data window — aborting "
+                        "for a human") from e
+                reason = ("representation collapse" if isinstance(e, CollapseError)
+                          else "non-finite loss")
+                log_event("rollback", f"{reason} at step {e.step}: restoring the last good "
+                                      "checkpoint and advancing the data stream past the "
+                                      f"poisoned window (rollback {rollbacks}/"
+                                      f"{config.max_rollbacks})")
+                run_config = config.replace(resume="auto")
+                data_advance, poison_pos = e.step, e.pos
+            # the failed pass's state went with its frames: free its device
+            # memory before the restored state is built
+            gc.collect()
+            if resolve_device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        if installed_chaos:
+            # a plan left installed would hijack the next train() call
+            clear_chaos()
+
+
+def _sync_faults(preempt: bool, failed: int, total: int, telemetry, step: int, dev,
+                 group) -> tuple[bool, int, int]:
+    """The group's agreement on the preemption flag (any rank's) and the
+    decode counters (summed), in one all-gather that also carries each
+    rank's telemetry vector for the `pod` record."""
+    row = [float(preempt), float(failed), float(total)]
+    if telemetry is not None:
+        row += list(telemetry.pod_vector())
+    rows = _all_gather_rows(np.asarray(row, np.float64), dev, group)
+    if telemetry is not None:
+        telemetry.pod_record(step, rows[:, 3:])
+    return bool(rows[:, 0].max()), int(rows[:, 1].sum()), int(rows[:, 2].sum())
+
+
+def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, on_step,
+                stats, data_advance: int = 0,
+                poison_pos: tuple[int, int] | None = None) -> tuple[TrainState, list[dict]]:
+    """One pass of the driver, the body `train` runs again after a rollback.
+    `data_advance` is the poisoned step and `poison_pos` the `(epoch,
+    batch)` it consumed: every batch from the restored position THROUGH
+    the poisoned one is skipped, across epoch boundaries (whole epochs
+    before the poison's, its own through the poisoned batch), so the window
+    is never consumed again. Whatever raises, its `finally` closes the
+    Prefetcher, the profiler, the telemetry (its log_event sink) and the
+    signal handlers, and lands any pending checkpoint before a restore walks
+    the directory."""
     dev = resolve_device(device)
     group = process_group()
     world, me = world_size(group), rank(group)
@@ -257,7 +377,8 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
     # run telemetry: every rank builds one (the pod all-gather needs every
     # rank's vector), rank 0 alone writes; None when off, and then the loop
     # below runs no telemetry code. Built before the cache wrap, so that
-    # the cache reports into its input statistics.
+    # the cache reports into its input statistics, and before the rollback's
+    # events, so that they land in the stream.
     telemetry = None
     if config.telemetry_dir:
         from moco_tpu_torch.telemetry.run import RunTelemetry, health_block
@@ -272,15 +393,25 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
     writer = ScalarWriter(config.tb_dir if is_main else "")
     profiler = ProfilerWindow(config.profile_dir if is_main else "", config.profile_start,
                               config.profile_stop)
-    # the learning-health sentinel: armed when a predicate has a threshold
+    # the every-step sentinels; the collapse one is armed when a predicate
+    # has a threshold
+    sentinel = NaNSentinel() if config.loss_sentinel else None
     collapse = None
     if config.collapse_acc1 or config.collapse_emb_std or config.collapse_margin:
         collapse = CollapseSentinel(
             config.collapse_window, acc1_floor=config.collapse_acc1,
             emb_std_eps=config.collapse_emb_std, margin_eps=config.collapse_margin,
             min_step=config.collapse_min_step, rollback=config.collapse_rollback)
-    state = None
+    plan = active_chaos()
+    anomaly = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    resilience = contextlib.ExitStack()
+    state = mgr = None
+    preempted = False
     try:
+        if config.debug_nans:
+            # the port's jax_debug_nans: autograd raises at the backward op
+            # that made the first NaN
+            torch.autograd.set_detect_anomaly(True, check_nan=True)
         if config.input_cache_mb and not config.input_prestage:
             # a prestage already holds every canvas; caching it again would
             # duplicate in RAM what the page cache shares
@@ -302,9 +433,9 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
         state = maybe_resume(mgr, state, config.resume, group)
         if telemetry is not None:
             # the sync plan: mode, knobs, the JAX package's analytic bytes a step
-            plan = gradsync.describe(state.model_q.named_parameters())
-            plan.pop("carried_bytes_per_step")  # the port's own count, not in the schema
-            telemetry.set_grad_sync(dict(plan, sharding="dp"))
+            sync_plan = gradsync.describe(state.model_q.named_parameters())
+            sync_plan.pop("carried_bytes_per_step")  # the port's own count, not in the schema
+            telemetry.set_grad_sync(dict(sync_plan, sharding="dp"))
         # the state's bytes a device, recorded once its first step has made
         # the optimizer's buffers
         sharding_pending = telemetry is not None
@@ -322,6 +453,15 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
                 f" (saved under {saved_under} processes, now {world})"
                 if saved_under not in (None, world) else ""))
         epoch, skip = pos if pos is not None else divmod(state.step, steps_per_epoch)
+        poison = None
+        if data_advance > state.step:
+            # a rollback: the weights restart from the restored step, the data
+            # stream skips through the poisoned batch
+            poison = (poison_pos if poison_pos is not None
+                      else divmod(data_advance - 1, steps_per_epoch))
+            log_event("rollback", "advancing the data stream past the poisoned window: "
+                                  f"restored step {state.step}, skipping through batch "
+                                  f"{poison[1]} of epoch {poison[0]}")
 
         step_fn = build_train_step(config, steps_per_epoch, group=group)
         aug_cfg = aug_config_for(config)
@@ -358,21 +498,31 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
             if baseline:
                 history.append({"step": 0, **baseline})
                 report(f"kNN untrained baseline {baseline}, restored from {baseline_path}")
+        preempt = resilience.enter_context(PreemptionHandler())
+        watchdog = resilience.enter_context(StepWatchdog(config.watchdog_secs))
         since, t_last = 0, time.perf_counter()
-        while state.step < total:
+        while state.step < total and epoch < config.epochs:
+            if poison is not None and epoch <= poison[0]:
+                # inside the poisoned window: the epochs before the poison's
+                # whole, the poison's own through the poisoned batch
+                skip = steps_per_epoch if epoch < poison[0] else max(skip, poison[1] + 1)
             epoch_start_step = state.step
-            loader = epoch_loader(dataset, epoch, config.seed, config.batch_size, dev,
-                                  skip_batches=skip, depth=config.prefetch_depth,
-                                  workers=config.staging_workers, stats=stats,
-                                  trim_h2d=config.h2d_trim, num_processes=world,
-                                  process_index=me, tracer=tracer)
+            loader = None
+            if skip < steps_per_epoch:
+                loader = epoch_loader(dataset, epoch, config.seed, config.batch_size, dev,
+                                      skip_batches=skip, retries=config.loader_retries,
+                                      backoff_secs=config.loader_backoff_secs,
+                                      depth=config.prefetch_depth,
+                                      workers=config.staging_workers, stats=stats,
+                                      trim_h2d=config.h2d_trim, num_processes=world,
+                                      process_index=me, tracer=tracer)
             next_batch = skip
             # the rolling rate sheds the epoch's first-step stall
             throughput = Throughput(world, window=32)
             if telemetry is not None:
                 telemetry.timer.epoch_start()
             try:
-                for i, (images, _labels, extents) in enumerate(loader, start=skip):
+                for i, (images, _labels, extents) in enumerate(loader or (), start=skip):
                     if i >= steps_per_epoch or state.step >= total:
                         break
                     if telemetry is not None:
@@ -400,23 +550,42 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
                         # stride-gated fence: the other steps stay asynchronous
                         telemetry.timer.maybe_fence(state.step, metrics["loss"],
                                                     comm_pre=gs_pre, comm_post=gs_post)
+                    if plan is not None and plan.maybe_nan(state.step):
+                        # an injected divergence flows through the same metrics
+                        metrics["loss"] = float("nan")
+                    if sentinel is not None:
+                        sentinel.observe(state.step, metrics["loss"], pos=(epoch, i))
                     if collapse is not None:
                         # the diagnostics are real on stride steps only
                         collapse.observe(state.step, {"logit_margin": metrics["logit_margin"],
                                                       "acc1": metrics["acc1"], **health_dev},
                                          pos=(epoch, i))
-                    check_decode_rate(dataset, config)
-                    if (telemetry is not None and group is not None
-                            and config.resilience_sync_steps > 0
-                            and state.step % config.resilience_sync_steps == 0):
-                        # every rank's telemetry vector in one all-gather;
-                        # rank 0 folds them into a `pod` record
-                        telemetry.pod_record(state.step, _all_gather_rows(
-                            telemetry.pod_vector(), dev, group))
+                    if plan is not None:
+                        plan.maybe_slow(state.step)  # inside this step's timer window
+                    watchdog.beat(state.step)
+                    # a rank's fault signals are acted on by every rank at once
+                    # (one rank breaking alone would hang the others in the
+                    # next collective): under a group they are agreed on every
+                    # resilience_sync_steps steps, alone at once
+                    failed = getattr(dataset, "decode_failures", 0)
+                    decoded = getattr(dataset, "decode_total", 0)
+                    agreed = False
+                    if group is not None:
+                        if (config.resilience_sync_steps > 0
+                                and state.step % config.resilience_sync_steps == 0):
+                            agreed, failed, decoded = _sync_faults(
+                                preempt.triggered, failed, decoded, telemetry, state.step,
+                                dev, group)
+                        else:
+                            failed = decoded = 0
+                    check_decode_rate(failed, decoded, config)
                     step_loss = None
                     if i % config.print_freq == 0:
                         metrics = host_metrics(metrics)
                         step_loss = metrics["loss"]
+                        if config.debug_nans and not math.isfinite(step_loss):
+                            raise FloatingPointError(
+                                f"non-finite loss {step_loss} at step {state.step}")
                         seconds = (time.perf_counter() - t_last) / since
                         history.append(metrics)
                         if is_main:
@@ -433,11 +602,33 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
                         if telemetry.on_step(state.step, phases, throughput, loss=step_loss,
                                              health=health):
                             writer.flush()
+                    if plan is not None:
+                        plan.maybe_sigterm(state.step)
+                        if plan.maybe_collapse(state.step):
+                            # every step from the onset: the EMA would heal a
+                            # one-shot crush
+                            crush_key_params(state.model_k)
+                        # after on_step, so the heartbeat records this step
+                        plan.maybe_kill(state.step)
+                        plan.maybe_freeze(state.step)
+                    if agreed or (group is None and preempt.triggered):
+                        # finish the step, then stop; the emergency checkpoint
+                        # follows at a step every rank agrees on
+                        preempted = True
+                        break
             finally:
-                loader.close_quietly()
+                if loader is not None:
+                    # quietly: a pending staging error must not replace the
+                    # exception in flight (disarming the rollback)
+                    loader.close_quietly()
+            if sentinel is not None:
+                # the epoch's last loss, before any checkpoint of it (the
+                # rollback would otherwise restore the very state it escapes)
+                sentinel.flush()
             if collapse is not None:
-                # the epoch's last observation, before any checkpoint of it
                 collapse.flush()
+            if preempted:
+                break  # no epoch eval or save: the emergency checkpoint follows
             finished = state.step >= total
             t_pause = time.perf_counter()
             if telemetry is not None and state.step > epoch_start_step:
@@ -445,14 +636,17 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
                                 imgs_per_sec=round(throughput.imgs_per_sec, 2),
                                 imgs_per_sec_rolling=round(throughput.rolling_imgs_per_sec,
                                                            2))
-            # epochs with no step (a resume at an epoch's end) report and save nothing
+            # epochs with no step (a resume at an epoch's end, an epoch the
+            # rollback skipped) report and save nothing
             if config.knn_monitor and state.step > epoch_start_step and (
                     (epoch + 1) % config.knn_every_epochs == 0 or epoch == config.epochs - 1
                     or finished):
                 if telemetry is not None:
                     # a supervisor widens its staleness window for the eval
                     telemetry.phase_beat("eval", state.step)
-                acc, is_val = knn_monitor(config, feature_fn, state, dataset, monitor_val)
+                with watchdog.suspended():  # minutes with no beat are no hang
+                    acc, is_val = knn_monitor(config, feature_fn, state, dataset,
+                                              monitor_val)
                 tag = "knn_val_top1" if is_val else "knn_train_top1"
                 history.append({"step": state.step, tag: acc})
                 report(f"Epoch [{epoch}] kNN({'val' if is_val else 'train'}) top-1 "
@@ -466,27 +660,49 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
                     and (epoch + 1) % config.ckpt_every_epochs == 0:
                 position = ((epoch + 1, 0) if next_batch >= steps_per_epoch
                             else (epoch, next_batch))
+                # asynchronous: the write overlaps the next epoch's steps
                 save_checkpoint(mgr, state, state.step, position=position, devices=world,
-                                group=group)
+                                group=group, wait=False)
             epoch, skip = epoch + 1, 0
             t_last += time.perf_counter() - t_pause  # the printed step time leaves these out
-        if config.export_path and is_main:
-            if config.variant == "v3":
-                export_v3_backbone(state, config.export_path, config.image_size)
-            elif config.arch.startswith("vit"):
-                export_vit_encoder(state, config.export_path, config.image_size)
-            else:
-                export_encoder_q(state, config.export_path)
-            print(f"exported encoder -> {config.export_path}", flush=True)
+        if sentinel is not None:
+            sentinel.flush()
+        if collapse is not None:
+            collapse.flush()
     finally:
-        # land the profiler trace and the run_end record even when the loop
-        # raises
+        # land the profiler trace and the run_end record, restore the signal
+        # dispositions, stop the watchdog, and land a pending save, even when
+        # the loop raises
+        resilience.close()
+        torch.autograd.set_detect_anomaly(*anomaly)
         profiler.close()
         if telemetry is not None:
+            # `preempted` makes the heartbeat's last phase preempt_exit; the
+            # port has no elastic resize
             telemetry.close(scalar_drops=writer.dropped,
                             last_step=state.step if state is not None else 0,
-                            preempted=False, resized=False)
+                            preempted=preempted, resized=False)
         writer.close()
+        if mgr is not None:
+            finalize_checkpoints(mgr, group)
+    if preempted:
+        if mgr is not None:
+            # synchronous, at the mid-epoch position: the resumed run is the
+            # uninterrupted one bit for bit
+            position = (epoch + 1, 0) if next_batch >= steps_per_epoch else (epoch, next_batch)
+            log_event("preempt", f"writing emergency checkpoint at step {state.step}, then "
+                                 "exiting cleanly", step=state.step, pid=os.getpid())
+            save_checkpoint(mgr, state, state.step, position=position, devices=world,
+                            group=group)
+        history.append({"step": state.step, "preempted": True})
+    elif config.export_path and is_main:
+        if config.variant == "v3":
+            export_v3_backbone(state, config.export_path, config.image_size)
+        elif config.arch.startswith("vit"):
+            export_vit_encoder(state, config.export_path, config.image_size)
+        else:
+            export_encoder_q(state, config.export_path)
+        print(f"exported encoder -> {config.export_path}", flush=True)
     return state, history
 
 
@@ -502,6 +718,12 @@ def _all_gather_rows(vector: np.ndarray, device, group) -> np.ndarray:
 
 
 def main(argv=None) -> None:
+    """CLI entry. Exits through the named codes of `resilience/exitcodes.py`:
+    0 at the run's end, EXIT_PREEMPTED after an honored SIGTERM/SIGINT and
+    its emergency checkpoint, EXIT_ROLLBACK_EXHAUSTED and EXIT_DATA_QUALITY
+    for the run-enders a restart cannot fix, EXIT_CONFIG_ERROR for a bad
+    preset, flag or config. Anything else propagates as a traceback (exit
+    1, a generic crash)."""
     set_precision_policy()
     parser = argparse.ArgumentParser(description="moco_tpu_torch pretraining")
     parser.add_argument("--preset", default="imagenet-moco-v2",
@@ -511,7 +733,12 @@ def main(argv=None) -> None:
                         help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu")
     add_config_flags(parser)
     args = parser.parse_args(argv)
-    config = get_preset(args.preset).replace(**collect_overrides(args))
+    try:
+        config = get_preset(args.preset).replace(**collect_overrides(args))
+    except (TypeError, ValueError) as e:
+        # the same argv can never succeed: the code says "do not restart me"
+        log_event("exit", f"config error: {e}", code=EXIT_CONFIG_ERROR)
+        sys.exit(EXIT_CONFIG_ERROR)
     # under torchrun (WORLD_SIZE > 1) this joins the group; alone it is a no-op
     dev = init_distributed(args.device)
     try:
@@ -520,7 +747,18 @@ def main(argv=None) -> None:
             name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
             print(f"config: {config}\ndevice: {dev} ({name}), {world_size(group)} "
                   f"process(es)", flush=True)
-        train(config, max_steps=args.max_steps, device=dev)
+        try:
+            _state, history = train(config, max_steps=args.max_steps, device=dev)
+        except RollbackExhaustedError as e:
+            log_event("exit", f"rollback budget exhausted: {e}", code=EXIT_ROLLBACK_EXHAUSTED)
+            sys.exit(EXIT_ROLLBACK_EXHAUSTED)
+        except DataQualityError as e:
+            log_event("exit", f"data quality abort: {e}", code=EXIT_DATA_QUALITY)
+            sys.exit(EXIT_DATA_QUALITY)
+        if history and history[-1].get("preempted"):
+            log_event("exit", "preemption honored: emergency checkpoint written, exiting "
+                              "for relaunch", code=EXIT_PREEMPTED)
+            sys.exit(EXIT_PREEMPTED)
     finally:
         shutdown_distributed()
 

@@ -3,7 +3,8 @@
 
 - `log_event` prints one `[kind] msg` line and fans the event out to the
   registered sinks (the run telemetry lands it in `events.jsonl`); a
-  broken sink never raises. `info` is the plain human-facing line.
+  broken sink never raises; `emit_event` is the fan-out alone. `info` is
+  the plain human-facing line.
 - `ScalarWriter`: tensorboardX scalars; a no-op when `logdir` is empty or
   tensorboardX is missing (one `info` line on rank 0 then).
 - `DeviceTrace` and `ProfilerWindow`: `torch.profiler` traces (host and,
@@ -35,6 +36,12 @@ def log_event(kind: str, msg: str, **fields) -> None:
     sink; `fields` ride the sinks only. A sink that raises is reported on
     a line of its own and the run goes on."""
     print(f"[{kind}] {msg}", flush=True)
+    emit_event(kind, msg, **fields)
+
+
+def emit_event(kind: str, msg: str, **fields) -> None:
+    """`log_event` without the line: the sinks alone (for a caller that
+    prints its own line elsewhere)."""
     for sink in list(_EVENT_SINKS):
         try:
             sink(kind, msg, fields)

@@ -251,7 +251,7 @@ def test_two_rank_train_shards_crops_checkpoint_and_resume(tmp_path):
     ("shuffle_mode", "swap", "unknown shuffle_mode"),
     ("collective_chunks", 0, "collective_chunks"),
     ("health_stride", -1, "health_stride must be >= 0"),
-    ("collapse_rollback", True, "collapse_rollback is not ported yet"),
+    ("chaos", "resize_at_step=3", "resize_at_step is not ported yet"),
     ("collapse_emb_std", 0.01, "collapse_emb_std needs health_stride > 0"),
     ("trace_mode", "verbose", "unknown trace_mode"),
 ])
@@ -260,6 +260,14 @@ def test_config_rejects_what_is_not_ported(field, value, match):
 
     with pytest.raises(ValueError, match=match):
         PretrainConfig(**{field: value})
+
+
+def test_config_accepts_collapse_rollback():
+    """Refused until the rollback was ported; `tests/test_torch_resilience_driver.py`
+    drives it into the rollback."""
+    from moco_tpu_torch.config import PretrainConfig
+
+    assert PretrainConfig(collapse_margin=0.01, collapse_rollback=True).collapse_rollback
 
 
 def test_local_batch_size_and_ring_checks():

@@ -64,6 +64,10 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
             "moco_tpu_torch.telemetry.run", "moco_tpu_torch.utils.logging",
             "moco_tpu_torch.resilience.errors",
             "moco_tpu_torch.resilience.sentinel"} <= {m.name for m in expected}
+    # the resilience slice: exit codes, preemption, the watchdog, chaos
+    assert {"moco_tpu_torch.resilience", "moco_tpu_torch.resilience.exitcodes",
+            "moco_tpu_torch.resilience.preemption", "moco_tpu_torch.resilience.watchdog",
+            "moco_tpu_torch.resilience.chaos"} <= {m.name for m in expected}
 
 
 def test_span_layer_imports_without_torch_or_numpy():

@@ -69,7 +69,14 @@ def test_losses_do_not_depend_on_the_staging(dataset, cifar_dir, jpeg_tree):
 def test_print_freq_makes_one_host_transfer_per_print(monkeypatch):
     """Once the state is built, the metrics reach the host only on print
     steps (every `print_freq`-th batch of an epoch), each time in one
-    `.cpu()` of one stacked tensor; no tensor is read as a Python number."""
+    `.cpu()` of one stacked tensor. With the NaN sentinel off no tensor is
+    read as a Python number; with it on (the default) exactly one a step,
+    its one-step-late read of the held loss."""
+    for sentinel, scalars in ((False, 0), (True, 5)):
+        _one_host_transfer_per_print(monkeypatch, sentinel, scalars)
+
+
+def _one_host_transfer_per_print(monkeypatch, sentinel: bool, scalars: int):
     calls = {"cpu": 0, "scalar": 0}
     armed = []
     real_cpu, real_float, real_item = torch.Tensor.cpu, torch.Tensor.__float__, \
@@ -92,7 +99,7 @@ def test_print_freq_makes_one_host_transfer_per_print(monkeypatch):
         return state
 
     seen = []
-    config = _config(dataset="synthetic", print_freq=2)
+    config = _config(dataset="synthetic", print_freq=2, loss_sentinel=sentinel)
     monkeypatch.setattr(torch.Tensor, "cpu", cpu)
     monkeypatch.setattr(torch.Tensor, "__float__", counted(real_float))
     monkeypatch.setattr(torch.Tensor, "item", counted(real_item))
@@ -102,7 +109,7 @@ def test_print_freq_makes_one_host_transfer_per_print(monkeypatch):
                                  on_step=lambda step, m, s: seen.append((step, m, s)))
     monkeypatch.undo()
     assert armed and [s for s, _, _ in seen] == [1, 3, 5] and state.step == 5
-    assert calls == {"cpu": 3, "scalar": 0}
+    assert calls == {"cpu": 3, "scalar": scalars}
     assert history == [m for _, m, _ in seen]
     for _, m, seconds in seen:
         assert set(m) == set(train.METRIC_NAMES) and seconds > 0

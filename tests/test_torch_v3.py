@@ -631,11 +631,12 @@ def test_v3_config_checks():
     with pytest.raises(ValueError, match="crop_min"):
         PretrainConfig(crop_min=1.5)
     PretrainConfig(variant="v3", optimizer="sgd", zero_sharding=True)
-    # telemetry and health take the JAX defaults; the rollback raises
+    # telemetry and health take the JAX defaults; the collapse rollback is
+    # accepted (the v3 step rolls back through the same driver)
     assert (PretrainConfig().telemetry_dir, PretrainConfig().health_stride) == ("", 0)
     PretrainConfig(telemetry_dir="/tmp/tel", health_stride=10, collapse_emb_std=1e-3)
-    with pytest.raises(ValueError, match="collapse_rollback is not ported yet"):
-        PretrainConfig(variant="v3", collapse_margin=0.01, collapse_rollback=True)
+    assert PretrainConfig(variant="v3", collapse_margin=0.01,
+                          collapse_rollback=True).collapse_rollback
     with pytest.raises(ValueError, match="remat is ported for the ViT only"):
         build_encoder(PretrainConfig(variant="v3", arch="resnet50", remat=True))
     assert PRESETS["imagenet-moco-v3-vits"].effective_lr == 1.5e-4 * 4096 / 256

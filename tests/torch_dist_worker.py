@@ -328,3 +328,38 @@ def run_v3_steps(inputs: str, out_dir: str) -> None:
     torch.save({"metrics": metrics, "grads": grads, "keys": keys,
                 "q": state.model_q.state_dict(), "k": state.model_k.state_dict()},
                _out(out_dir, "v3"))
+
+
+def run_preempted(config_kw: dict, out_dir: str, steps: int, n_images: int,
+                  chaos_rank: int, chaos_spec: str) -> None:
+    """Three `train()` runs in this group on `IndexedImages`: `steps` steps
+    uninterrupted; then, into `config_kw`'s `ckpt_dir`, the same with the
+    chaos plan of `chaos_spec` installed on rank `chaos_rank` alone; then a
+    resume of it to `steps`. Saves each run's final step, history and
+    state."""
+    import moco_tpu_torch.train as driver
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.parallel.mesh import rank
+    from moco_tpu_torch.resilience import chaos_context, parse_chaos_spec
+
+    config = PretrainConfig(**config_kw)
+    data = IndexedImages(n_images, config.image_size)
+    quiet = dict(device="cpu", dataset=data, on_step=lambda *a: None)
+    out = {}
+    whole, _ = driver.train(config.replace(ckpt_dir=""), max_steps=steps, **quiet)
+    out["whole"] = whole
+    if rank(_group()) == chaos_rank:
+        with chaos_context(parse_chaos_spec(chaos_spec)):
+            cut, cut_history = driver.train(config, max_steps=steps, **quiet)
+    else:
+        cut, cut_history = driver.train(config, max_steps=steps, **quiet)
+    out["steps_after_cut"] = sorted(int(n) for n in os.listdir(config.ckpt_dir) if n.isdigit())
+    resumed, _ = driver.train(config.replace(resume="auto"), max_steps=steps, **quiet)
+    for name, state in (("whole", whole), ("cut", cut), ("resumed", resumed)):
+        out[name] = {"step": state.step, "q": state.model_q.state_dict(),
+                     "k": state.model_k.state_dict(), "queue": state.queue.clone(),
+                     "queue_ptr": state.queue_ptr, "optimizer": state.optimizer.state_dict(),
+                     "generators": (state.generator.get_state(),
+                                    state.data_generator.get_state())}
+    out["cut_history"] = cut_history
+    torch.save(out, _out(out_dir, "preempted"))
