@@ -154,6 +154,29 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             sigterm_at_step=2` (96 px, batch 64) exits 43. Every run's
             kernels launch their counts a step executed. `python3
             chip_smoke.py --phase10` runs phase 10 alone.
+11. phase11 the run supervisor, right after phase 10: `python -m
+            moco_tpu_torch.train --preset imagenet-moco-v2 --dataset
+            synthetic` (phase 3's configuration on the CLI's own 2048
+            images, 2 steps an epoch and a checkpoint each, 6 steps,
+            `--deterministic true`) under `resilience.supervisor.Supervisor`,
+            against the same configuration run uninterrupted in this process
+            through the phase's counters (the BN pair's and the blur's
+            launches a step; their first calls held against the plain
+            versions on the path's own inputs). (a) `kill_at_step=3`:
+            `[killed, clean]`; (b) `freeze_at_step=3` under a 5 s staleness
+            window: `[hang, clean]`, detected within twice the window; (c) a
+            SIGTERM to the child once step 3 has run: `[preempted, clean]`.
+            Each drill's per-step losses equal the uninterrupted run's bit for
+            bit, no process of the run is left, and the phase prints the time
+            from the death to the relaunched child's first step, the hang's
+            detection against its window, and the emergency checkpoint's
+            time. (d), with four cards: `--num-devices 4`, a chaos request
+            for 2 cards after step 4, the operator's `resize.request` for 4
+            once step 9 has run, then a SIGTERM to one of the four NCCL ranks
+            once step 16 has run: `[resize, resize, preempted, clean]`,
+            imgs/s at 4 and 2 cards, each hop's elastic checkpoint; with fewer
+            cards it prints why it is skipped. `python3 chip_smoke.py
+            --phase11` runs phase 11 alone, `--phase11d` its (d) alone.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -2818,6 +2841,376 @@ def run_resilience(counters: dict, dataset, smi: str) -> dict:
     return out
 
 
+PHASE11_SPE = 2             # (a)-(c): 2 steps an epoch, a checkpoint each
+PHASE11_EPOCHS = 3          # 6 steps
+PHASE11_STALE_S = 5.0       # (b): the supervisor's staleness window
+PHASE11_D_SPE = 8           # (d): 8 steps an epoch, 24 steps over 4, 2, 4 and 4 cards
+PHASE11_D_EPOCHS = 3
+PHASE11_D_RESIZE_AT = 4     # (d): the chaos request for 2 cards after step 4
+PHASE11_D_GROW_AFTER = 9    # (d): the operator's request for 4 once step 9 has run
+PHASE11_D_TERM_AFTER = 16   # (d): SIGTERM to one rank once step 16 has run
+
+
+def _supervised_argv(tmp: Path, spe: int, epochs: int, *extra: str) -> list[str]:
+    """`python -m moco_tpu_torch.train` at `imagenet-moco-v2`'s full width on
+    its synthetic data, every step's loss in `events.jsonl`, under
+    deterministic cuDNN."""
+    return [sys.executable, "-m", "moco_tpu_torch.train", "--preset", "imagenet-moco-v2",
+            "--dataset", "synthetic", "--steps-per-epoch", str(spe), "--epochs", str(epochs),
+            "--print-freq", "1", "--deterministic", "true", "--telemetry-dir",
+            str(tmp / "tel"), "--ckpt-dir", str(tmp / "ck"), "--heartbeat-secs", "0",
+            "--telemetry-flush-steps", "1", *extra]
+
+
+def _run_pids_alive(tag: str) -> list[int]:
+    """Live processes (zombies count as gone) whose command line holds `tag`."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().decode(errors="replace")
+        except OSError:
+            continue
+        if tag in cmd and _pid_alive(int(name)):
+            out.append(int(name))
+    return out
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _supervise(argv: list[str], tmp: Path, env: dict, stale_s: float, watch=None) -> dict:
+    """Run `argv` under the port's `Supervisor` (in a thread; `watch(sup)`
+    polls beside it until the run ends), then check that no process of the
+    run is left. Returns the result, the incidents, the events and the pids."""
+    import threading
+
+    from moco_tpu_torch.resilience.supervisor import RestartPolicy, Supervisor, \
+        read_events_tail
+
+    sup = Supervisor(argv, telemetry_dir=str(tmp / "tel"), ckpt_dir=str(tmp / "ck"), env=env,
+                     policy=RestartPolicy(max_restarts=3, heartbeat_stale_secs=stale_s,
+                                          startup_grace_secs=600.0, term_grace_secs=5.0,
+                                          backoff_base_secs=0.1, backoff_max_secs=1.0,
+                                          backoff_jitter=0.0, poll_secs=0.1), seed=0)
+    box = {}
+    runner = threading.Thread(target=lambda: box.update(result=sup.run()), daemon=True)
+    runner.start()
+    while runner.is_alive():
+        if watch is not None:
+            watch(sup)
+        runner.join(timeout=0.05)
+    records = read_events_tail(str(tmp / "tel" / "events.jsonl"), max_bytes=1 << 26)
+    log = (tmp / "tel" / "child.log").read_text(errors="replace")
+    pids = {r["pid"] for r in sup.incidents if r["event"] == "launch"}
+    for line in log.splitlines():
+        if line.startswith("[launch]") and "pids [" in line:
+            pids |= set(json.loads(line[line.index("pids [") + 5:]))
+    left = sorted(set(_run_pids_alive(str(tmp))) | {p for p in pids if _pid_alive(p)})
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.split("\n")
+    on_card = [a.strip() for a in apps if a.split(",")[0].strip().isdigit()
+               and int(a.split(",")[0]) in pids]
+    if left or on_card:
+        fail(f"processes of the supervised run left: {left}, on the card: {on_card}", 1)
+    return dict(result=box.get("result"), incidents=sup.incidents, records=records, log=log,
+                pids=sorted(pids))
+
+
+def _step_losses(records: list[dict]) -> list[tuple[int, float]]:
+    return [(int(r["step"]), float(r["loss"])) for r in records
+            if r.get("kind") == "step" and "loss" in r]
+
+
+def _first(records: list[dict], pred, after: float = -math.inf) -> dict | None:
+    return next((r for r in records if r["t"] > after and pred(r)), None)
+
+
+def run_supervised(counters: dict, smi: str, only_d: bool = False) -> dict:
+    """Phase 11: the run supervisor on the card (see the module docstring);
+    `only_d`: the four-card drill (d) alone."""
+    import gc
+    import signal as sig
+    import tempfile
+
+    import torch
+
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.data import augment
+    from moco_tpu_torch.data.datasets import build_dataset
+    from moco_tpu_torch.models import fast_bn
+    from moco_tpu_torch.ops import stats
+
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory(prefix="moco_phase11_") as tmp:
+        tmp = Path(tmp)
+
+        def chaos_env(spec: str, name: str) -> dict:
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MOCO_TPU_CHAOS")}
+            # the children import this checkout's package from any working directory
+            env["PYTHONPATH"] = os.pathsep.join(
+                [str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+            if spec:
+                env.update(MOCO_TPU_CHAOS=spec, MOCO_TPU_CHAOS_STATE=str(tmp / name / "chaos"))
+            return env
+
+        if only_d:
+            out["d"] = _resize_drill(tmp / "d", chaos_env, smi)
+            return out
+        # the uninterrupted run, in this process, through the phase's counters,
+        # the BN pair's first calls and the first step's blurs kept
+        config = get_preset("imagenet-moco-v2").replace(
+            dataset="synthetic", steps_per_epoch=PHASE11_SPE, epochs=PHASE11_EPOCHS,
+            print_freq=1, telemetry_dir=str(tmp / "ref" / "tel"),
+            ckpt_dir=str(tmp / "ref" / "ck"), heartbeat_secs=0.0, telemetry_flush_steps=1)
+        dataset = build_dataset("synthetic", image_size=config.image_size)
+        kept = {}
+        real = {"sums": fast_bn.channel_sums, "grads": fast_bn.channel_grad_sums,
+                "blur": augment.gaussian_blur_batch}
+        seen = []
+
+        def sums_kept(x):
+            got = real["sums"](x)
+            kept.setdefault("sums", (x.detach().clone(), [g.clone() for g in got]))
+            return got
+
+        def grads_kept(dy, x, mean, rstd):
+            got = real["grads"](dy, x, mean, rstd)
+            kept.setdefault("grads", (dy.detach().clone(), x.detach().clone(), mean.clone(),
+                                      rstd.clone(), [g.clone() for g in got]))
+            return got
+
+        def blur_kept(images, taps, radius):
+            got = real["blur"](images, taps, radius)
+            if len(seen) < PER_STEP["gaussian_blur_batch"]:
+                seen.append((images.cpu(), taps.cpu(), radius, got.cpu()))
+            return got
+
+        torch.backends.cudnn.deterministic = True
+        fast_bn.channel_sums, fast_bn.channel_grad_sums = sums_kept, grads_kept
+        augment.gaussian_blur_batch = blur_kept
+        try:
+            ref = _kept_train(config, "phase11 uninterrupted", counters, dataset,
+                              PHASE11_SPE * PHASE11_EPOCHS)
+        finally:
+            fast_bn.channel_sums, fast_bn.channel_grad_sums = real["sums"], real["grads"]
+            augment.gaussian_blur_batch = real["blur"]
+            torch.backends.cudnn.deterministic = deterministic
+        x, got = kept["sums"]
+        xf = x.float()
+        err_s = _sums_close("channel_sums", "phase11", got, stats.channel_sums_plain(x),
+                            (xf.abs().sum(0), (xf * xf).sum(0)))
+        dy, x, mean, rstd, got = kept["grads"]
+        xf, dyf = x.float(), dy.float()
+        err_g = _sums_close("channel_grad_sums", "phase11", got,
+                            stats.channel_grad_sums_plain(dy, x, mean, rstd),
+                            (dyf.abs().sum(0), (dyf * (xf - mean) * rstd).abs().sum(0)))
+        blurred = _hold_blur(seen, "phase11 uninterrupted", "cuda")
+        ref_losses = ref["losses"]
+        print(f"phase11 uninterrupted: {ref['executed']} steps in this process, launches "
+              f"{ref['launches']}; channel_sums {list(kept['sums'][0].shape)} and "
+              f"channel_grad_sums {list(kept['grads'][0].shape)} on the path's own first "
+              f"inputs against their plain versions (max abs err {err_s:.3e}, {err_g:.3e}); "
+              f"losses {ref_losses}", flush=True)
+        out["uninterrupted"] = dict(launches=ref["launches"], losses=ref_losses,
+                                    max_abs_err=dict(channel_sums=err_s,
+                                                     channel_grad_sums=err_g,
+                                                     blur=max(b["max_abs_err"]
+                                                              for b in blurred)))
+        del ref, kept, seen, dataset, x, xf, dy, dyf
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def check_losses(label: str, records: list[dict]) -> None:
+            got = _step_losses(records)
+            steps = sorted({s for s, _ in got})
+            bad = [(s, v, ref_losses[s - 1]) for s, v in got if v != ref_losses[s - 1]]
+            if steps != list(range(1, len(ref_losses) + 1)) or bad:
+                fail(f"phase11 {label}: steps {steps}, losses off the uninterrupted run's "
+                     f"{bad[:4]}", 1)
+
+        def recovery(records: list[dict], incidents: list[dict]) -> dict:
+            """Death (the dead child's last step record) to the relaunched
+            child's first step, split at the supervisor's exit and launch
+            records."""
+            exit0 = next(r for r in incidents if r["event"] == "exit")
+            launch1 = [r for r in incidents if r["event"] == "launch"][1]
+            last = [r for r in records if r.get("kind") == "step" and r["t"] <= exit0["t"]][-1]
+            first = _first(records, lambda r: r.get("kind") == "step", launch1["t"])
+            return dict(last_step=last["step"], notice_s=exit0["t"] - last["t"],
+                        relaunch_s=launch1["t"] - exit0["t"],
+                        child_to_first_step_s=first["t"] - launch1["t"],
+                        death_to_first_step_s=first["t"] - last["t"])
+
+        # (a) SIGKILL after step 3
+        a = _supervise(_supervised_argv(tmp / "a", PHASE11_SPE, PHASE11_EPOCHS), tmp / "a",
+                       chaos_env("kill_at_step=3", "a"), 120.0)
+        classes = a["result"].classifications
+        if classes != ["killed", "clean"]:
+            fail(f"phase11 (a): classifications {classes}", 1)
+        check_losses("(a)", a["records"])
+        out["a"] = dict(classifications=classes, **recovery(a["records"], a["incidents"]))
+        print(f"phase11 (a) SIGKILL after step 3: {classes}; every step's loss equals the "
+              f"uninterrupted run's bit for bit; death to the relaunched child's first step "
+              f"{out['a']['death_to_first_step_s']:.3f} s (supervisor notice "
+              f"{out['a']['notice_s']:.3f} s, backoff and relaunch {out['a']['relaunch_s']:.3f}"
+              f" s, child start to first step {out['a']['child_to_first_step_s']:.3f} s); no "
+              f"process of the run left ({smi})", flush=True)
+
+        # (b) a frozen child under a staleness window of PHASE11_STALE_S
+        b = _supervise(_supervised_argv(tmp / "b", PHASE11_SPE, PHASE11_EPOCHS), tmp / "b",
+                       chaos_env("freeze_at_step=3", "b"), PHASE11_STALE_S)
+        classes = b["result"].classifications
+        if classes != ["hang", "clean"]:
+            fail(f"phase11 (b): classifications {classes}", 1)
+        check_losses("(b)", b["records"])
+        kills = [r for r in b["incidents"] if r["event"] == "kill"]
+        detect = kills[0]["stale_secs"]
+        if not PHASE11_STALE_S < detect <= 2 * PHASE11_STALE_S:
+            fail(f"phase11 (b): the hang detected {detect} s after the last beat, window "
+                 f"{PHASE11_STALE_S} s", 1)
+        out["b"] = dict(classifications=classes, detect_s=detect, window_s=PHASE11_STALE_S,
+                        kill_phases=[k["phase"] for k in kills],
+                        **recovery(b["records"], b["incidents"]))
+        print(f"phase11 (b) frozen after step 3: {classes}; detected {detect:.3f} s after the "
+              f"last beat against a {PHASE11_STALE_S} s window, then "
+              f"{' -> '.join(out['b']['kill_phases'])}; losses bit for bit; death (the last "
+              f"beat) to the relaunched child's first step "
+              f"{out['b']['death_to_first_step_s']:.3f} s ({smi})", flush=True)
+
+        # (c) a SIGTERM to the supervised child once step 3 has run
+        sent = {}
+
+        def sigterm_after_3(sup):
+            if sent:
+                return
+            launches = [r for r in sup.incidents if r["event"] == "launch"]
+            try:
+                with open(tmp / "c" / "tel" / "heartbeat.json") as f:
+                    hb = json.load(f)
+            except (OSError, ValueError):
+                return
+            if len(launches) == 1 and hb.get("phase") == "step" and hb.get("step", 0) >= 3 \
+                    and hb.get("pid") == launches[0]["pid"]:
+                os.kill(hb["pid"], sig.SIGTERM)
+                sent.update(t=time.time(), step=hb["step"])
+
+        c = _supervise(_supervised_argv(tmp / "c", PHASE11_SPE, PHASE11_EPOCHS), tmp / "c",
+                       chaos_env("", "c"), 120.0, watch=sigterm_after_3)
+        classes = c["result"].classifications
+        if classes != ["preempted", "clean"] or not sent:
+            fail(f"phase11 (c): classifications {classes}, SIGTERM {sent}", 1)
+        check_losses("(c)", c["records"])
+        end = next(r for r in c["records"] if r.get("kind") == "run_end")
+        exit0 = next(r for r in c["incidents"] if r["event"] == "exit")
+        out["c"] = dict(classifications=classes, sigterm_after_step=sent["step"],
+                        stopped_at=end.get("last_step", end.get("step")),
+                        sigterm_to_exit_s=exit0["t"] - sent["t"],
+                        run_end_to_exit_s=exit0["t"] - end["t"],
+                        **recovery(c["records"], c["incidents"]))
+        print(f"phase11 (c) SIGTERM once step {sent['step']} ran: {classes}; the emergency "
+              f"checkpoint and exit took {out['c']['run_end_to_exit_s']:.3f} s after run_end "
+              f"({out['c']['sigterm_to_exit_s']:.3f} s after the signal); losses bit for bit; "
+              f"the relaunched child's first step {out['c']['child_to_first_step_s']:.3f} s "
+              f"after its launch ({smi})", flush=True)
+
+        # (d) resize 4 -> 2 -> 4 cards, then a SIGTERM to one of four NCCL ranks
+        out["d"] = _resize_drill(tmp / "d", chaos_env, smi)
+    return out
+
+
+def _resize_drill(dtmp: Path, chaos_env, smi: str) -> dict:
+    """Phase 11 (d): `--num-devices 4` under the supervisor, a chaos request
+    for 2 cards, the operator's request for 4, then a SIGTERM to one rank
+    of four; skipped with fewer than four cards."""
+    import signal as sig
+
+    import torch
+
+    from moco_tpu_torch.resilience.resize import argv_device_count, write_resize_request
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"phase11 (d) skipped: {cards} card(s) here; the resize drill needs 4 "
+              "(`python3 chip_smoke.py --phase11` on a host with four)", flush=True)
+        return dict(skipped=f"{cards} card(s)")
+    done = {}
+
+    def drive(sup):
+        try:
+            with open(dtmp / "tel" / "heartbeat.json") as f:
+                hb = json.load(f)
+        except (OSError, ValueError):
+            return
+        launches = [r for r in sup.incidents if r["event"] == "launch"]
+        if hb.get("phase") != "step":
+            return
+        if "grow" not in done and len(launches) == 2 \
+                and hb.get("step", 0) >= PHASE11_D_GROW_AFTER:
+            write_resize_request(str(dtmp / "tel"), devices=4)
+            done["grow"] = dict(t=time.time(), step=hb["step"])
+        if "term" not in done and len(launches) == 3 \
+                and hb.get("step", 0) >= PHASE11_D_TERM_AFTER:
+            ranks = [json.loads(line[line.index("pids [") + 5:]) for line in
+                     (dtmp / "tel" / "child.log").read_text().splitlines()
+                     if line.startswith("[launch]") and "pids [" in line]
+            os.kill(ranks[-1][-1], sig.SIGTERM)  # one rank of four
+            done["term"] = dict(t=time.time(), step=hb["step"], pid=ranks[-1][-1])
+
+    d = _supervise(_supervised_argv(dtmp, PHASE11_D_SPE, PHASE11_D_EPOCHS,
+                                    "--num-devices", "4", "--resilience-sync-steps", "1"),
+                   dtmp, chaos_env(f"resize_at_step={PHASE11_D_RESIZE_AT},devices=2", "d"),
+                   120.0, watch=drive)
+    classes = d["result"].classifications
+    launches = [r for r in d["incidents"] if r["event"] == "launch"]
+    worlds = [argv_device_count(r["argv"]) for r in launches]
+    if classes != ["resize", "resize", "preempted", "clean"] or worlds != [4, 2, 4, 4] \
+            or d["log"].count("[exit] preemption honored") != 4:
+        fail(f"phase11 (d): classifications {classes}, worlds {worlds}, "
+             f"{d['log'].count('[exit] preemption honored')} ranks honored the SIGTERM", 1)
+    losses = _step_losses(d["records"])
+    steps = [r for r in d["records"] if r.get("kind") == "step"]
+    legs = []
+    for i, launch in enumerate(launches):
+        until = launches[i + 1]["t"] if i + 1 < len(launches) else math.inf
+        mine = [r for r in steps if launch["t"] < r["t"] < until]
+        steady = sorted(r["step_s"] for r in mine[1:] if (r["step"] - 1) % PHASE11_D_SPE)
+        ends = [r for r in d["records"] if r.get("kind") == "run_end"
+                and launch["t"] < r["t"] < until]
+        exit_i = [r for r in d["incidents"] if r["event"] == "exit"][i]
+        legs.append(dict(cards=worlds[i], steps=[r["step"] for r in mine],
+                         imgs_per_s=BATCH / steady[len(steady) // 2] if steady else None,
+                         run_end_to_exit_s=exit_i["t"] - ends[0]["t"] if ends else None,
+                         classification=classes[i]))
+    if not all(math.isfinite(v) for _, v in losses) or losses[-1][0] != \
+            PHASE11_D_SPE * PHASE11_D_EPOCHS:
+        fail(f"phase11 (d): losses {losses}", 1)
+    result = dict(classifications=classes, legs=legs, grow=done.get("grow"),
+                  term=done.get("term"))
+    for leg in legs:
+        print(f"phase11 (d) {leg['cards']} cards ({BATCH // leg['cards']} a card), steps "
+              f"{leg['steps'][0]}-{leg['steps'][-1]}: "
+              f"{leg['imgs_per_s'] or math.nan:.1f} imgs/s (median steady step), ended "
+              f"{leg['classification']}, run_end to exit "
+              f"{leg['run_end_to_exit_s'] or math.nan:.3f} s (the elastic or emergency "
+              f"checkpoint) ({smi})", flush=True)
+    print(f"phase11 (d): 4 -> 2 (chaos after step {PHASE11_D_RESIZE_AT}) -> 4 (the "
+          f"operator's request after step {done['grow']['step']}) cards, then a SIGTERM "
+          f"to one rank (pid {done['term']['pid']}) after step {done['term']['step']} "
+          f"agreed by all 4 NCCL ranks: {classes}; no process of the run left", flush=True)
+    return result
+
+
 def _v3_states_differ(a, b) -> list[str]:
     """What differs between two v3 TrainStates, bit for bit."""
     import torch
@@ -2925,6 +3318,16 @@ def main() -> None:
         print(smi)
         print(json.dumps({"phase9": r}, default=str))
         return
+    if {"--phase11", "--phase11d"} & set(sys.argv[1:]):
+        # phase 11 alone: (a)-(c) on one card, (d) where there are four;
+        # --phase11d: (d) alone
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        r = run_supervised(counters, smi, only_d="--phase11d" in sys.argv[1:])
+        print(smi)
+        print(json.dumps({"phase11": r}, default=str))
+        return
     if "--phase10" in sys.argv[1:]:
         # phase 10 alone, on one card
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2965,6 +3368,7 @@ def main() -> None:
     run_v3(counters, dataset, smi)
     run_telemetry(counters, dataset, smi)
     run_resilience(counters, dataset, smi)
+    run_supervised(counters, smi)
     del dataset
     print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
           f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "

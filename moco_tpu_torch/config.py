@@ -5,13 +5,13 @@ surface of the entry points.
 
 The port's own copy of the relevant part of `moco_tpu/config.py`
 (`PretrainConfig`, `EvalConfig`, the `imagenet-moco-v1`, `imagenet-moco-v2`,
-`cifar10-moco-v1`, `imagenet-moco-v3-vits`, `-vitb`, `-r50`,
-`imagenet-lincls` and `imagenet-lincls-v3` presets, `effective_lr`); field
-names, defaults and validation are the same, except that `ckpt_dir`
-defaults to "" (no checkpoints unless asked for) in both configs, so a run
-writes nothing into its working directory by default, and that
-`shuffle_mode`, `grad_allreduce_dtype`, `optimizer` and `crop_min` are
-checked here (the JAX package checks them where they are used). The
+`imagenet-moco-v2-8chip`, `cifar10-moco-v1`, `imagenet-moco-v3-vits`,
+`-vitb`, `-r50`, `imagenet-lincls` and `imagenet-lincls-v3` presets,
+`effective_lr`); field names, defaults and validation are the same, except
+that `ckpt_dir` defaults to "" (no checkpoints unless asked for) in both
+configs, so a run writes nothing into its working directory by default,
+and that `shuffle_mode`, `grad_allreduce_dtype`, `optimizer` and
+`crop_min` are checked here (the JAX package checks them where they are used). The
 gradient-sync knobs and `zero_sharding` carry the JAX package's checks and
 messages; its rule that `zero_sharding` excludes `sharding != "dp"` waits
 for FSDP (`sharding`), which the port does not have yet, and
@@ -20,8 +20,7 @@ The telemetry, tracing, learning-health and resilience fields carry the
 JAX package's defaults and checks. The port adds checks of its own to the
 resilience knobs, which the JAX package leaves unchecked: `max_rollbacks`,
 `watchdog_secs`, `loader_retries` and `loader_backoff_secs` must be >= 0,
-and `chaos` must parse (with the JAX parser's message) and must not ask
-for `resize_at_step`, since the elastic resize is not ported yet.
+and `chaos` must parse (with the JAX parser's message).
 """
 
 from __future__ import annotations
@@ -243,9 +242,9 @@ class PretrainConfig:
             if getattr(self, knob) < 0:
                 raise ValueError(f"{knob} must be >= 0, got {getattr(self, knob)}")
         if self.chaos:
-            from moco_tpu_torch.resilience.chaos import parse_chaos_spec, refuse_unported
+            from moco_tpu_torch.resilience.chaos import parse_chaos_spec
 
-            refuse_unported(parse_chaos_spec(self.chaos))
+            parse_chaos_spec(self.chaos)
 
     def replace(self, **kw) -> "PretrainConfig":
         return dataclasses.replace(self, **kw)
@@ -432,6 +431,12 @@ PRESETS: dict[str, PretrainConfig | EvalConfig] = {
         compute_dtype="bfloat16",
     ),
 }
+
+# the same recipe, ShuffleBN across 8 cards: the same step by construction
+# (derived, so the two can never fork); the number of processes comes from
+# the launch (`--num-devices 8` or torchrun)
+PRESETS["imagenet-moco-v2-8chip"] = PRESETS["imagenet-moco-v2"].replace(
+    name="imagenet-moco-v2-8chip")
 
 
 def get_preset(name: str):

@@ -52,31 +52,56 @@ def local_batch_size(global_batch: int, world: int) -> int:
     return global_batch // world
 
 
+def topology(device: str | torch.device = "cuda", *, rank: int | None = None,
+             world_size: int | None = None,
+             local_rank: int | None = None) -> tuple[torch.device, int, int]:
+    """This process's device, rank and world size, from the arguments or
+    torchrun's `RANK`, `WORLD_SIZE` and `LOCAL_RANK` (`local_rank` then
+    defaults to `rank`): `cuda:LOCAL_RANK` on the card, else the CPU.
+    Raises RuntimeError or ValueError for what the host can never satisfy
+    (CUDA asked for and absent, a `LOCAL_RANK` with no card, a rank outside
+    the world); nothing here touches a process group."""
+    env = os.environ
+    world = world_size if world_size is not None else int(env.get("WORLD_SIZE", "1"))
+    dev = resolve_device(device)
+    if rank is not None:
+        r = rank
+    elif "RANK" in env:
+        r = int(env["RANK"])
+    elif world == 1:
+        r = 0
+    else:
+        raise ValueError(f"a world of {world} processes but RANK is not set")
+    local = local_rank if local_rank is not None else int(env.get("LOCAL_RANK", r))
+    if not 0 <= r < world:
+        raise ValueError(f"rank {r} outside a world of {world}")
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        if not 0 <= local < cards:
+            raise ValueError(f"LOCAL_RANK {local} names no card: this host has {cards}")
+        dev = torch.device("cuda", local)
+    return dev, r, world
+
+
 def init_distributed(device: str | torch.device = "cuda", *, rank: int | None = None,
                      world_size: int | None = None, local_rank: int | None = None,
                      init_method: str | None = None,
                      timeout_s: float = 600.0) -> torch.device:
     """Join the data-parallel process group and return this process's
-    device: `cuda:LOCAL_RANK` (made current) or the CPU.
+    device: `cuda:LOCAL_RANK` (made current) or the CPU (`topology` names
+    it and raises for a host that cannot satisfy it).
 
-    `rank`/`world_size`/`local_rank` default to torchrun's `RANK`,
-    `WORLD_SIZE` and `LOCAL_RANK` (`local_rank` then to `rank`);
-    `init_method` to `env://`. With a world size of 1 and no `init_method`
-    no group is made and the device is returned as `resolve_device` gives
-    it."""
+    `init_method` defaults to `env://`. With a world size of 1 and no
+    `init_method` no group is made and the device is returned as
+    `resolve_device` gives it."""
     env = os.environ
     world = world_size if world_size is not None else int(env.get("WORLD_SIZE", "1"))
-    dev = resolve_device(device)
     if world == 1 and init_method is None:
-        return dev
+        return resolve_device(device)
     if dist.is_initialized():
         raise RuntimeError("this process already joined a process group")
-    r = rank if rank is not None else int(env["RANK"])
-    local = local_rank if local_rank is not None else int(env.get("LOCAL_RANK", r))
-    if not 0 <= r < world:
-        raise ValueError(f"rank {r} outside a world of {world}")
+    dev, r, world = topology(device, rank=rank, world_size=world, local_rank=local_rank)
     if dev.type == "cuda":
-        dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             init_method=init_method or "env://", rank=r, world_size=world,

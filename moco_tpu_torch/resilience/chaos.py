@@ -15,12 +15,14 @@ reproducible bit for bit.
     MOCO_TPU_CHAOS="sigterm_at_step=5000" python -m moco_tpu_torch.train ...
 
 The driver's hooks: `nan_at_step`/`nan_count`, `sigterm_at_step`,
-`slow_at_step`, `kill_at_step`, `freeze_at_step`, `collapse_at_step`; the
-Prefetcher's: `loader_error_at_batch`/`loader_error_count`. The serving
-and staging-server faults (`kill_at_request`, `wedge_at_request`,
-`kill_at_shard`, `stall_at_shard`) and `resize_at_step` parse as in the
-JAX package; the port has no serving front end, staging server or elastic
-resize yet, so nothing polls them, and the driver refuses `resize_at_step`.
+`slow_at_step`, `kill_at_step`, `freeze_at_step`, `collapse_at_step`,
+`resize_at_step`/`resize_devices`; the Prefetcher's:
+`loader_error_at_batch`/`loader_error_count`. `kill_at_step` and
+`freeze_at_step` are recovered by the out-of-process supervisor
+(`resilience/supervisor.py`). The serving and staging-server faults
+(`kill_at_request`, `wedge_at_request`, `kill_at_shard`, `stall_at_shard`)
+parse as in the JAX package; the port has no serving front end or staging
+server yet, so nothing polls them.
 
 `truncate_checkpoint` is the storage-fault injector: it halves the largest
 file of a saved step in place, as a preempted writer leaves it.
@@ -48,7 +50,8 @@ class ChaosPlan:
     `state_dir` (from `MOCO_TPU_CHAOS_STATE` for env- and config-installed
     plans) makes the fire-once state of sigterm, kill and freeze survive the
     process: each drops a marker file before it fires and never fires again
-    across restarts. The counted faults (`nan_count`, `loader_error_count`)
+    across restarts, and of the ranks of a group that share the directory
+    exactly one fires it. The counted faults (`nan_count`, `loader_error_count`)
     stay per process: they model re-traversal within one process."""
 
     sigterm_at_step: int | None = None      # deliver SIGTERM after step k
@@ -84,13 +87,16 @@ class ChaosPlan:
             return False
         if self.state_dir:
             # the marker is written BEFORE the fault: a SIGKILL leaves no
-            # later chance to record it
+            # later chance to record it. Created exclusively: of the ranks of
+            # a group sharing the directory, exactly one fires.
             marker = os.path.join(self.state_dir, f"fired_{key}")
-            if os.path.exists(marker):
+            os.makedirs(self.state_dir, exist_ok=True)
+            try:
+                fd = os.open(marker, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            except FileExistsError:
                 self._fired.add(key)
                 return False
-            os.makedirs(self.state_dir, exist_ok=True)
-            with open(marker, "w") as f:
+            with os.fdopen(fd, "w") as f:
                 f.write(str(os.getpid()))
         self._fired.add(key)
         return True
@@ -122,6 +128,19 @@ class ChaosPlan:
         if self.slow_at_step == step and self._fire_once("slow"):
             log_event("chaos", f"injecting {self.slow_ms} ms slow step at step {step}")
             time.sleep(self.slow_ms / 1e3)
+
+    def maybe_resize(self, step: int) -> int | None:
+        """The target device count at `resize_at_step` (fire-once, marker
+        persisted like kill and freeze: the resized relaunch must not fire
+        the drill again into a resize loop); None otherwise. 0 means
+        "resize without pinning a count". The driver writes the
+        resize.request and exits through the operator's path, so the drill
+        runs the real loop."""
+        if self.resize_at_step == step and self._fire_once("resize"):
+            log_event("chaos", f"injecting resize request at step {step} "
+                               f"(devices={self.resize_devices or 'visible'})")
+            return self.resize_devices
+        return None
 
     def maybe_collapse(self, step: int) -> bool:
         """True for EVERY step from `collapse_at_step` on: the driver crushes
@@ -253,10 +272,3 @@ def truncate_checkpoint(ckpt_dir: str, step: int) -> str:
     log_event("chaos", f"truncated {largest} from {size} to {size // 2} bytes")
     return largest
 
-
-def refuse_unported(plan: ChaosPlan | None) -> None:
-    """Raise ValueError for a fault whose hook the port does not have: the
-    elastic resize."""
-    if plan is not None and plan.resize_at_step is not None:
-        raise ValueError("chaos resize_at_step is not ported yet: the elastic resize "
-                         "comes with the supervisor")

@@ -4,10 +4,13 @@
         --max-steps 5 [--batch-size B] [--ckpt-dir DIR [--resume auto]] \\
         [--export-path encoder.npz] [--knn-monitor true] [--device cpu]
     python -m moco_tpu_torch.train --preset imagenet-moco-v3-vits --data-dir ... [...]
+    python -m moco_tpu_torch.train --num-devices 8 --preset imagenet-moco-v2 ...
     torchrun --nproc-per-node 8 -m moco_tpu_torch.train --preset imagenet-moco-v2 ...
 
 Data parallelism is one process per card, as the reference's `mp.spawn`
-runs it: under torchrun each process joins an NCCL group (gloo with
+runs it: `--num-devices N` makes `main` a launcher of N rank processes
+(`parallel/launch.py`; the form a supervisor relaunches with another N),
+and under torchrun the same; each process joins an NCCL group (gloo with
 `--device cpu`) and runs on `cuda:LOCAL_RANK`; `--batch-size` is the
 global batch. Each process stages its contiguous slice of every global
 batch, the step shuffles the key batch across processes and takes the mean
@@ -29,7 +32,8 @@ them to the device on a side stream; the step draws the two views on the
 device from each batch's staging extents and trains. The step's metrics
 stay on the device except on print steps (`print_freq`), where they reach
 the host in one transfer. It runs on the card unless `--device cpu` is
-given, and raises if CUDA is asked for and absent.
+given: `train` raises if CUDA is asked for and absent, `main` exits
+EXIT_CONFIG_ERROR.
 
 The v3 presets (`imagenet-moco-v3-vits`, `-vitb`, `-r50`) run the
 queue-free v3 step (`v3_step.py`) on the asymmetric view pair, with AdamW
@@ -72,14 +76,18 @@ consecutive rollbacks (`RollbackExhaustedError` then). SIGTERM/SIGINT sets
 a flag the loop polls after each step (under a group the ranks agree on it
 every `resilience_sync_steps` steps): the run stops at that step, writes a
 synchronous emergency checkpoint at the mid-epoch position, marks the
-heartbeat `preempt_exit` and returns with `preempted` in its history.
+heartbeat `preempt_exit` and returns with `preempted` in its history. A
+resize request (SIGUSR2, or `<telemetry_dir>/resize.request`;
+`resilience/resize.py`) is agreed on the same way and ends the run the same
+way, with an elastic checkpoint, `resize_exit` and `resized`.
 Epoch-end checkpoints are asynchronous (`save_checkpoint(wait=False)`).
 `watchdog_secs` flags a step that does not end in time (the kNN monitor
 runs with it suspended); `debug_nans` turns on autograd's anomaly mode with
 its NaN check for the run and checks the loss on print steps;
 `loader_retries`/`loader_backoff_secs` set the Prefetcher's retries; `chaos`
 (or `MOCO_TPU_CHAOS`) installs a fault-injection plan for the drills.
-`main()` exits through the codes of `resilience/exitcodes.py`.
+`main()` exits through the codes of `resilience/exitcodes.py`;
+`python -m moco_tpu_torch.supervise` relaunches it by them.
 """
 
 from __future__ import annotations
@@ -110,15 +118,18 @@ from moco_tpu_torch.data.service.prestage import PrestagedDataset
 from moco_tpu_torch.evals.knn import build_feature_fn, encode_dataset
 from moco_tpu_torch.ops.knn import knn_accuracy
 from moco_tpu_torch.parallel.gradsync import GradSync
+from moco_tpu_torch.parallel.launch import ENV_INIT_METHOD, join_launcher, exit_with, \
+    launch, strip_device_flag
 from moco_tpu_torch.parallel.mesh import init_distributed, local_batch_size, process_group, \
-    rank, shutdown_distributed, world_size
+    rank, shutdown_distributed, topology, world_size
 from moco_tpu_torch.resilience.chaos import active_chaos, clear_chaos, install_chaos, \
-    parse_chaos_spec, refuse_unported
+    parse_chaos_spec
 from moco_tpu_torch.resilience.errors import CollapseError, DataQualityError, \
     NonFiniteLossError, RollbackExhaustedError
 from moco_tpu_torch.resilience.exitcodes import EXIT_CONFIG_ERROR, EXIT_DATA_QUALITY, \
-    EXIT_PREEMPTED, EXIT_ROLLBACK_EXHAUSTED
+    EXIT_PREEMPTED, EXIT_RESIZE, EXIT_ROLLBACK_EXHAUSTED
 from moco_tpu_torch.resilience.preemption import PreemptionHandler
+from moco_tpu_torch.resilience.resize import ResizeListener, write_resize_request
 from moco_tpu_torch.resilience.sentinel import CollapseSentinel, NaNSentinel
 from moco_tpu_torch.resilience.watchdog import StepWatchdog
 from moco_tpu_torch.telemetry.health import crush_key_params
@@ -243,7 +254,8 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
     (default: the one the config names), resuming first if the config says
     so. Returns the state and a history: the metrics of each print step as
     host numbers, `{"step", "knn_*_top1"}` for each kNN monitor run, and
-    `{"step", "preempted": True}` last when a preemption ended the run.
+    `{"step", "preempted": True}` (or `"resized"`) last when a preemption
+    (or a resize) ended the run.
     `on_step(step, metrics, seconds)` sees every print step on rank 0
     (default: print it); `seconds` is the host time per step since the
     previous print, ending with the metrics on the host, which waits for the
@@ -280,7 +292,6 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
     rollbacks, last_nan_step, data_advance, poison_pos = 0, -1, 0, None
     run_config = config
     try:
-        refuse_unported(active_chaos())
         while True:
             try:
                 return _train_once(run_config, max_steps, device, dataset, on_step, stats,
@@ -317,18 +328,19 @@ def train(config: PretrainConfig, max_steps: int | None = None, device="cuda",
             clear_chaos()
 
 
-def _sync_faults(preempt: bool, failed: int, total: int, telemetry, step: int, dev,
-                 group) -> tuple[bool, int, int]:
-    """The group's agreement on the preemption flag (any rank's) and the
-    decode counters (summed), in one all-gather that also carries each
-    rank's telemetry vector for the `pod` record."""
-    row = [float(preempt), float(failed), float(total)]
+def _sync_faults(preempt: bool, resize: bool, failed: int, total: int, telemetry, step: int,
+                 dev, group) -> tuple[bool, bool, int, int]:
+    """The group's agreement on the preemption and resize flags (any
+    rank's) and the decode counters (summed), in one all-gather that also
+    carries each rank's telemetry vector for the `pod` record."""
+    row = [float(preempt), float(failed), float(total), float(resize)]
     if telemetry is not None:
         row += list(telemetry.pod_vector())
     rows = _all_gather_rows(np.asarray(row, np.float64), dev, group)
     if telemetry is not None:
-        telemetry.pod_record(step, rows[:, 3:])
-    return bool(rows[:, 0].max()), int(rows[:, 1].sum()), int(rows[:, 2].sum())
+        telemetry.pod_record(step, rows[:, 4:])
+    return (bool(rows[:, 0].max()), bool(rows[:, 3].max()), int(rows[:, 1].sum()),
+            int(rows[:, 2].sum()))
 
 
 def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, on_step,
@@ -406,7 +418,7 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
     anomaly = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
     resilience = contextlib.ExitStack()
     state = mgr = None
-    preempted = False
+    preempted = resized = False
     try:
         if config.debug_nans:
             # the port's jax_debug_nans: autograd raises at the backward op
@@ -499,6 +511,10 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                 history.append({"step": 0, **baseline})
                 report(f"kNN untrained baseline {baseline}, restored from {baseline_path}")
         preempt = resilience.enter_context(PreemptionHandler())
+        # elastic resize: SIGUSR2 or a <telemetry_dir>/resize.request asks for
+        # an elastic checkpoint and EXIT_RESIZE, for a relaunch onto another
+        # number of cards
+        resize = resilience.enter_context(ResizeListener(config.telemetry_dir))
         watchdog = resilience.enter_context(StepWatchdog(config.watchdog_secs))
         since, t_last = 0, time.perf_counter()
         while state.step < total and epoch < config.epochs:
@@ -569,13 +585,16 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                     # resilience_sync_steps steps, alone at once
                     failed = getattr(dataset, "decode_failures", 0)
                     decoded = getattr(dataset, "decode_total", 0)
-                    agreed = False
+                    # the trigger file, time-gated, before the agreement, so
+                    # that every rank folds in the same observation
+                    resize.poll()
+                    agreed = resize_agreed = False
                     if group is not None:
                         if (config.resilience_sync_steps > 0
                                 and state.step % config.resilience_sync_steps == 0):
-                            agreed, failed, decoded = _sync_faults(
-                                preempt.triggered, failed, decoded, telemetry, state.step,
-                                dev, group)
+                            agreed, resize_agreed, failed, decoded = _sync_faults(
+                                preempt.triggered, resize.triggered, failed, decoded,
+                                telemetry, state.step, dev, group)
                         else:
                             failed = decoded = 0
                     check_decode_rate(failed, decoded, config)
@@ -604,6 +623,14 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                             writer.flush()
                     if plan is not None:
                         plan.maybe_sigterm(state.step)
+                        # the resize drill: the target count goes where the
+                        # supervisor looks for it, then the operator's path
+                        chaos_devices = plan.maybe_resize(state.step)
+                        if chaos_devices is not None:
+                            if config.telemetry_dir:
+                                write_resize_request(config.telemetry_dir,
+                                                     devices=chaos_devices or None)
+                            resize.trigger()
                         if plan.maybe_collapse(state.step):
                             # every step from the onset: the EMA would heal a
                             # one-shot crush
@@ -616,6 +643,14 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                         # follows at a step every rank agrees on
                         preempted = True
                         break
+                    if resize_agreed or (group is None and resize.triggered):
+                        # the same stop, but the exit asks for a relaunch onto
+                        # another number of cards (EXIT_RESIZE); a rank that
+                        # learned it from the group marks its listener too, so
+                        # that a late SIGUSR2 finds it ignored, not fatal
+                        resize.trigger(source="agreed by the group")
+                        resized = True
+                        break
             finally:
                 if loader is not None:
                     # quietly: a pending staging error must not replace the
@@ -627,7 +662,7 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                 sentinel.flush()
             if collapse is not None:
                 collapse.flush()
-            if preempted:
+            if preempted or resized:
                 break  # no epoch eval or save: the emergency checkpoint follows
             finished = state.step >= total
             t_pause = time.perf_counter()
@@ -677,24 +712,26 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
         torch.autograd.set_detect_anomaly(*anomaly)
         profiler.close()
         if telemetry is not None:
-            # `preempted` makes the heartbeat's last phase preempt_exit; the
-            # port has no elastic resize
+            # `preempted` makes the heartbeat's last phase preempt_exit,
+            # `resized` resize_exit
             telemetry.close(scalar_drops=writer.dropped,
                             last_step=state.step if state is not None else 0,
-                            preempted=preempted, resized=False)
+                            preempted=preempted, resized=resized)
         writer.close()
         if mgr is not None:
             finalize_checkpoints(mgr, group)
-    if preempted:
+    if preempted or resized:
         if mgr is not None:
             # synchronous, at the mid-epoch position: the resumed run is the
-            # uninterrupted one bit for bit
+            # uninterrupted one bit for bit (at another world size, the same
+            # data stream)
             position = (epoch + 1, 0) if next_batch >= steps_per_epoch else (epoch, next_batch)
-            log_event("preempt", f"writing emergency checkpoint at step {state.step}, then "
-                                 "exiting cleanly", step=state.step, pid=os.getpid())
+            log_event("resize" if resized else "preempt",
+                      f"writing {'elastic' if resized else 'emergency'} checkpoint at step "
+                      f"{state.step}, then exiting cleanly", step=state.step, pid=os.getpid())
             save_checkpoint(mgr, state, state.step, position=position, devices=world,
                             group=group)
-        history.append({"step": state.step, "preempted": True})
+        history.append({"step": state.step, "resized" if resized else "preempted": True})
     elif config.export_path and is_main:
         if config.variant == "v3":
             export_v3_backbone(state, config.export_path, config.image_size)
@@ -717,30 +754,75 @@ def _all_gather_rows(vector: np.ndarray, device, group) -> np.ndarray:
     return torch.stack(rows).cpu().numpy()
 
 
+def _check_num_devices(n: int, device: str) -> None:
+    """Raise ValueError (RuntimeError for CUDA asked for and absent) unless
+    this host can run `n` rank processes on `device`."""
+    if n < 1:
+        raise ValueError(f"--num-devices must be >= 1, got {n}")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise ValueError("--num-devices starts its own rank processes; under torchrun "
+                         f"(WORLD_SIZE={os.environ['WORLD_SIZE']}) leave it out")
+    if resolve_device(device).type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"--num-devices {n} but this host has {torch.cuda.device_count()} "
+                         "card(s)")
+
+
 def main(argv=None) -> None:
     """CLI entry. Exits through the named codes of `resilience/exitcodes.py`:
     0 at the run's end, EXIT_PREEMPTED after an honored SIGTERM/SIGINT and
-    its emergency checkpoint, EXIT_ROLLBACK_EXHAUSTED and EXIT_DATA_QUALITY
-    for the run-enders a restart cannot fix, EXIT_CONFIG_ERROR for a bad
-    preset, flag or config. Anything else propagates as a traceback (exit
-    1, a generic crash)."""
+    its emergency checkpoint, EXIT_RESIZE after an honored resize and its
+    elastic checkpoint, EXIT_ROLLBACK_EXHAUSTED and EXIT_DATA_QUALITY for the
+    run-enders a restart cannot fix, EXIT_CONFIG_ERROR for a bad preset,
+    flag or config, or a device or world the host cannot satisfy. Anything
+    else propagates as a traceback (exit 1, a generic crash).
+
+    With `--num-devices N` (N > 1) this process is the launcher of N rank
+    processes (`parallel/launch.py`) and exits with their code."""
     set_precision_policy()
     parser = argparse.ArgumentParser(description="moco_tpu_torch pretraining")
     parser.add_argument("--preset", default="imagenet-moco-v2",
                         choices=preset_names(PretrainConfig))
     parser.add_argument("--max-steps", type=int, default=None)
     parser.add_argument("--device", default="cuda",
-                        help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu")
+                        help="cuda (default; cuda:LOCAL_RANK in a group) or cpu")
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="start this many rank processes, one per card (gloo ranks "
+                             "with --device cpu); the last one given wins")
+    parser.add_argument("--deterministic", type=lambda s: s.lower() in ("1", "true", "yes"),
+                        default=False,
+                        help="cuDNN's deterministic algorithms, for runs held bit for bit "
+                             "against each other")
     add_config_flags(parser)
     args = parser.parse_args(argv)
+    # a rank of a launcher dies with it, and a SIGUSR2 outside its resize
+    # listener does not kill it
+    join_launcher()
     try:
         config = get_preset(args.preset).replace(**collect_overrides(args))
     except (TypeError, ValueError) as e:
         # the same argv can never succeed: the code says "do not restart me"
         log_event("exit", f"config error: {e}", code=EXIT_CONFIG_ERROR)
         sys.exit(EXIT_CONFIG_ERROR)
-    # under torchrun (WORLD_SIZE > 1) this joins the group; alone it is a no-op
-    dev = init_distributed(args.device)
+    try:
+        if args.num_devices is not None:
+            _check_num_devices(args.num_devices, args.device)
+        # the device and rank the group would take, before any rendezvous
+        topology(args.device)
+    except (RuntimeError, ValueError) as e:
+        # a device or world this host can never give (a resize to more cards
+        # than it has): a relaunch of the same argv cannot succeed either
+        log_event("exit", f"device config error: {e}", code=EXIT_CONFIG_ERROR)
+        sys.exit(EXIT_CONFIG_ERROR)
+    if args.num_devices is not None and args.num_devices > 1:
+        code = launch(args.num_devices,
+                      strip_device_flag(list(sys.argv[1:] if argv is None else argv)))
+        log_event("exit", f"the {args.num_devices} ranks ended; the launcher exits {code}",
+                  code=code)
+        exit_with(code)
+    if args.deterministic:
+        torch.backends.cudnn.deterministic = True
+    # a launched rank or torchrun's (WORLD_SIZE > 1) joins the group; alone a no-op
+    dev = init_distributed(args.device, init_method=os.environ.get(ENV_INIT_METHOD) or None)
     try:
         group = process_group()
         if rank(group) == 0:
@@ -759,6 +841,10 @@ def main(argv=None) -> None:
             log_event("exit", "preemption honored: emergency checkpoint written, exiting "
                               "for relaunch", code=EXIT_PREEMPTED)
             sys.exit(EXIT_PREEMPTED)
+        if history and history[-1].get("resized"):
+            log_event("exit", "resize honored: elastic checkpoint written, exiting for "
+                              "relaunch onto the new number of cards", code=EXIT_RESIZE)
+            sys.exit(EXIT_RESIZE)
     finally:
         shutdown_distributed()
 

@@ -251,7 +251,6 @@ def test_two_rank_train_shards_crops_checkpoint_and_resume(tmp_path):
     ("shuffle_mode", "swap", "unknown shuffle_mode"),
     ("collective_chunks", 0, "collective_chunks"),
     ("health_stride", -1, "health_stride must be >= 0"),
-    ("chaos", "resize_at_step=3", "resize_at_step is not ported yet"),
     ("collapse_emb_std", 0.01, "collapse_emb_std needs health_stride > 0"),
     ("trace_mode", "verbose", "unknown trace_mode"),
 ])

@@ -64,10 +64,13 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
             "moco_tpu_torch.telemetry.run", "moco_tpu_torch.utils.logging",
             "moco_tpu_torch.resilience.errors",
             "moco_tpu_torch.resilience.sentinel"} <= {m.name for m in expected}
-    # the resilience slice: exit codes, preemption, the watchdog, chaos
+    # the resilience slice: exit codes, preemption, the watchdog, chaos; the
+    # supervisor, the elastic resize, the rank launcher and the CLI
     assert {"moco_tpu_torch.resilience", "moco_tpu_torch.resilience.exitcodes",
             "moco_tpu_torch.resilience.preemption", "moco_tpu_torch.resilience.watchdog",
-            "moco_tpu_torch.resilience.chaos"} <= {m.name for m in expected}
+            "moco_tpu_torch.resilience.chaos", "moco_tpu_torch.resilience.supervisor",
+            "moco_tpu_torch.resilience.resize", "moco_tpu_torch.parallel.launch",
+            "moco_tpu_torch.supervise"} <= {m.name for m in expected}
 
 
 def test_span_layer_imports_without_torch_or_numpy():
@@ -93,6 +96,50 @@ def test_span_layer_imports_without_torch_or_numpy():
     assert proc.stdout.split() == ["spans.jsonl", "events.jsonl"]
 
 
+@pytest.mark.parametrize("module", ["moco_tpu_torch.resilience.supervisor",
+                                    "moco_tpu_torch.resilience.resize",
+                                    "moco_tpu_torch.supervise",
+                                    "moco_tpu_torch.parallel.launch"])
+def test_supervisor_side_imports_without_torch_or_numpy(module):
+    """The supervisor stays small and alive while its child runs the host or
+    the card out of memory: it, the resize, its CLI and the rank launcher
+    import the standard library alone, through the lazy `resilience`
+    package."""
+    probe = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        print(sorted(m for m in ("torch", "numpy", "jax", "moco_tpu") if m in sys.modules))
+    """)
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["[]"]
+
+
+# the names `moco_tpu_torch.resilience` exported before it became lazy
+RESILIENCE_EXPORTS = [
+    "ChaosPlan", "CollapseError", "CollapseSentinel", "DataQualityError", "EXIT_CODE_NAMES",
+    "EXIT_CONFIG_ERROR", "EXIT_DATA_QUALITY", "EXIT_OK", "EXIT_PREEMPTED", "EXIT_RESIZE",
+    "EXIT_ROLLBACK_EXHAUSTED", "NaNSentinel", "NonFiniteLossError", "PreemptionHandler",
+    "RollbackExhaustedError", "StepWatchdog", "TransientDataError", "active_chaos",
+    "chaos_context", "clear_chaos", "install_chaos", "manifest_path", "parse_chaos_spec",
+    "truncate_checkpoint", "verify_step", "write_manifest"]
+
+
+def test_lazy_resilience_package_exports_the_same_names():
+    import importlib
+
+    resilience = importlib.import_module("moco_tpu_torch.resilience")
+    assert sorted(resilience.__all__) == RESILIENCE_EXPORTS
+    for name in RESILIENCE_EXPORTS:
+        value = getattr(resilience, name)
+        owner = getattr(value, "__module__", None)
+        assert owner is None or owner.startswith("moco_tpu_torch.resilience."), (name, owner)
+    from moco_tpu_torch.resilience import EXIT_RESIZE, StepWatchdog  # noqa: F401
+    with pytest.raises(AttributeError):
+        resilience.not_a_name  # noqa: B018
+
+
 TINY = ["--preset", "imagenet-moco-v2", "--dataset", "synthetic", "--arch", "resnet_tiny",
         "--image-size", "32", "--batch-size", "8", "--num-negatives", "32",
         "--embed-dim", "16", "--max-steps", "1"]
@@ -104,10 +151,18 @@ def test_driver_runs_one_step_on_the_cpu_when_asked(capsys):
     assert "step 1 loss" in out and "queue_ptr 8" in out
 
 
-def test_driver_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):
+def test_driver_without_a_card_raises_instead_of_using_the_cpu(monkeypatch, capsys):
+    """`main` ends as a config error (exit 45: the same argv can never
+    succeed here) instead of running on the CPU; `train` itself raises."""
+    from moco_tpu_torch.config import get_preset
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA was requested"):
+    with pytest.raises(SystemExit) as e:
         train.main(TINY)
+    assert e.value.code == 45
+    assert "CUDA was requested" in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        train.train(get_preset("imagenet-moco-v2").replace(dataset="synthetic"), max_steps=1)
 
 
 V3_TINY = ["--dataset", "synthetic", "--image-size", "32", "--batch-size", "8",
@@ -130,10 +185,12 @@ def test_v3_presets_run_on_the_cpu_when_asked_and_set_the_policy(preset, capsys)
 
 
 @pytest.mark.parametrize("preset", sorted(V3_ARCHS))
-def test_v3_presets_without_a_card_raise(preset, monkeypatch):
+def test_v3_presets_without_a_card_raise(preset, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA was requested"):
+    with pytest.raises(SystemExit) as e:
         train.main(["--preset", preset, "--arch", V3_ARCHS[preset]] + V3_TINY)
+    assert e.value.code == 45
+    assert "CUDA was requested" in capsys.readouterr().out
 
 
 def test_kernel_wrappers_refuse_other_devices():

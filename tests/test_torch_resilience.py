@@ -569,7 +569,7 @@ def test_resilience_fields_take_the_jax_defaults():
     (dict(watchdog_secs=-0.5), "watchdog_secs must be >= 0"),
     (dict(loader_retries=-1), "loader_retries must be >= 0"),
     (dict(loader_backoff_secs=-1.0), "loader_backoff_secs must be >= 0"),
-    (dict(chaos="resize_at_step=3,devices=2"), "resize_at_step is not ported yet"),
+    (dict(chaos="resize_at_step=3,devices=two"), "invalid literal for int"),
 ])
 def test_config_rejects_bad_resilience_knobs(bad, match):
     with pytest.raises(ValueError, match=match):
