@@ -177,6 +177,30 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             imgs/s at 4 and 2 cards, each hop's elastic checkpoint; with fewer
             cards it prints why it is skipped. `python3 chip_smoke.py
             --phase11` runs phase 11 alone, `--phase11d` its (d) alone.
+12. phase12 cross-process BatchNorm and the input service, right after
+            phase 11: (a) phase 3's configuration for 3 steps in a one-rank
+            NCCL group under deterministic cuDNN with `sync_bn` off and on:
+            losses, logits, enqueued keys and state equal bit for bit, the
+            BN pair's and the blur's launches phase 3's a step, the
+            all-reduces a step (3, and 3 + 159 with `sync_bn`: one a BN
+            forward and backward), imgs/s, and (e) each run's first BN pair
+            calls and first step's blurs held against their plain versions
+            on the path's own inputs; (b) `fused_bn_conv` with `sync_bn`:
+            no launch of kernels 4-8 in 2 steps; (c) phase 4's 576-JPEG tree
+            served by 1, 2 and 4 staging servers (`LocalServerPool`, each a
+            stdlib supervisor and a decode-worker process): the first
+            epoch's batches on the card equal the in-process loader's bit
+            for bit, and imgs/s of the driver fed by each (4 steps, batch
+            256, `input_service`) against the in-process PIL decode and the
+            in-process prestage, beside `os.cpu_count()`; (d)
+            `kill_at_shard=2` on one of two servers: the epoch bit for bit,
+            the seconds from the worker's death to its relaunch's first
+            healthy probe. `python3 chip_smoke.py --phase12` runs phase 12
+            alone; `--phase12d`, on a host with four cards,
+            runs the CLI at `--num-devices 4 --sync-bn true` (64 a card)
+            against one card at 256 without it (the first three losses
+            within `PHASE12_D_RTOL`) and four cards without it, imgs/s of
+            each; with fewer cards it prints why it is skipped.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -186,6 +210,7 @@ to this script.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -725,7 +750,9 @@ def run_slice(counters: dict, label: str, config, dataset, steps: int) -> dict:
     if blur_routes != {"fixed": PER_STEP["gaussian_blur_batch"] * steps, "generic": 0}:
         fail(f"{label}: blur routes {blur_routes} in {steps} steps", 1)
 
-    expected = {**PER_STEP, **{name: per_step if config.fused_bn_conv else 0
+    # sync_bn keeps the fused tail off, as the JAX package ignores it under SyncBN
+    fused = config.fused_bn_conv and not config.sync_bn
+    expected = {**PER_STEP, **{name: per_step if fused else 0
                                for name, per_step in FUSED_PER_STEP.items()}}
     for name, per_step in expected.items():
         if launches[name] != per_step * steps:
@@ -1081,12 +1108,13 @@ NCCL_CALLS = ("all_gather", "all_reduce", "batch_isend_irecv", "all_gather_into_
 
 
 def counted_train(config, label: str, counters: dict, dataset, steps: int, device="cuda",
-                  finish=None) -> dict:
+                  finish=None, stats=None) -> dict:
     """`train.train` for `steps` steps of `config` on `dataset`, with the
     logits captured where the step computes them, the NCCL calls and every
     kernel's launches counted (each must launch its per-step count every
     step), and `finish(gradsync, state, run)` called in place of each
-    step's `GradSync.finish`, `run()` running it (when given). Returns the
+    step's `GradSync.finish`, `run()` running it (when given); `stats` an
+    `InputPipelineStats` the input pipeline reports to. Returns the
     state, losses, logits, launches, calls, the steps' host seconds and
     imgs/s over steps 2... (rank 0's; NaN on the others)."""
     import torch
@@ -1124,7 +1152,8 @@ def counted_train(config, label: str, counters: dict, dataset, steps: int, devic
         GradSync.finish = finish_hooked
     try:
         state, history = train.train(config, max_steps=steps, device=device, dataset=dataset,
-                                     on_step=lambda step, m, sec: seconds.append(sec))
+                                     on_step=lambda step, m, sec: seconds.append(sec),
+                                     stats=stats)
     finally:
         train_step.infonce_logits = real_logits
         GradSync.finish = real_finish
@@ -1132,7 +1161,9 @@ def counted_train(config, label: str, counters: dict, dataset, steps: int, devic
             setattr(dist, name, real_calls[name])
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    expected = {**PER_STEP, **{name: per_step if config.fused_bn_conv else 0
+    # sync_bn keeps the fused tail off, as the JAX package ignores it under SyncBN
+    fused = config.fused_bn_conv and not config.sync_bn
+    expected = {**PER_STEP, **{name: per_step if fused else 0
                                for name, per_step in FUSED_PER_STEP.items()}}
     for name, per_step in expected.items():
         if launches[name] != per_step * steps:
@@ -2934,6 +2965,65 @@ def _first(records: list[dict], pred, after: float = -math.inf) -> dict | None:
     return next((r for r in records if r["t"] > after and pred(r)), None)
 
 
+@contextlib.contextmanager
+def kept_first_calls():
+    """Keep the first calls of the BN pair (as `models/fast_bn.py` calls
+    them) and the first step's blurs (as `data/augment.py` calls the
+    kernel), inputs and outputs, while the block runs: yields `(kept,
+    seen)` for `hold_first_calls`."""
+    from moco_tpu_torch.data import augment
+    from moco_tpu_torch.models import fast_bn
+
+    kept, seen = {}, []
+    real = {"sums": fast_bn.channel_sums, "grads": fast_bn.channel_grad_sums,
+            "blur": augment.gaussian_blur_batch}
+
+    def sums_kept(x):
+        got = real["sums"](x)
+        kept.setdefault("sums", (x.detach().clone(), [g.clone() for g in got]))
+        return got
+
+    def grads_kept(dy, x, mean, rstd):
+        got = real["grads"](dy, x, mean, rstd)
+        kept.setdefault("grads", (dy.detach().clone(), x.detach().clone(), mean.clone(),
+                                  rstd.clone(), [g.clone() for g in got]))
+        return got
+
+    def blur_kept(images, taps, radius):
+        got = real["blur"](images, taps, radius)
+        if len(seen) < PER_STEP["gaussian_blur_batch"]:
+            seen.append((images.cpu(), taps.cpu(), radius, got.cpu()))
+        return got
+
+    fast_bn.channel_sums, fast_bn.channel_grad_sums = sums_kept, grads_kept
+    augment.gaussian_blur_batch = blur_kept
+    try:
+        yield kept, seen
+    finally:
+        fast_bn.channel_sums, fast_bn.channel_grad_sums = real["sums"], real["grads"]
+        augment.gaussian_blur_batch = real["blur"]
+
+
+def hold_first_calls(kept: dict, seen: list, label: str) -> dict:
+    """The kept first calls of the BN pair against their plain versions on
+    the path's own inputs (`SUM_RTOL`), and the blurs within one bf16 ulp
+    (`_hold_blur`); returns each kernel's max abs error."""
+    from moco_tpu_torch.ops import stats
+
+    x, got = kept["sums"]
+    xf = x.float()
+    err_s = _sums_close("channel_sums", label, got, stats.channel_sums_plain(x),
+                        (xf.abs().sum(0), (xf * xf).sum(0)))
+    dy, x, mean, rstd, got = kept["grads"]
+    xf, dyf = x.float(), dy.float()
+    err_g = _sums_close("channel_grad_sums", label, got,
+                        stats.channel_grad_sums_plain(dy, x, mean, rstd),
+                        (dyf.abs().sum(0), (dyf * (xf - mean) * rstd).abs().sum(0)))
+    blurred = _hold_blur(seen, label, "cuda")
+    return dict(channel_sums=err_s, channel_grad_sums=err_g,
+                gaussian_blur_batch=max(b["max_abs_err"] for b in blurred))
+
+
 def run_supervised(counters: dict, smi: str, only_d: bool = False) -> dict:
     """Phase 11: the run supervisor on the card (see the module docstring);
     `only_d`: the four-card drill (d) alone."""
@@ -2944,10 +3034,7 @@ def run_supervised(counters: dict, smi: str, only_d: bool = False) -> dict:
     import torch
 
     from moco_tpu_torch.config import get_preset
-    from moco_tpu_torch.data import augment
     from moco_tpu_torch.data.datasets import build_dataset
-    from moco_tpu_torch.models import fast_bn
-    from moco_tpu_torch.ops import stats
 
     out = {}
     deterministic = torch.backends.cudnn.deterministic
@@ -2974,48 +3061,15 @@ def run_supervised(counters: dict, smi: str, only_d: bool = False) -> dict:
             print_freq=1, telemetry_dir=str(tmp / "ref" / "tel"),
             ckpt_dir=str(tmp / "ref" / "ck"), heartbeat_secs=0.0, telemetry_flush_steps=1)
         dataset = build_dataset("synthetic", image_size=config.image_size)
-        kept = {}
-        real = {"sums": fast_bn.channel_sums, "grads": fast_bn.channel_grad_sums,
-                "blur": augment.gaussian_blur_batch}
-        seen = []
-
-        def sums_kept(x):
-            got = real["sums"](x)
-            kept.setdefault("sums", (x.detach().clone(), [g.clone() for g in got]))
-            return got
-
-        def grads_kept(dy, x, mean, rstd):
-            got = real["grads"](dy, x, mean, rstd)
-            kept.setdefault("grads", (dy.detach().clone(), x.detach().clone(), mean.clone(),
-                                      rstd.clone(), [g.clone() for g in got]))
-            return got
-
-        def blur_kept(images, taps, radius):
-            got = real["blur"](images, taps, radius)
-            if len(seen) < PER_STEP["gaussian_blur_batch"]:
-                seen.append((images.cpu(), taps.cpu(), radius, got.cpu()))
-            return got
-
         torch.backends.cudnn.deterministic = True
-        fast_bn.channel_sums, fast_bn.channel_grad_sums = sums_kept, grads_kept
-        augment.gaussian_blur_batch = blur_kept
         try:
-            ref = _kept_train(config, "phase11 uninterrupted", counters, dataset,
-                              PHASE11_SPE * PHASE11_EPOCHS)
+            with kept_first_calls() as (kept, seen):
+                ref = _kept_train(config, "phase11 uninterrupted", counters, dataset,
+                                  PHASE11_SPE * PHASE11_EPOCHS)
         finally:
-            fast_bn.channel_sums, fast_bn.channel_grad_sums = real["sums"], real["grads"]
-            augment.gaussian_blur_batch = real["blur"]
             torch.backends.cudnn.deterministic = deterministic
-        x, got = kept["sums"]
-        xf = x.float()
-        err_s = _sums_close("channel_sums", "phase11", got, stats.channel_sums_plain(x),
-                            (xf.abs().sum(0), (xf * xf).sum(0)))
-        dy, x, mean, rstd, got = kept["grads"]
-        xf, dyf = x.float(), dy.float()
-        err_g = _sums_close("channel_grad_sums", "phase11", got,
-                            stats.channel_grad_sums_plain(dy, x, mean, rstd),
-                            (dyf.abs().sum(0), (dyf * (xf - mean) * rstd).abs().sum(0)))
-        blurred = _hold_blur(seen, "phase11 uninterrupted", "cuda")
+        errs = hold_first_calls(kept, seen, "phase11 uninterrupted")
+        err_s, err_g = errs["channel_sums"], errs["channel_grad_sums"]
         ref_losses = ref["losses"]
         print(f"phase11 uninterrupted: {ref['executed']} steps in this process, launches "
               f"{ref['launches']}; channel_sums {list(kept['sums'][0].shape)} and "
@@ -3023,11 +3077,8 @@ def run_supervised(counters: dict, smi: str, only_d: bool = False) -> dict:
               f"inputs against their plain versions (max abs err {err_s:.3e}, {err_g:.3e}); "
               f"losses {ref_losses}", flush=True)
         out["uninterrupted"] = dict(launches=ref["launches"], losses=ref_losses,
-                                    max_abs_err=dict(channel_sums=err_s,
-                                                     channel_grad_sums=err_g,
-                                                     blur=max(b["max_abs_err"]
-                                                              for b in blurred)))
-        del ref, kept, seen, dataset, x, xf, dy, dyf
+                                    max_abs_err=errs)
+        del ref, kept, seen, dataset
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3211,6 +3262,249 @@ def _resize_drill(dtmp: Path, chaos_env, smi: str) -> dict:
     return result
 
 
+PHASE12_STEPS = 4           # (c): steps of each JPEG-fed run (2 batches an epoch)
+PHASE12_SERVERS = (1, 2, 4) # (c): staging servers a pool
+PHASE12_D_STEPS = 8         # --phase12d: steps of each run (one epoch of 2048 images)
+# --phase12d: |loss(4 cards, sync_bn) - loss(1 card)| <= rtol * |loss(1 card)|,
+# fixed before the first four-card run: step 1 differs only by the order of
+# f32 sums and bf16 roundings (the same global statistics), steps 2-3 carry
+# those through one and two updates
+PHASE12_D_RTOL = {1: 2e-3, 2: 2e-2, 3: 2e-2}
+
+
+def _bn_all_reduces(config) -> int:
+    """The BN all-reduces a sync_bn step issues: one a BN forward (query and
+    key encoders) and one a BN backward (query), 159 for ResNet-50."""
+    per_step = PER_STEP["channel_sums"] + PER_STEP["channel_grad_sums"]
+    return per_step if config.sync_bn else 0
+
+
+def _service_batches(spec: str, dataset_len: int, config, epoch: int = 0) -> list:
+    """The first `epoch`'s batches as `service_epoch_loader` stages them onto
+    the card (the driver's knobs), copied."""
+    from moco_tpu_torch.data.service.client import service_epoch_loader
+
+    loader = service_epoch_loader(spec, dataset_len, epoch, config.seed, config.batch_size,
+                                  "cuda", depth=config.prefetch_depth,
+                                  streams=config.staging_workers)
+    try:
+        return [tuple(t.clone() for t in batch) for batch in loader]
+    finally:
+        loader.close_quietly()
+
+
+def _same_batches(got: list, want: list, label: str) -> None:
+    import torch
+
+    if len(got) != len(want) or not got or not all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for g, w in zip(got, want) for a, b in zip(g, w)):
+        fail(f"{label}: the service's batches differ from the in-process loader's", 1)
+
+
+def _relaunch_seconds(events_path: Path) -> float:
+    """From the killed worker's `worker_exit` record to the relaunched
+    worker's first healthy probe, on the server's events.jsonl clock."""
+    with open(events_path, encoding="utf-8") as f:
+        events = [json.loads(line) for line in f]
+    died = next(e for e in events if e["event"] == "worker_exit" and e["returncode"] == -9)
+    back = next(e for e in events if e["t"] >= died["t"]
+                and e["event"] in ("worker_healthy", "readmit"))
+    return back["t"] - died["t"]
+
+
+def run_sync_bn_and_service(counters: dict, smi: str) -> dict:
+    """Phase 12: `sync_bn` and the input service on one card (see the module
+    docstring)."""
+    import tempfile
+
+    import torch
+
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.data.datasets import build_dataset
+    from moco_tpu_torch.data.loader import epoch_loader
+    from moco_tpu_torch.data.service.fleet import LocalServerPool
+    from moco_tpu_torch.data.service.prestage import PrestagedDataset, write_prestage
+    from moco_tpu_torch.data.stats import InputPipelineStats
+    from moco_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+    from moco_tpu_torch.serve.fleet import FleetPolicy
+
+    out = {"cpu_count": os.cpu_count()}
+    base = get_preset("imagenet-moco-v2").replace(
+        dataset="synthetic", batch_size=BATCH, staging_workers=4, prefetch_depth=2,
+        print_freq=1)
+    dataset = build_dataset("synthetic", image_size=base.image_size)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory(prefix="moco_phase12_") as tmp:
+        tmp = Path(tmp)
+        # (a), (b), (e): sync_bn in a one-rank NCCL group
+        init_distributed("cuda", rank=0, world_size=1, init_method=f"file://{tmp / 'store'}")
+        try:
+            runs = {}
+            for label, config in (("off", base), ("sync_bn", base.replace(sync_bn=True))):
+                with kept_first_calls() as (kept, seen):
+                    r = counted_train(config, f"phase12 (a) {label}", counters, dataset,
+                                      DIST_STEPS)
+                want = 3 + _bn_all_reduces(config)
+                if r["calls"]["all_reduce"] != want * DIST_STEPS:
+                    fail(f"phase12 (a) {label}: {r['calls']['all_reduce']} all-reduces in "
+                         f"{DIST_STEPS} steps, expected {want} a step", 1)
+                r["held"] = hold_first_calls(kept, seen, f"phase12 (a) {label}")
+                runs[label] = r
+                del kept, seen
+            compare_runs(runs["sync_bn"], runs["off"], "phase12 (a) sync_bn vs off, one-rank "
+                         "NCCL group", DIST_STEPS)
+            fused = counted_train(base.replace(sync_bn=True, fused_bn_conv=True),
+                                  "phase12 (b) fused_bn_conv + sync_bn", counters, dataset, 2)
+        finally:
+            shutdown_distributed()
+            torch.backends.cudnn.deterministic = deterministic
+        out["a"] = {label: dict(losses=r["losses"], launches=r["launches"],
+                                all_reduce_per_step=r["calls"]["all_reduce"] / DIST_STEPS,
+                                imgs_per_s=r["imgs_per_s"], max_abs_err=r["held"])
+                    for label, r in runs.items()}
+        out["b"] = {k: fused["launches"][k] for k in FUSED_PER_STEP}
+        del runs, fused
+        print(f"phase12 (a) sync_bn in a one-rank NCCL group equals per-process BN bit for "
+              f"bit; all-reduces a step {out['a']['sync_bn']['all_reduce_per_step']:.0f} vs "
+              f"{out['a']['off']['all_reduce_per_step']:.0f}; imgs/s "
+              f"{out['a']['sync_bn']['imgs_per_s']:.1f} vs {out['a']['off']['imgs_per_s']:.1f}"
+              f" (deterministic cuDNN, steps 2-{DIST_STEPS}); the BN pair and the blur on "
+              f"the path's first inputs against their plain versions "
+              f"{out['a']['sync_bn']['max_abs_err']}; (b) fused_bn_conv + sync_bn launches "
+              f"of kernels 4-8: {out['b']} ({smi})", flush=True)
+        del dataset
+        torch.cuda.empty_cache()
+
+        # (c), (d): phase 4's JPEG tree through the staging servers
+        tree = tmp / "jpeg"
+        write_jpeg_tree(tree)
+        folder = base.replace(dataset="imagefolder", data_dir=str(tree), stage_size=512)
+        # phase 4's decoder, in this process and in the servers' workers
+        local = build_dataset("imagefolder", str(tree), stage_size=512,
+                              backend=IMAGEFOLDER_BACKEND)
+        worker_args = ["--dataset", "imagefolder", "--data-dir", str(tree),
+                       "--stage-size", "512", "--backend", IMAGEFOLDER_BACKEND]
+        policy = FleetPolicy(probe_secs=0.2, startup_grace_secs=60.0, backoff_base_secs=0.1,
+                             backoff_max_secs=0.5)
+        loader = epoch_loader(local, 0, folder.seed, BATCH, "cuda", workers=4)
+        try:
+            want = [tuple(t.clone() for t in batch) for batch in loader]
+        finally:
+            loader.close_quietly()
+        rates, staging = {}, {}
+
+        def fed(label, config, data):
+            stats = InputPipelineStats()
+            rates[label] = counted_train(config, f"phase12 (c) {label}", counters, data,
+                                         PHASE12_STEPS, stats=stats)["imgs_per_s"]
+            snap = stats.snapshot()
+            staging[label] = {k: snap[k] for k in ("staged_batch_s_p50", "staged_batch_s_p95",
+                                                   "credit_stall_s")}
+
+        fed("in-process PIL", folder, local)
+        root = str(tmp / "prestage")
+        write_prestage(local, root)
+        fed("in-process prestage", folder.replace(input_prestage=root), PrestagedDataset(root))
+        for n in PHASE12_SERVERS:
+            pool = LocalServerPool(n, worker_args, telemetry_root=str(tmp / f"pool{n}"),
+                                   policy=policy)
+            try:
+                pool.start()
+                if not pool.wait_healthy(120.0):
+                    fail(f"phase12 (c): a pool of {n} staging servers never became healthy", 1)
+                _same_batches(_service_batches(pool.endpoints_spec(), len(local), folder),
+                              want, f"phase12 (c) {n} server(s)")
+                fed(f"{n} server(s)", folder.replace(input_service=pool.endpoints_spec()),
+                    None)
+            finally:
+                pool.close_quietly()
+        out["c"] = dict(imgs_per_s=rates, staging=staging)
+        print(f"phase12 (c) the driver fed from {IMAGEFOLDER_IMAGES} JPEGs (batch {BATCH}, "
+              f"steps 2-{PHASE12_STEPS}, {os.cpu_count()} host cores): " + ", ".join(
+                  f"{k} {v:.1f} imgs/s (staged batch p50/p95 "
+                  f"{staging[k]['staged_batch_s_p50']:.3f}/"
+                  f"{staging[k]['staged_batch_s_p95']:.3f} s, credit stall "
+                  f"{staging[k]['credit_stall_s']:.2f} s)" for k, v in rates.items())
+              + f"; each pool's first epoch equal to the in-process loader's bit for bit "
+              f"({smi})", flush=True)
+
+        # (d): kill_at_shard on one of two servers, mid-epoch
+        pool = LocalServerPool(2, worker_args, telemetry_root=str(tmp / "drill"), policy=policy,
+                               per_server_env={0: {
+                                   "MOCO_TPU_CHAOS": "kill_at_shard=2",
+                                   "MOCO_TPU_CHAOS_STATE": str(tmp / "drill" / "chaos")}})
+        try:
+            pool.start()
+            if not pool.wait_healthy(120.0):
+                fail("phase12 (d): the drill's pool never became healthy", 1)
+            t0 = time.perf_counter()
+            _same_batches(_service_batches(pool.endpoints_spec(), len(local), folder), want,
+                          "phase12 (d) kill_at_shard")
+            epoch_s = time.perf_counter() - t0
+            server0 = pool.servers[0]
+            deadline = time.monotonic() + 120.0
+            while not (server0.worker.launches >= 2 and server0.worker_healthy()):
+                if time.monotonic() > deadline:
+                    fail("phase12 (d): the killed worker was not relaunched", 1)
+                time.sleep(0.1)
+            relaunch_s = _relaunch_seconds(tmp / "drill" / "staging_server0" / "events.jsonl")
+        finally:
+            pool.close_quietly()
+        out["d"] = dict(epoch_s=epoch_s, relaunch_s=relaunch_s)
+        print(f"phase12 (d) kill_at_shard=2 on one of two servers: the epoch equal to the "
+              f"in-process loader's bit for bit in {epoch_s:.2f} s; the killed worker "
+              f"healthy again {relaunch_s:.2f} s after its death ({smi})", flush=True)
+    return out
+
+
+def sync_bn_across_cards(smi: str) -> dict:
+    """`--phase12d`: the driver's CLI at `--num-devices 4 --sync-bn true`
+    (64 a card) against one card at 256 without it, and at four cards
+    without it; skipped with fewer than four cards."""
+    import re
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"phase12d skipped: {cards} card(s) here; it needs 4 on one host",
+              flush=True)
+        return dict(skipped=f"{cards} card(s)")
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    argv = [sys.executable, "-m", "moco_tpu_torch.train", "--preset", "imagenet-moco-v2",
+            "--dataset", "synthetic", "--max-steps", str(PHASE12_D_STEPS), "--print-freq", "1"]
+    runs = {}
+    for label, extra in (("1 card", []),
+                         ("4 cards sync_bn", ["--num-devices", "4", "--sync-bn", "true"]),
+                         ("4 cards", ["--num-devices", "4"])):
+        proc = subprocess.run(argv + extra, env=env, capture_output=True, text=True,
+                              timeout=600)
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / f"phase12d_{label.replace(' ', '_')}.log").write_text(
+            proc.stdout + proc.stderr)
+        steps = [(int(m[1]), float(m[2]), float(m[3])) for m in re.finditer(
+            r"^step (\d+) loss (\S+) .* imgs_s (\S+)$", proc.stdout, re.M)]
+        if proc.returncode != 0 or len(steps) != PHASE12_D_STEPS:
+            fail(f"phase12d {label}: exit {proc.returncode}, {len(steps)} steps:\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}", 1)
+        rates = sorted(r for _, _, r in steps[2:])
+        runs[label] = dict(losses=[v for _, v, _ in steps], imgs_per_s=rates[len(rates) // 2])
+    one, synced = runs["1 card"]["losses"], runs["4 cards sync_bn"]["losses"]
+    for step, rtol in PHASE12_D_RTOL.items():
+        if abs(synced[step - 1] - one[step - 1]) > rtol * abs(one[step - 1]):
+            fail(f"phase12d: step {step} loss {synced[step - 1]} at 4 cards with sync_bn vs "
+                 f"{one[step - 1]} on one card, beyond rtol {rtol}", 1)
+    print(f"phase12d: 4 cards x 64 with sync_bn vs 1 card x 256: losses {synced[:3]} vs "
+          f"{one[:3]} (rtol {PHASE12_D_RTOL}); median imgs/s over steps 3-{PHASE12_D_STEPS}: "
+          + ", ".join(f"{k} {v['imgs_per_s']:.1f}" for k, v in runs.items()) + f" ({smi})",
+          flush=True)
+    return runs
+
+
 def _v3_states_differ(a, b) -> list[str]:
     """What differs between two v3 TrainStates, bit for bit."""
     import torch
@@ -3328,6 +3622,16 @@ def main() -> None:
         print(smi)
         print(json.dumps({"phase11": r}, default=str))
         return
+    if {"--phase12", "--phase12d"} & set(sys.argv[1:]):
+        # phase 12 alone on one card; --phase12d: its four-card run
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        r = (sync_bn_across_cards(smi) if "--phase12d" in sys.argv[1:]
+             else run_sync_bn_and_service(counters, smi))
+        print(smi)
+        print(json.dumps({"phase12": r}, default=str))
+        return
     if "--phase10" in sys.argv[1:]:
         # phase 10 alone, on one card
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3369,6 +3673,7 @@ def main() -> None:
     run_telemetry(counters, dataset, smi)
     run_resilience(counters, dataset, smi)
     run_supervised(counters, smi)
+    run_sync_bn_and_service(counters, smi)
     del dataset
     print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
           f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "

@@ -20,7 +20,9 @@ The telemetry, tracing, learning-health and resilience fields carry the
 JAX package's defaults and checks. The port adds checks of its own to the
 resilience knobs, which the JAX package leaves unchecked: `max_rollbacks`,
 `watchdog_secs`, `loader_retries` and `loader_backoff_secs` must be >= 0,
-and `chaos` must parse (with the JAX parser's message).
+and `chaos` must parse (with the JAX parser's message). `sync_bn` and the
+input-service fields (`input_service`, `input_request_timeout_s`) carry the
+JAX package's defaults and checks.
 """
 
 from __future__ import annotations
@@ -51,6 +53,9 @@ class PretrainConfig:
                                       # one shared permutation) | "ring" (half-shard
                                       # exchanges, partial decorrelation)
     compute_dtype: str = "float32"    # "bfloat16" for the ImageNet presets
+    sync_bn: bool = False             # BN statistics over the group's global batch
+                                      # (models/fast_bn.py); per-process BN is the
+                                      # MoCo default
     fused_bn_conv: bool = False       # blocks' bn->relu->conv through the fused kernels
     remat: bool = False               # recompute each ViT block in the backward
                                       # (torch.utils.checkpoint): memory for FLOPs
@@ -85,6 +90,12 @@ class PretrainConfig:
     decode_abort_rate: float = 0.5    # DataQualityError past this decode-failure rate (0 = never)
     input_prestage: str = ""          # pre-staged epoch cache directory
                                       # (data/service/prestage.py): epochs are row gathers
+    input_service: str = ""           # "host:port,host:port" staging-server data
+                                      # endpoints (data/service/): batches are fetched
+                                      # from standalone decode servers (ServiceClient),
+                                      # bit for bit the in-process staging; "" = in-process
+    input_request_timeout_s: float = 30.0  # one service shard round trip before the
+                                      # client tears the link and asks another server
     # optimization (reference: SGD momentum .9, wd 1e-4, lr .03, batch 256)
     optimizer: str = "sgd"            # sgd | adamw | lars
     lr: float = 0.03                  # absolute lr; 0.0 = derive from base_lr
@@ -180,6 +191,27 @@ class PretrainConfig:
             raise ValueError(f"staging_workers must be >= 1, got {self.staging_workers}")
         if self.input_cache_mb < 0:
             raise ValueError(f"input_cache_mb must be >= 0, got {self.input_cache_mb}")
+        # a typo'd endpoint list fails where it was written, not as an
+        # unreachable-server stall mid-run
+        if self.input_request_timeout_s <= 0:
+            raise ValueError("input_request_timeout_s must be > 0, got "
+                             f"{self.input_request_timeout_s}")
+        if self.input_service:
+            from moco_tpu_torch.data.service.protocol import parse_endpoints
+
+            parse_endpoints(self.input_service)  # raises ValueError
+            if self.h2d_trim:
+                raise ValueError(
+                    "input_service and h2d_trim are mutually exclusive: extent-trimming "
+                    "slices the staged canvas CLIENT-side into a shape grid the remote "
+                    "shard frames do not carry — run the service with full canvases or "
+                    "trim in-process")
+            if self.input_prestage:
+                raise ValueError(
+                    "input_service and input_prestage are mutually exclusive on the "
+                    "train host: the service loader would feed training while the "
+                    "prestage sat unused — point the staging servers at it instead "
+                    "(python -m moco_tpu_torch.staging_server --prestage <dir>)")
         if self.print_freq < 1:
             raise ValueError(f"print_freq must be >= 1, got {self.print_freq}")
         if self.ckpt_every_epochs < 1:

@@ -204,16 +204,19 @@ class Prefetcher:
                 # a detail span continuing the coordinator's stage_batch
                 # span (explicit parent: thread-locals do not cross threads)
                 with self._tracer.span("decode_slice", cat="input", detail=True,
-                                       parent=trace_ctx, batch=b, lo=lo, hi=hi):
-                    self._read_slice_into(b, idx, canvas, lo, hi)
+                                       parent=trace_ctx, batch=b, lo=lo, hi=hi) as sp:
+                    self._read_slice_into(b, idx, canvas, lo, hi, sp.context() or trace_ctx)
                 collector.done_ok()
             except Exception as e:  # routed to the coordinator, which raises it
                 collector.done_err(e)
 
-    def _read_slice_into(self, b: int, idx: np.ndarray, canvas: _Canvas, lo: int, hi: int):
+    def _read_slice_into(self, b: int, idx: np.ndarray, canvas: _Canvas, lo: int, hi: int,
+                         trace_ctx=None):
         """Decode `idx` into canvas rows [lo, hi), retrying a transient read
         fault (OSError) with exponential backoff per sub-slice. Worker-busy
-        time books the decode attempts, not the backoff sleeps."""
+        time books the decode attempts, not the backoff sleeps. `trace_ctx`
+        is the span a remote fetch continues (`data/service/client.py`); a
+        local decode has no use for it."""
         attempt = 0
         while True:
             t0 = time.perf_counter()

@@ -21,6 +21,10 @@ Same structure and parameter names as the flax modules, so
   parameters. Unlike the JAX package, which fuses on the TPU only, the path
   is taken wherever it is configured: on the CPU the kernels' wrappers take
   their plain versions.
+- `bn_group` (`sync_bn`): every BN of the backbone, the stem's and the
+  blocks', takes its train-mode statistics over that process group's global
+  batch (`models/fast_bn.py`). As in the JAX package, whose fused tail is
+  "ignored for SyncBN", a `bn_group` keeps the fused tail off.
 """
 
 from __future__ import annotations
@@ -72,17 +76,18 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, cin: int, filters: int, stride: int, dtype, fused_tail: bool = False):
+    def __init__(self, cin: int, filters: int, stride: int, dtype, fused_tail: bool = False,
+                 bn_group=None):
         super().__init__()
         self.fused_tail = fused_tail
         self.conv1 = Conv(cin, filters, 3, stride, 1, dtype)
-        self.bn1 = FastBatchNorm(filters)
+        self.bn1 = FastBatchNorm(filters, group=bn_group)
         self.conv2 = Conv(filters, filters, 3, 1, 1, dtype)
-        self.bn2 = FastBatchNorm(filters)
+        self.bn2 = FastBatchNorm(filters, group=bn_group)
         self.has_downsample = stride != 1 or cin != filters
         if self.has_downsample:
             self.downsample_conv = Conv(cin, filters, 1, stride, 0, dtype)
-            self.downsample_bn = FastBatchNorm(filters)
+            self.downsample_bn = FastBatchNorm(filters, group=bn_group)
 
     def forward(self, x):
         y = self.conv1(x)
@@ -102,20 +107,21 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, filters: int, stride: int, dtype, fused_tail: bool = False):
+    def __init__(self, cin: int, filters: int, stride: int, dtype, fused_tail: bool = False,
+                 bn_group=None):
         super().__init__()
         self.fused_tail = fused_tail
         out = filters * self.expansion
         self.conv1 = Conv(cin, filters, 1, 1, 0, dtype)
-        self.bn1 = FastBatchNorm(filters)
+        self.bn1 = FastBatchNorm(filters, group=bn_group)
         self.conv2 = Conv(filters, filters, 3, stride, 1, dtype)
-        self.bn2 = FastBatchNorm(filters)
+        self.bn2 = FastBatchNorm(filters, group=bn_group)
         self.conv3 = Conv(filters, out, 1, 1, 0, dtype)
-        self.bn3 = FastBatchNorm(out)
+        self.bn3 = FastBatchNorm(out, group=bn_group)
         self.has_downsample = stride != 1 or cin != out
         if self.has_downsample:
             self.downsample_conv = Conv(cin, out, 1, stride, 0, dtype)
-            self.downsample_bn = FastBatchNorm(out)
+            self.downsample_bn = FastBatchNorm(out, group=bn_group)
 
     def forward(self, x):
         y = self.conv1(x)
@@ -136,27 +142,31 @@ class ResNet(nn.Module):
     `mlp_head=True`; `num_classes=None` has no head and returns the pooled
     f32 backbone features (`feature_dim` wide: the linear probe's and the
     kNN bank's input). `fused_bn_conv=True` fuses the blocks' interior
-    bn -> relu -> conv passes (`fused_tail`)."""
+    bn -> relu -> conv passes (`fused_tail`), unless `bn_group` syncs the
+    BNs over a process group."""
 
     def __init__(self, stage_sizes, block_cls, num_classes: int | None = 128,
                  mlp_head: bool = False, cifar_stem: bool = False, width: int = 64,
                  dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None, fused_bn_conv: bool = False):
+                 generator: torch.Generator | None = None, fused_bn_conv: bool = False,
+                 bn_group=None):
         super().__init__()
+        fused_tail = fused_bn_conv and bn_group is None
         self.dtype = dtype
         self.cifar_stem = cifar_stem
         if cifar_stem:
             self.conv1 = Conv(3, width, 3, 1, 1, dtype)
         else:
             self.conv1 = Conv(3, width, 7, 2, 3, dtype)
-        self.bn1 = FastBatchNorm(width)
+        self.bn1 = FastBatchNorm(width, group=bn_group)
         cin = width
         self.block_names = []
         for i, num_blocks in enumerate(stage_sizes):
             for j in range(num_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 name = f"layer{i + 1}_{j}"
-                block = block_cls(cin, width * 2**i, stride, dtype, fused_tail=fused_bn_conv)
+                block = block_cls(cin, width * 2**i, stride, dtype, fused_tail=fused_tail,
+                                  bn_group=bn_group)
                 self.add_module(name, block)
                 self.block_names.append(name)
                 cin = width * 2**i * block_cls.expansion

@@ -17,12 +17,14 @@ reproducible bit for bit.
 The driver's hooks: `nan_at_step`/`nan_count`, `sigterm_at_step`,
 `slow_at_step`, `kill_at_step`, `freeze_at_step`, `collapse_at_step`,
 `resize_at_step`/`resize_devices`; the Prefetcher's:
-`loader_error_at_batch`/`loader_error_count`. `kill_at_step` and
-`freeze_at_step` are recovered by the out-of-process supervisor
-(`resilience/supervisor.py`). The serving and staging-server faults
-(`kill_at_request`, `wedge_at_request`, `kill_at_shard`, `stall_at_shard`)
-parse as in the JAX package; the port has no serving front end or staging
-server yet, so nothing polls them.
+`loader_error_at_batch`/`loader_error_count` (also polled by the input
+service's `ServiceClient`); the staging server's decode worker
+(`data/service/worker.py`): `kill_at_shard`, `stall_at_shard`/`stall_ms`.
+`kill_at_step` and `freeze_at_step` are recovered by the out-of-process
+supervisor (`resilience/supervisor.py`), `kill_at_shard` by the staging
+server's. The serving faults (`kill_at_request`, `wedge_at_request`) parse
+as in the JAX package; the port has no serving front end yet, so nothing
+polls them.
 
 `truncate_checkpoint` is the storage-fault injector: it halves the largest
 file of a saved step in place, as a preempted writer leaves it.
@@ -162,6 +164,26 @@ class ChaosPlan:
                                f"({self._nans_raised}/{self.nan_count})")
             return True
         return False
+
+    def maybe_kill_shard(self, n_shards: int) -> None:
+        """Staging-server SIGKILL after the n-th served shard (fire-once,
+        marker persisted: the relaunched worker counts its shards from 0
+        again and must not fire the drill into a crash loop). Fired BEFORE
+        the shard's answer is sent, so the client sees a dead connection
+        mid-request: the failure its retry on another server exists for."""
+        if self.kill_at_shard == n_shards and self._fire_once("kill_shard"):
+            log_event("chaos", f"injecting SIGKILL at shard {n_shards}")
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    def maybe_stall_shard(self, n_shards: int) -> None:
+        """Stall the n-th served shard by `stall_ms` before answering
+        (fire-once, marker persisted). Above the client's request timeout
+        the client's read times out and another server serves the shard;
+        below it the shard is merely late. The stalled server stays
+        healthy either way."""
+        if self.stall_at_shard == n_shards and self._fire_once("stall_shard"):
+            log_event("chaos", f"injecting {self.stall_ms} ms stall at shard {n_shards}")
+            time.sleep(self.stall_ms / 1e3)
 
     def maybe_loader_error(self, batch_index: int) -> None:
         """Raise `TransientDataError` on the first `loader_error_count`

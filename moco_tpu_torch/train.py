@@ -29,7 +29,15 @@ Builds the dataset the config names (wrapped in the decode-once cache when
 epochs: an `epoch_loader`
 stages each epoch's batches ahead of the step on worker threads and copies
 them to the device on a side stream; the step draws the two views on the
-device from each batch's staging extents and trains. The step's metrics
+device from each batch's staging extents and trains. With `input_service`
+(`--input-service host:port,...`) the canvas rows come from standalone
+staging servers (`python -m moco_tpu_torch.staging_server`) through
+`data/service/client.py::service_epoch_loader`, bit for bit the same
+batches; without the kNN monitor the dataset length comes from the servers'
+meta answer and nothing is built locally, and unreachable or drifted
+servers end `main` with EXIT_CONFIG_ERROR. `sync_bn` (`--sync-bn true`)
+takes the BN statistics over the process group's global batch
+(`models/fast_bn.py`). The step's metrics
 stay on the device except on print steps (`print_freq`), where they reach
 the host in one transfer. It runs on the card unless `--device cpu` is
 given: `train` raises if CUDA is asked for and absent, `main` exits
@@ -114,6 +122,8 @@ from moco_tpu_torch.data.augment import aug_config_for, two_crops
 from moco_tpu_torch.data.canvas_cache import CachedDataset
 from moco_tpu_torch.data.datasets import build_dataset
 from moco_tpu_torch.data.loader import epoch_loader
+from moco_tpu_torch.data.service import protocol
+from moco_tpu_torch.data.service.client import ServiceConfigError, service_epoch_loader
 from moco_tpu_torch.data.service.prestage import PrestagedDataset
 from moco_tpu_torch.evals.knn import build_feature_fn, encode_dataset
 from moco_tpu_torch.ops.knn import knn_accuracy
@@ -363,20 +373,29 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
     if config.knn_monitor and config.knn_every_epochs < 1:
         raise ValueError(f"knn_every_epochs must be >= 1 (got {config.knn_every_epochs}); "
                          "disable the monitor with knn_monitor=False instead")
+    dataset_len = None
     if dataset is None:
         if config.input_prestage:
             # the pre-staged epoch cache: epochs are row gathers from its mmap
             dataset = PrestagedDataset(config.input_prestage)
+        elif config.input_service and not config.knn_monitor:
+            # the remote-decode topology: this host may not even mount the
+            # data, and its only use of the dataset would be len(), which the
+            # servers' meta answer carries (the kNN monitor decodes locally,
+            # so it keeps the local build)
+            dataset_len = service_dataset_len(config.input_service)
         else:
             dataset = build_dataset(config.dataset, config.data_dir,
                                     image_size=config.image_size,
                                     stage_size=config.stage_size,
                                     num_workers=config.num_workers)
-    if len(dataset) < config.batch_size:
-        raise ValueError(f"the dataset holds {len(dataset)} samples, fewer than one batch "
+    if dataset_len is None:
+        dataset_len = len(dataset)
+    if dataset_len < config.batch_size:
+        raise ValueError(f"the dataset holds {dataset_len} samples, fewer than one batch "
                          f"of {config.batch_size}")
-    steps_per_epoch = min(config.steps_per_epoch or len(dataset) // config.batch_size,
-                          len(dataset) // config.batch_size)
+    steps_per_epoch = min(config.steps_per_epoch or dataset_len // config.batch_size,
+                          dataset_len // config.batch_size)
     total = config.epochs * steps_per_epoch if max_steps is None else max_steps
     if on_step is None:
         def on_step(step, metrics, seconds):
@@ -424,7 +443,7 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
             # the port's jax_debug_nans: autograd raises at the backward op
             # that made the first NaN
             torch.autograd.set_detect_anomaly(True, check_nan=True)
-        if config.input_cache_mb and not config.input_prestage:
+        if config.input_cache_mb and not config.input_prestage and dataset is not None:
             # a prestage already holds every canvas; caching it again would
             # duplicate in RAM what the page cache shares
             dataset = CachedDataset(dataset, config.input_cache_mb, stats=stats)
@@ -432,8 +451,8 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
         # under zero_sharding the optimizer splits the momentum over the group;
         # a restore into it keeps this process's slices (the JAX driver's
         # shard_opt_state after the resume)
-        state = create_train_state(config, build_encoder(config), dev, seed=config.seed,
-                                   group=group)
+        state = create_train_state(config, build_encoder(config, group=group), dev,
+                                   seed=config.seed, group=group)
         # the gradient sync's per-process accumulators, attached before any
         # resume so that a restore fills them (or restarts them from zeros)
         gradsync = GradSync(config, group)
@@ -524,7 +543,17 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                 skip = steps_per_epoch if epoch < poison[0] else max(skip, poison[1] + 1)
             epoch_start_step = state.step
             loader = None
-            if skip < steps_per_epoch:
+            if skip < steps_per_epoch and config.input_service:
+                # the same permutation, rank shard and skip, with the canvas
+                # rows fetched from the staging servers: the same bits
+                loader = service_epoch_loader(
+                    config.input_service, dataset_len, epoch, config.seed, config.batch_size,
+                    dev, skip_batches=skip, retries=config.loader_retries,
+                    backoff_secs=config.loader_backoff_secs, depth=config.prefetch_depth,
+                    streams=config.staging_workers, stats=stats, tracer=tracer,
+                    request_timeout_s=config.input_request_timeout_s,
+                    num_processes=world, process_index=me)
+            elif skip < steps_per_epoch:
                 loader = epoch_loader(dataset, epoch, config.seed, config.batch_size, dev,
                                       skip_batches=skip, retries=config.loader_retries,
                                       backoff_secs=config.loader_backoff_secs,
@@ -743,6 +772,26 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
     return state, history
 
 
+def service_dataset_len(endpoints_spec) -> int:
+    """The dataset length from the first staging server that answers a meta
+    probe. Every endpoint is tried once; none answering is a configuration
+    error (`ServiceConfigError`): the servers are expected up before the
+    train host starts, as `ServiceClient`'s handshake expects them. A
+    same-length server with other data is still caught per connection by
+    the client's meta check."""
+    endpoints = (protocol.parse_endpoints(endpoints_spec)
+                 if isinstance(endpoints_spec, str) else endpoints_spec)
+    tried = []
+    for host, port in endpoints:
+        meta = protocol.fetch_meta(host, port)
+        if meta is not None and int(meta.get("n", 0)) > 0:
+            return int(meta["n"])
+        tried.append(f"{host}:{port}")
+    raise ServiceConfigError("no staging server answered a meta probe (tried "
+                             + ", ".join(tried)
+                             + "): start the servers first, or unset input_service")
+
+
 def _all_gather_rows(vector: np.ndarray, device, group) -> np.ndarray:
     """Every rank's float64 `vector`, gathered into `[world, len]` (one
     `all_gather` on the group's device)."""
@@ -837,6 +886,11 @@ def main(argv=None) -> None:
         except DataQualityError as e:
             log_event("exit", f"data quality abort: {e}", code=EXIT_DATA_QUALITY)
             sys.exit(EXIT_DATA_QUALITY)
+        except ServiceConfigError as e:
+            # unreachable or drifted staging servers: a config error, and
+            # nothing decodes in-process instead
+            log_event("exit", f"input service config error: {e}", code=EXIT_CONFIG_ERROR)
+            sys.exit(EXIT_CONFIG_ERROR)
         if history and history[-1].get("preempted"):
             log_event("exit", "preemption honored: emergency checkpoint written, exiting "
                               "for relaunch", code=EXIT_PREEMPTED)

@@ -56,15 +56,20 @@ from moco_tpu_torch.train_state import TrainState
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_encoder(config, generator: torch.Generator | None = None):
+def build_encoder(config, generator: torch.Generator | None = None, group=None):
     """The encoder of `config`, weights drawn from `generator` (default:
     seeded with `config.seed`): v1/v2, a ResNet (v2: MLP head) or a ViT
     with a Dense head of `embed_dim`; v3, `v3_step.V3Model` (a backbone of
     pooled ResNet or class-token ViT features, the projector and the
-    predictor)."""
+    predictor). With `config.sync_bn` the ResNet's BNs (v3: the backbone's;
+    its heads keep per-process BN, as the JAX package's do) take their
+    statistics over `group`, the data-parallel process group, and the fused
+    tail stays off, as the JAX package ignores it under SyncBN."""
     if generator is None:
         generator = torch.Generator().manual_seed(config.seed)
     dtype = DTYPES[config.compute_dtype]
+    bn_group = group if config.sync_bn else None
+    fused_bn_conv = config.fused_bn_conv and not config.sync_bn
     vit = config.arch.startswith("vit")
     if config.remat and not vit:
         raise ValueError(f"remat is ported for the ViT only, not for arch {config.arch!r}")
@@ -78,7 +83,7 @@ def build_encoder(config, generator: torch.Generator | None = None):
         else:
             backbone = build_resnet(config.arch, num_classes=None, cifar_stem=config.cifar_stem,
                                     dtype=dtype, generator=generator,
-                                    fused_bn_conv=config.fused_bn_conv)
+                                    fused_bn_conv=fused_bn_conv, bn_group=bn_group)
         return V3Model(backbone, embed_dim=config.embed_dim, generator=generator)
     if vit:
         return build_vit(config.arch, num_classes=config.embed_dim, dtype=dtype,
@@ -86,7 +91,7 @@ def build_encoder(config, generator: torch.Generator | None = None):
     return build_resnet(
         config.arch, num_classes=config.embed_dim, mlp_head=config.mlp_head,
         cifar_stem=config.cifar_stem, dtype=dtype,
-        generator=generator, fused_bn_conv=config.fused_bn_conv,
+        generator=generator, fused_bn_conv=fused_bn_conv, bn_group=bn_group,
     )
 
 

@@ -71,6 +71,13 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
             "moco_tpu_torch.resilience.chaos", "moco_tpu_torch.resilience.supervisor",
             "moco_tpu_torch.resilience.resize", "moco_tpu_torch.parallel.launch",
             "moco_tpu_torch.supervise"} <= {m.name for m in expected}
+    # the input service: its protocol, decode worker, staging supervisor,
+    # client and pool, the serving fleet's pieces, the staging server's CLI
+    assert {"moco_tpu_torch.data.service.protocol", "moco_tpu_torch.data.service.worker",
+            "moco_tpu_torch.data.service.server", "moco_tpu_torch.data.service.client",
+            "moco_tpu_torch.data.service.fleet", "moco_tpu_torch.serve",
+            "moco_tpu_torch.serve.fleet",
+            "moco_tpu_torch.staging_server"} <= {m.name for m in expected}
 
 
 def test_span_layer_imports_without_torch_or_numpy():
@@ -114,6 +121,64 @@ def test_supervisor_side_imports_without_torch_or_numpy(module):
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["[]"]
+
+
+STAGING_CONTROL_PLANE = ["moco_tpu_torch.data.service.protocol",
+                         "moco_tpu_torch.data.service.server",
+                         "moco_tpu_torch.data.service.fleet", "moco_tpu_torch.serve.fleet",
+                         "moco_tpu_torch.staging_server"]
+
+
+@pytest.mark.parametrize("module", STAGING_CONTROL_PLANE)
+def test_staging_control_plane_imports_only_the_stdlib(module):
+    """The staging server's supervisor half, its pool, the frame protocol
+    and the fleet's pieces load the standard library and the port's own
+    stdlib modules alone, transitively (the JAX package's
+    `staging-server-stdlib-only` rule): a wedged numpy worker must leave a
+    live supervisor."""
+    probe = textwrap.dedent(f"""
+        import importlib, sys
+        before = set(sys.modules)
+        importlib.import_module({module!r})
+        new = {{m.split(".")[0] for m in set(sys.modules) - before}}
+        print(sorted(m for m in new if m not in sys.stdlib_module_names
+                     and m != "moco_tpu_torch"))
+    """)
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["[]"]
+
+
+def test_decode_worker_imports_no_torch():
+    """The decode worker pays numpy's start-up, not torch's: no torch,
+    directly or through a package `__init__`."""
+    probe = textwrap.dedent("""
+        import sys
+        import moco_tpu_torch.data.service.worker
+        import moco_tpu_torch.data.service.prestage
+        print(sorted(m for m in ("torch", "jax", "moco_tpu") if m in sys.modules))
+    """)
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["[]"]
+
+
+def test_lazy_service_package_exports_its_names():
+    import importlib
+
+    service = importlib.import_module("moco_tpu_torch.data.service")
+    assert service.__all__ == sorted([
+        "DecodeWorker", "FrameError", "LocalServerPool", "PrestageError", "PrestagedDataset",
+        "RemoteShardError", "ServiceClient", "ServiceConfigError", "StagingServer",
+        "parse_endpoints", "service_epoch_loader", "write_prestage"])
+    for name in service.__all__:
+        assert getattr(service, name).__module__.startswith("moco_tpu_torch.data.service.")
+    serve = importlib.import_module("moco_tpu_torch.serve")
+    assert serve.FleetPolicy().max_restarts == 5
+    with pytest.raises(AttributeError):
+        service.not_a_name  # noqa: B018
 
 
 # the names `moco_tpu_torch.resilience` exported before it became lazy

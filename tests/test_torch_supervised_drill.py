@@ -17,10 +17,10 @@ limit of its own, after which its whole process group is killed.
   resize, clean]`. The losses of steps 1-2, before the first hop, equal
   the uninterrupted run's bit for bit. Tolerance, fixed before the first
   run: the final loss within 5% of the uninterrupted run's, the JAX
-  drill's bound (`tests/test_resize.py`). The drill runs without
-  `sync_bn` (the port has none yet), so the two-rank leg's BatchNorm
-  statistics are each rank's 8 samples, not the 16 of a one-process step,
-  and its steps differ from the reference by more than float noise.
+  drill's bound (`tests/test_resize.py`). The drill and its reference run
+  with `--sync-bn true`, as the JAX drill does, so the two-rank leg's
+  BatchNorm statistics span the 16 samples of the global batch, as a
+  one-process step's do, and do not change with the number of ranks.
 """
 
 import json
@@ -151,7 +151,8 @@ def test_supervised_kill_at_step_is_relaunched_bit_for_bit(drill, tmp_path):
 
 @pytest.mark.chaos
 def test_supervised_resize_1_2_1(drill, tmp_path):
-    run = ("--steps-per-epoch", "4", "--epochs", "4")
+    # sync_bn keeps the BN statistics independent of the number of ranks
+    run = ("--steps-per-epoch", "4", "--epochs", "4", "--sync-bn", "true")
     ref = _reference(drill, tmp_path, *run)
     assert sorted(ref) == list(range(1, 17))
     tdir, ck = tmp_path / "tel", tmp_path / "ck"

@@ -101,7 +101,7 @@ def run_steps(inputs: str, out_dir: str, chunk_counts: tuple = (None,)) -> None:
         config = PretrainConfig(**data["config"])
         if chunks is not None:
             config = config.replace(collective_chunks=chunks)
-        state = create_train_state(config, build_encoder(config), "cpu", seed=0)
+        state = create_train_state(config, build_encoder(config, group=group), "cpu", seed=0)
         state.model_q.load_state_dict(data["state_dict"])
         state.model_k.load_state_dict(data["state_dict"])
         state.queue.copy_(data["queue"])
@@ -214,7 +214,8 @@ def run_modes(inputs: str, out_dir: str) -> None:
     n, r = world_size(group), rank(group)
     for name, overrides, steps, snapshots in data["runs"]:
         config = PretrainConfig(**{**data["config"], **overrides})
-        state = create_train_state(config, build_encoder(config), "cpu", seed=0, group=group)
+        state = create_train_state(config, build_encoder(config, group=group), "cpu", seed=0,
+                                   group=group)
         GradSync(config, group).attach(state)
         step = build_train_step(config, data["steps_per_epoch"], group=group)
         losses, snaps = [], []
@@ -363,3 +364,78 @@ def run_preempted(config_kw: dict, out_dir: str, steps: int, n_images: int,
                                     state.data_generator.get_state())}
     out["cut_history"] = cut_history
     torch.save(out, _out(out_dir, "preempted"))
+
+
+def run_sync_bn_layer(inputs: str, out_dir: str) -> None:
+    """One train-mode `FastBatchNorm` over this process's rows of the saved
+    global batch, with the group (`sync_bn`): saves its output, running
+    statistics and the gradients of `sum(y * w)` (this rank's rows of `w`)."""
+    from moco_tpu_torch.models.fast_bn import FastBatchNorm
+    from moco_tpu_torch.parallel.mesh import rank, world_size
+
+    data = torch.load(inputs, weights_only=False)
+    group = _group()
+    n, r = world_size(group), rank(group)
+    b = data["x"].shape[0] // n
+    rows = slice(r * b, (r + 1) * b)
+    x = data["x"][rows].clone().contiguous(memory_format=torch.channels_last).requires_grad_()
+    bn = FastBatchNorm(x.shape[1], group=group)
+    with torch.no_grad():
+        bn.weight.copy_(data["scale"])
+        bn.bias.copy_(data["bias"])
+    y = bn(x)
+    (y * data["w"][rows]).sum().backward()
+    torch.save({"y": y.detach(), "running_mean": bn.running_mean.clone(),
+                "running_var": bn.running_var.clone(), "dx": x.grad.clone(),
+                "dscale": bn.weight.grad.clone(), "dbias": bn.bias.grad.clone()},
+               _out(out_dir, "bn_layer"))
+
+
+def run_bn_steps(inputs: str, out_dir: str) -> None:
+    """For each `(name, overrides, nudge)` of `inputs`' runs: the port's
+    state (from the saved `state_dict` and `queue` where there are, else
+    from the seed; the query parameters scaled by `1 + nudge * N(0, 1)`
+    where `nudge`, the key model a copy), the gradient sync attached, the
+    encoder's BNs on the group when the config says `sync_bn`, and a step on
+    this process's rows of each saved global batch (with the saved ShuffleBN
+    permutations where there are). Saves the metrics, both encoders, the
+    queue and the optimizer state."""
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.parallel.gradsync import GradSync
+    from moco_tpu_torch.parallel.mesh import rank, world_size
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder, build_train_step
+
+    data = torch.load(inputs, weights_only=False)
+    group = _group()
+    n, r = world_size(group), rank(group)
+    perms = data.get("perms")
+    perm_fn = None if perms is None else (lambda step, size: perms[step])
+    for name, overrides, nudge in data["runs"]:
+        config = PretrainConfig(**{**data["config"], **overrides})
+        state = create_train_state(config, build_encoder(config, group=group), "cpu", seed=0,
+                                   group=group)
+        GradSync(config, group).attach(state)
+        if data.get("state_dict") is not None:
+            state.model_q.load_state_dict(data["state_dict"])
+            state.queue.copy_(data["queue"])
+        if nudge:
+            noise = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for p in state.model_q.parameters():
+                    p.mul_(1 + nudge * torch.randn(p.shape, generator=noise))
+        if data.get("state_dict") is not None or nudge:
+            state.model_k.load_state_dict(state.model_q.state_dict(), strict=False)
+        step = build_train_step(config, data["steps_per_epoch"], group=group,
+                                perm_fn=None if config.variant == "v3" else perm_fn)
+        metrics = []
+        for im_q, im_k in data["images"]:
+            b = im_q.shape[0] // n
+            m = step(state, im_q[r * b:(r + 1) * b], im_k[r * b:(r + 1) * b])
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.save({"metrics": metrics, "q": state.model_q.state_dict(),
+                    "k": state.model_k.state_dict(),
+                    "queue": None if state.queue is None else state.queue.clone(),
+                    "queue_ptr": state.queue_ptr,
+                    "optimizer": state.optimizer.state_dict()},
+                   _out(out_dir, name))
