@@ -75,7 +75,9 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             bucketed and zero_sharding held bit for bit against fused,
             the quantized runs' mean + error against their input, DeMo's
             k nonzeros a leaf on sync steps and zeros on off-steps, every
-            kernel's launches. Under `torchrun --nproc-per-node <cards>
+            kernel's launches; then `ShardedAdamW` and `ShardedLARS` over
+            the group against the plain optimizers on ResNet-50's
+            parameters (`check_sharded_optimizers`). Under `torchrun --nproc-per-node <cards>
             chip_smoke.py --phase7` the script builds the kernels and runs
             phase 7 alone, one process per card, and prints its results as
             one JSON line.
@@ -201,6 +203,22 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             against one card at 256 without it (the first three losses
             within `PHASE12_D_RTOL`) and four cards without it, imgs/s of
             each; with fewer cards it prints why it is skipped.
+13. phase13 the embedding service (`moco_tpu_torch/serve/`) on one card,
+            after phase 5: (a) a ResNet-50 export (224 px) of a fresh
+            imagenet-moco-v2 state, the engine over buckets 1/8/32/128 with
+            one CUDA graph each (capture seconds; each graph bit for bit
+            against the eager forward of the same batch and with other
+            neighbours in the bucket; the largest difference of an image
+            across buckets; rows against the CPU f32 forward); (b) the HTTP
+            front end under 32 closed-loop clients: requests/s, latency
+            p50/p99, batch occupancy, no error, still four graphs; (c) a hot
+            reload to a second export under that load: no request dropped,
+            each client's answers from the old engine, then the new; (d) a
+            versioned bank built through the engine in 4 shards, its ANN
+            index, and /v1/knn against the exact and the ANN service; (e)
+            `ShardedAdamW` and `ShardedLARS` in a one-rank NCCL group
+            against the plain optimizers. No kernel of the eight launches
+            on this path. `python3 chip_smoke.py --phase13` runs it alone.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -1376,7 +1394,7 @@ def run_sync_modes(counters: dict, dataset, group, device) -> dict:
             acc = state.gradsync
             acc_bytes = sum(t.numel() * t.element_size() for t in acc.values())
             acc_max = max((float(t.abs().max()) for t in acc.values()), default=0.0)
-            momentum = (state.optimizer.momentum_bytes() if config.zero_sharding
+            momentum = (state.optimizer.state_bytes() if config.zero_sharding
                         else sum(v["momentum_buffer"].numel() * 4
                                  for v in state.optimizer.state.values()))
             calls = {k: v / SYNC_STEPS for k, v in r["calls"].items() if v}
@@ -1434,6 +1452,7 @@ def run_sync_modes(counters: dict, dataset, group, device) -> dict:
             del r, state, acc
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    out["sharded_optimizers"] = check_sharded_optimizers(group, device, "phase7")
     return out
 
 
@@ -3546,6 +3565,454 @@ def v3_across_cards(counters: dict, dataset) -> dict:
         shutdown_distributed()
 
 
+PHASE13_BUCKETS = (1, 8, 32, 128)
+PHASE13_CLIENTS = 32        # (b), (c): closed-loop HTTP clients, one keep-alive connection each
+PHASE13_REQUESTS = 1024     # (b): requests in the timed run
+PHASE13_POOL = 64           # distinct 224 px images the clients send (the cache is off)
+PHASE13_RELOAD_LEAD_S = 1.0  # (c): load before the reload is posted, and after it returns
+PHASE13_CPU_ROWS = 8        # (a): rows held against the CPU f32 forward of the same weights
+PHASE13_BANK = 1024         # (d): bank rows (SyntheticDataset, 10 classes), its shards
+PHASE13_BANK_SHARDS = 4
+PHASE13_CELLS = 32          # (d): ANN coarse cells, nprobe 8 (the ServeConfig default)
+PHASE13_QUERIES = 64        # (d): /v1/knn queries against the exact and the ANN service
+PHASE13_ROW_RTOL = 1e-4     # (b)-(c): |served - engine row| <= rtol * max |row| (another bucket)
+OPT_STEPS = 5               # (e): steps of each optimizer on ResNet-50's parameters
+OPT_LARS_RTOL = 1e-6        # (e): max |p_zero - p_plain| <= rtol * max |p| (LARS; AdamW exact)
+
+
+def check_sharded_optimizers(group, device, label: str) -> dict:
+    """`ShardedAdamW` and `ShardedLARS` over `group` against the plain
+    `AdamW` and `LARS` on ResNet-50's parameter shapes (25.6M f32), OPT_STEPS
+    steps of the same seeded gradients on every rank: AdamW bit for bit, LARS
+    within OPT_LARS_RTOL, every rank's parameters equal, the state bytes a
+    rank holds against the plain optimizer's, and each step's time (CUDA
+    events, the mean over steps 2-5)."""
+    import torch
+    import torch.distributed as dist
+
+    from moco_tpu_torch.models import build_backbone
+    from moco_tpu_torch.ops.optim import LARS, AdamW
+    from moco_tpu_torch.parallel.mesh import rank, world_size
+    from moco_tpu_torch.parallel.zero import ShardedAdamW, ShardedLARS
+
+    n, me = world_size(group), rank(group)
+    shapes = [p.shape for p in build_backbone("resnet50").parameters()]
+    kws = {"adamw": dict(lr=1.5e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1),
+           "lars": dict(lr=0.3, weight_decay=1.5e-6, momentum=0.9)}
+    classes = {"adamw": (AdamW, ShardedAdamW), "lars": (LARS, ShardedLARS)}
+    out = {}
+    for name, kw in kws.items():
+        runs = {}
+        for kind, make in (("plain", lambda ps: classes[name][0](ps, **kw)),
+                           ("zero", lambda ps: classes[name][1](ps, group, **kw))):
+            gen = torch.Generator(device=device).manual_seed(13)
+            params = [torch.nn.Parameter(torch.randn(s, generator=gen, device=device))
+                      for s in shapes]
+            opt = make(params)
+            times = []
+            for _ in range(OPT_STEPS):
+                for p in params:
+                    p.grad = torch.randn(p.shape, generator=gen, device=device)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                opt.step()
+                end.record()
+                times.append((start, end))
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in times][1:]
+            nbytes = sum(v.numel() * v.element_size() for s in opt.state.values()
+                         for v in s.values() if isinstance(v, torch.Tensor))
+            runs[kind] = dict(params=params, ms=sum(ms) / len(ms), bytes=nbytes)
+        worst = 0.0
+        for p, z in zip(runs["plain"]["params"], runs["zero"]["params"]):
+            p, z = p.detach(), z.detach()
+            worst = max(worst, float((p - z).abs().max() / p.abs().max()))
+        if name == "adamw" and worst != 0.0:
+            fail(f"{label} ShardedAdamW differs from AdamW by {worst:.3e} of max |p|", 1)
+        if worst > OPT_LARS_RTOL:
+            fail(f"{label} ShardedLARS differs from LARS by {worst:.3e} of max |p| "
+                 f"(tolerance {OPT_LARS_RTOL:g})", 1)
+        if group is not None and n > 1:
+            flat = torch.cat([p.detach().reshape(-1) for p in runs["zero"]["params"]])
+            ref = flat.clone()
+            dist.broadcast(ref, 0, group=group)
+            if not torch.equal(flat, ref):
+                fail(f"{label} {name}: the ranks' parameters differ after the sharded steps", 1)
+        out[name] = dict(max_rel_diff=worst, plain_ms=runs["plain"]["ms"],
+                         zero_ms=runs["zero"]["ms"], plain_bytes=runs["plain"]["bytes"],
+                         zero_bytes=runs["zero"]["bytes"])
+        if me == 0:
+            print(f"{label} {name}: {n} rank(s), {len(shapes)} ResNet-50 tensors, "
+                  f"{OPT_STEPS} steps: max |p_zero - p_plain| / max |p| {worst:.3e} "
+                  f"({'bit for bit' if worst == 0 else f'tolerance {OPT_LARS_RTOL:g}'}), "
+                  f"step {runs['zero']['ms']:.3f} ms sharded vs {runs['plain']['ms']:.3f} ms "
+                  f"plain, state {runs['zero']['bytes']} bytes a rank vs "
+                  f"{runs['plain']['bytes']}", flush=True)
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_load(url: str, bodies: list, clients: int, total: int | None = None,
+                stop=None) -> tuple[list, float]:
+    """Closed-loop clients, one keep-alive connection each, POSTing
+    `bodies` round-robin to /v1/embed until `total` requests were sent (or
+    `stop` is set); returns ([(client, t0, t1, status, body bytes, pool
+    index)], wall seconds)."""
+    import http.client
+    import threading
+    import urllib.parse
+
+    host, port = urllib.parse.urlsplit(url).netloc.split(":")
+    records, errors = [], []
+    lock = threading.Lock()
+    sent = [0]
+
+    def client(c: int) -> None:
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        i = c
+        try:
+            while not (stop is not None and stop.is_set()):
+                with lock:
+                    if total is not None and sent[0] >= total:
+                        break
+                    sent[0] += 1
+                k = i % len(bodies)
+                i += clients
+                t0 = time.perf_counter()
+                conn.request("POST", "/v1/embed", body=bodies[k],
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                records.append((c, t0, time.perf_counter(), resp.status, data, k))
+        except Exception as e:  # noqa: BLE001 - a client failure fails the phase
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"phase13: {len(errors)} client(s) failed: {errors[:3]}", 1)
+    return records, wall
+
+
+def _percentile_ms(values: list, q: float) -> float:
+    ordered = sorted(values)
+    return 1e3 * ordered[max(0, min(len(ordered) - 1, round(q / 100 * (len(ordered) - 1))))]
+
+
+def run_serving(counters: dict, smi: str) -> dict:
+    """Phase 13, the embedding service on one card: (a) a ResNet-50 export
+    (224 px) of a freshly initialized imagenet-moco-v2 state, served by the
+    engine over buckets PHASE13_BUCKETS: one CUDA graph a bucket, the
+    capture's seconds, each bucket's graph against the eager forward of the
+    same batch (bit for bit), an image among other neighbours in the same
+    bucket (bit for bit), the largest difference across buckets, and
+    PHASE13_CPU_ROWS rows against the CPU f32 forward of the same weights;
+    (b) the HTTP front end under PHASE13_CLIENTS closed-loop clients,
+    PHASE13_REQUESTS requests: requests/s, latency p50/p99, batch occupancy,
+    no error, the served rows against the engine's, `compiled_programs()`
+    still 4; (c) a hot reload to a second export under that load: no
+    request dropped, each client's answers from the old engine and then the
+    new one only, the reload's seconds; (d) a versioned bank of
+    PHASE13_BANK rows built through the engine in PHASE13_BANK_SHARDS
+    shards, `verify_bank`, an ANN index (`verify_ann`), and /v1/knn of
+    PHASE13_QUERIES queries against the exact and the ANN service; (e)
+    `ShardedAdamW` and `ShardedLARS` in a one-rank NCCL group against the
+    plain optimizers. None of the eight kernels runs on this path (the
+    engine's BatchNorms use their running statistics): their launches stay
+    0."""
+    import base64
+    import json as _json
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from moco_tpu_torch import checkpoint as ckpt
+    from moco_tpu_torch.config import ServeConfig, get_preset
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.parallel.mesh import init_distributed, process_group, \
+        shutdown_distributed
+    from moco_tpu_torch.serve import EmbeddingEngine, EmbedService, ServeFrontend
+    from moco_tpu_torch.serve import ann as annmod
+    from moco_tpu_torch.serve import bankbuild
+    from moco_tpu_torch.serve.__main__ import build_service
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder
+
+    for fn in counters.values():
+        fn.launches = 0
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="moco_phase13_") as tmp:
+        tmp = Path(tmp)
+        config = get_preset("imagenet-moco-v2").replace(dataset="synthetic")
+        paths = []
+        for seed in (0, 1):
+            state = create_train_state(config.replace(seed=seed),
+                                       build_encoder(config.replace(seed=seed)), "cuda",
+                                       seed=seed)
+            path = tmp / "export" / str(seed + 1) / "encoder.npz"
+            path.parent.mkdir(parents=True)
+            ckpt.export_encoder_q(state, str(path))
+            paths.append(str(path))
+            del state
+        torch.cuda.empty_cache()
+        # (a) the engine: one CUDA graph a bucket
+        engine, load_s = _cuda_time(lambda: EmbeddingEngine.from_checkpoint(
+            paths[0], "resnet50", image_size=224, buckets=PHASE13_BUCKETS))
+        feat_dim, warm_s = _cuda_time(engine.warmup)
+        if engine.compiled_programs() != len(PHASE13_BUCKETS) or feat_dim != 2048:
+            fail(f"phase13 (a): {engine.compiled_programs()} graphs, feat_dim {feat_dim}", 1)
+        imgs = np.random.RandomState(13).randint(0, 256, (128, 224, 224, 3)).astype(np.uint8)
+        buckets = {}
+        for b in PHASE13_BUCKETS:
+            x = imgs[:b]
+            got = engine.embed(x)
+            with torch.no_grad():
+                eager = engine._forward(torch.from_numpy(x).cuda()).cpu().numpy()
+            rolled = engine.embed(np.roll(x, 1, axis=0))
+            if not np.array_equal(got, eager):
+                fail(f"phase13 (a) bucket {b}: the graph differs from the eager forward by "
+                     f"{float(np.abs(got - eager).max()):.3e}", 1)
+            if not np.array_equal(np.roll(got, 1, axis=0), rolled):
+                fail(f"phase13 (a) bucket {b}: rows change with their neighbours by "
+                     f"{float(np.abs(np.roll(got, 1, axis=0) - rolled).max()):.3e}", 1)
+            graph, static_in, _ = engine._graphs[b]
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(5):
+                graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            xin = torch.from_numpy(x).cuda()
+            with torch.no_grad():
+                _, eager_s = _cuda_time(lambda: [engine._forward(xin) for _ in range(5)])
+            t0 = time.perf_counter()
+            for _ in range(5):
+                engine.embed(x)
+            embed_ms = (time.perf_counter() - t0) / 5 * 1e3
+            buckets[b] = dict(graph_ms=start.elapsed_time(end) / 5, eager_ms=eager_s / 5 * 1e3,
+                              embed_ms=embed_ms, rows=got)
+        ref1 = buckets[1]["rows"]
+        cross = max(float(np.abs(buckets[b]["rows"][:1] - ref1).max()) for b in PHASE13_BUCKETS)
+        cross8 = max(float(np.abs(buckets[b]["rows"][:8] - buckets[8]["rows"]).max())
+                     for b in (32, 128))
+        scale = float(np.abs(buckets[128]["rows"]).max())
+        cpu_engine = EmbeddingEngine.from_checkpoint(paths[0], "resnet50", image_size=224,
+                                                     buckets=(PHASE13_CPU_ROWS,), device="cpu")
+        cpu_rows = cpu_engine.embed(imgs[:PHASE13_CPU_ROWS])
+        cpu_err = float(np.abs(buckets[8]["rows"] - cpu_rows).max())
+        del cpu_engine
+        if cpu_err > FEATURE_ATOL * max(1.0, float(np.abs(cpu_rows).max())):
+            fail(f"phase13 (a): card vs CPU rows differ by {cpu_err:.3e}", 1)
+        for b in PHASE13_BUCKETS:
+            r = buckets[b]
+            print(f"phase13 (a) bucket {b}: graph replay {r['graph_ms']:.3f} ms vs eager "
+                  f"{r['eager_ms']:.3f} ms ({b / r['graph_ms'] * 1e3:.1f} imgs/s on the "
+                  f"device), embed() with copies {r['embed_ms']:.3f} ms; graph = eager and "
+                  "rows independent of their neighbours, bit for bit", flush=True)
+        print(f"phase13 (a): resnet50 export loaded in {load_s:.2f} s, {len(PHASE13_BUCKETS)} "
+              f"CUDA graphs captured in {warm_s:.2f} s; across buckets the same image "
+              f"differs by up to {cross:.3e} (row 0 in 1/8/32/128) and {cross8:.3e} (rows 0-7 "
+              f"in 8/32/128), max |row| {scale:.3f}; card vs CPU f32 on {PHASE13_CPU_ROWS} "
+              f"rows {cpu_err:.3e} (tolerance {FEATURE_ATOL:g} x max(1, max |row|))",
+              flush=True)
+        out["a"] = dict(load_s=load_s, warm_s=warm_s, cross_bucket=cross, cross8=cross8,
+                        cpu_err=cpu_err, scale=scale,
+                        buckets={b: {k: v for k, v in r.items() if k != "rows"}
+                                 for b, r in buckets.items()})
+        # (b) the front end under 32 closed-loop clients, the cache off
+        serve_cfg = ServeConfig(pretrained=paths[0], arch="resnet50", port=0,
+                                embed_cache_mb=0, buckets=PHASE13_BUCKETS)
+        service = EmbedService(
+            engine, flush_ms=serve_cfg.flush_ms, max_queue=serve_cfg.max_queue,
+            request_deadline_ms=serve_cfg.request_deadline_ms, cache_mb=0,
+            reload_probe=serve_cfg.reload_probe, reload_min_spread=serve_cfg.reload_min_spread)
+        service.set_engine_factory(lambda p: EmbeddingEngine.from_checkpoint(
+            p, "resnet50", image_size=224, buckets=PHASE13_BUCKETS))
+        frontend = ServeFrontend(service, "127.0.0.1", 0)
+        frontend.start()
+        pool = imgs[:PHASE13_POOL]
+        bodies = [_json.dumps({"image_b64": base64.b64encode(im.tobytes()).decode("ascii"),
+                               "shape": list(im.shape)}).encode() for im in pool]
+        old_rows = engine.embed(pool)
+        try:
+            _serve_load(frontend.url, bodies, PHASE13_CLIENTS, total=2 * PHASE13_CLIENTS)
+            before = service.stats()
+            records, wall = _serve_load(frontend.url, bodies, PHASE13_CLIENTS,
+                                        total=PHASE13_REQUESTS)
+            stats = service.stats()
+            bad = [r for r in records if r[3] != 200]
+            if bad or len(records) != PHASE13_REQUESTS:
+                fail(f"phase13 (b): {len(records)} answers, {len(bad)} not 200: "
+                     f"{bad[0][4][:200] if bad else b''}", 1)
+            row_err = max(float(np.abs(np.asarray(_json.loads(r[4])["embedding"], np.float32)
+                                       - old_rows[r[5]]).max()) for r in records)
+            if row_err > PHASE13_ROW_RTOL * scale:
+                fail(f"phase13 (b): served rows differ from the engine's by {row_err:.3e}", 1)
+            if engine.compiled_programs() != len(PHASE13_BUCKETS):
+                fail(f"phase13 (b): {engine.compiled_programs()} graphs after the load", 1)
+            lat = [r[2] - r[1] for r in records]
+            batches = stats["batches"] - before["batches"]
+            out["b"] = dict(rps=len(records) / wall, p50_ms=_percentile_ms(lat, 50),
+                            p99_ms=_percentile_ms(lat, 99), batches=batches,
+                            occupancy=stats["occupancy_mean"], row_err=row_err,
+                            server_p50_ms=stats["latency_ms"]["p50"],
+                            server_p99_ms=stats["latency_ms"]["p99"])
+            print(f"phase13 (b): {PHASE13_CLIENTS} clients, {len(records)} requests in "
+                  f"{wall:.2f} s: {out['b']['rps']:.1f} requests/s, latency p50 "
+                  f"{out['b']['p50_ms']:.1f} ms p99 {out['b']['p99_ms']:.1f} ms (the "
+                  f"service's own p50 {stats['latency_ms']['p50']} p99 "
+                  f"{stats['latency_ms']['p99']} ms), {batches} batches, mean occupancy "
+                  f"{stats['occupancy_mean']} (cumulative), 0 errors, served rows within "
+                  f"{row_err:.3e} of the engine's, {engine.compiled_programs()} CUDA graphs; "
+                  f"host cores {os.cpu_count()}", flush=True)
+            # (c) a hot reload under that load
+            stop = threading.Event()
+            result = {}
+
+            def reload():
+                time.sleep(PHASE13_RELOAD_LEAD_S)
+                req = urllib.request.Request(
+                    frontend.url + "/admin/reload",
+                    data=_json.dumps({"pretrained": paths[1], "step": 2}).encode(),
+                    headers={"Content-Type": "application/json"}, method="POST")
+                result["t0"] = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    result["status"], result["body"] = resp.status, _json.loads(resp.read())
+                result["t1"] = time.perf_counter()
+                time.sleep(PHASE13_RELOAD_LEAD_S)
+                stop.set()
+
+            reloader = threading.Thread(target=reload)
+            reloader.start()
+            try:
+                records, wall = _serve_load(frontend.url, bodies, PHASE13_CLIENTS, stop=stop)
+            finally:
+                stop.set()
+                reloader.join()
+            if result.get("status") != 200:
+                fail(f"phase13 (c): the reload answered {result}", 1)
+            new_engine = service.engine
+            new_rows = new_engine.embed(pool)
+            gens, last = [], {}
+            for c, t0, t1, status, data, k in sorted(records, key=lambda r: r[1]):
+                if status != 200:
+                    fail(f"phase13 (c): a request answered {status}: {data[:200]}", 1)
+                row = np.asarray(_json.loads(data)["embedding"], np.float32)
+                err_old = float(np.abs(row - old_rows[k]).max())
+                err_new = float(np.abs(row - new_rows[k]).max())
+                gen = 0 if err_old <= PHASE13_ROW_RTOL * scale else \
+                    1 if err_new <= PHASE13_ROW_RTOL * scale else None
+                if gen is None or gen < last.get(c, 0) or (t0 > result["t1"] and gen == 0):
+                    fail(f"phase13 (c): client {c}'s answer fits no engine in order (old "
+                         f"{err_old:.3e}, new {err_new:.3e}, generation {gen})", 1)
+                last[c] = gen
+                gens.append(gen)
+            if new_engine.compiled_programs() != len(PHASE13_BUCKETS) or not (
+                    0 < sum(gens) < len(gens)):
+                fail(f"phase13 (c): {new_engine.compiled_programs()} graphs, {sum(gens)} of "
+                     f"{len(gens)} answers from the new engine", 1)
+            body = result["body"]
+            out["c"] = dict(requests=len(records), rps=len(records) / wall,
+                            reload_s=result["t1"] - result["t0"], warm_s=body["warm_s"],
+                            old=len(gens) - sum(gens), new=sum(gens),
+                            probe_drift=body.get("probe_drift"),
+                            probe_spread=body.get("probe_spread"))
+            print(f"phase13 (c): reload under {PHASE13_CLIENTS} clients: {len(records)} "
+                  f"requests in {wall:.2f} s ({out['c']['rps']:.1f}/s), all 200, "
+                  f"{out['c']['old']} from the old engine then {out['c']['new']} from the new "
+                  f"in every client's order; POST /admin/reload took "
+                  f"{out['c']['reload_s']:.2f} s (load + capture {body['warm_s']} s), probe "
+                  f"drift {body.get('probe_drift')} spread {body.get('probe_spread')}; "
+                  f"{new_engine.compiled_programs()} CUDA graphs", flush=True)
+        finally:
+            service.drain(timeout_s=60.0)
+            frontend.shutdown()
+        # (d) a versioned bank through the new engine, an ANN index, /v1/knn
+        bank_set = SyntheticDataset(num_samples=PHASE13_BANK, image_size=224, seed=0)
+        query_set = SyntheticDataset(num_samples=PHASE13_QUERIES, image_size=224, seed=999)
+        cap = PHASE13_BUCKETS[-1]
+
+        def embed_fn(batch):
+            return np.concatenate([new_engine.embed(batch[i:i + cap])
+                                   for i in range(0, len(batch), cap)])
+
+        bank_dir = tmp / "bank"
+        manifest, build_s = _cuda_time(lambda: bankbuild.build_bank(
+            str(bank_dir), 2, bank_set.images, bank_set.labels, embed_fn,
+            checkpoint_path=paths[1], image_size=224, shards=PHASE13_BANK_SHARDS, workers=2,
+            batch_rows=cap))
+        t0 = time.perf_counter()
+        annmod.build_ann_index(str(bank_dir), 2, cells=PHASE13_CELLS)
+        ann_s = time.perf_counter() - t0
+        bad = bankbuild.verify_bank(str(bank_dir), 2), annmod.verify_ann(str(bank_dir), 2)
+        if bad != (None, None) or manifest["rows"] != PHASE13_BANK:
+            fail(f"phase13 (d): the bank or its index does not verify: {bad}", 1)
+        del new_engine, engine
+        torch.cuda.empty_cache()
+        bank_path = str(bank_dir / "2" / "bank.npz")
+        classes = {}
+        for kind, extra in (("exact", {}), ("ann", dict(ann_cells=PHASE13_CELLS))):
+            cfg = ServeConfig(pretrained=paths[1], arch="resnet50", port=0, embed_cache_mb=0,
+                              buckets=PHASE13_BUCKETS, knn_bank=bank_path, num_classes=10,
+                              **extra)
+            service, _ = build_service(cfg, "cuda")
+            frontend = ServeFrontend(service, "127.0.0.1", 0)
+            frontend.start()
+            try:
+                got = []
+                for im in query_set.images:
+                    req = urllib.request.Request(
+                        frontend.url + "/v1/knn", data=_json.dumps(
+                            {"image_b64": base64.b64encode(im.tobytes()).decode("ascii"),
+                             "shape": list(im.shape)}).encode(),
+                        headers={"Content-Type": "application/json"}, method="POST")
+                    with urllib.request.urlopen(req, timeout=60) as resp:
+                        got.append(_json.loads(resp.read())["class"])
+                classes[kind] = np.asarray(got)
+                if kind == "ann":
+                    recall = service.stats()["ann"]["recall_probe"]
+                if service.engine.compiled_programs() != len(PHASE13_BUCKETS):
+                    fail(f"phase13 (d): {service.engine.compiled_programs()} graphs", 1)
+            finally:
+                service.drain(timeout_s=60.0)
+                frontend.shutdown()
+            del service
+            torch.cuda.empty_cache()
+        agree = float(np.mean(classes["exact"] == classes["ann"]))
+        acc = {k: float(np.mean(v == query_set.labels)) for k, v in classes.items()}
+        out["d"] = dict(build_s=build_s, ann_s=ann_s, agreement=agree, top1=acc,
+                        recall_probe=recall)
+        print(f"phase13 (d): bank of {PHASE13_BANK} rows x 2048 built in "
+              f"{PHASE13_BANK_SHARDS} shards in {build_s:.2f} s, verify_bank ok; ANN index "
+              f"({PHASE13_CELLS} cells) in {ann_s:.2f} s, verify_ann ok; /v1/knn on "
+              f"{PHASE13_QUERIES} queries: exact vs ANN agreement {agree:.3f}, top-1 exact "
+              f"{acc['exact']:.3f} ANN {acc['ann']:.3f}, ANN recall probe {recall}", flush=True)
+    launched = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    if launched:
+        fail(f"phase13: the serving path launched training kernels: {launched}", 1)
+    # (e) the sharded optimizers in a one-rank NCCL group
+    with tempfile.TemporaryDirectory(prefix="moco_nccl_") as tmp:
+        device = init_distributed("cuda", rank=0, world_size=1,
+                                  init_method=f"file://{Path(tmp) / 'store'}")
+        try:
+            out["e"] = check_sharded_optimizers(process_group(), device, "phase13 (e)")
+        finally:
+            shutdown_distributed()
+    print(f"phase13: {smi}", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3632,6 +4099,15 @@ def main() -> None:
         print(smi)
         print(json.dumps({"phase12": r}, default=str))
         return
+    if "--phase13" in sys.argv[1:]:
+        # phase 13 alone, on one card
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        r = run_serving(counters, smi)
+        print(smi)
+        print(json.dumps({"phase13": r}, default=str))
+        return
     if "--phase10" in sys.argv[1:]:
         # phase 10 alone, on one card
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3692,6 +4168,7 @@ def main() -> None:
     check_against_cpu(fused=True, counters={k: counters[k] for k in FUSED_PER_STEP})
 
     run_checkpoint_and_evals(counters, smi)
+    run_serving(counters, smi)
     print(smi)  # the card's name and power limit, as nvidia-smi prints them
     # name: (source, TPU kernel it replaces, shape reported in the line)
     sources = {

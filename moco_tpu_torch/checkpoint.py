@@ -273,7 +273,7 @@ def state_payload(state, optimizer: dict | None = None, gradsync: dict | None = 
                   non_blocking: bool = False) -> dict:
     """Everything a `TrainState` holds, as CPU tensors and numbers.
     `optimizer` and `gradsync` are the gathered forms of a process group
-    (`ShardedSGD.state_dict()`, `gather_gradsync`); by default this
+    (a sharded optimizer's `state_dict()`, `gather_gradsync`); by default this
     process's own. `non_blocking`: see `cpu_copy`."""
 
     def copy(tree):

@@ -1,10 +1,10 @@
 """Configs of the port: the fields the v1/v2 and v3 pretrain steps, their
 input pipeline, checkpoints and kNN monitor read (`PretrainConfig`), the
-linear probe's and kNN eval's (`EvalConfig`), the presets, and the flag
-surface of the entry points.
+linear probe's and kNN eval's (`EvalConfig`), the embedding service's
+(`ServeConfig`), the presets, and the flag surface of the entry points.
 
 The port's own copy of the relevant part of `moco_tpu/config.py`
-(`PretrainConfig`, `EvalConfig`, the `imagenet-moco-v1`, `imagenet-moco-v2`,
+(`PretrainConfig`, `EvalConfig`, `ServeConfig`, the `imagenet-moco-v1`, `imagenet-moco-v2`,
 `imagenet-moco-v2-8chip`, `cifar10-moco-v1`, `imagenet-moco-v3-vits`,
 `-vitb`, `-r50`, `imagenet-lincls` and `imagenet-lincls-v3` presets,
 `effective_lr`); field names, defaults and validation are the same, except
@@ -14,8 +14,9 @@ and that `shuffle_mode`, `grad_allreduce_dtype`, `optimizer` and
 `crop_min` are checked here (the JAX package checks them where they are used). The
 gradient-sync knobs and `zero_sharding` carry the JAX package's checks and
 messages; its rule that `zero_sharding` excludes `sharding != "dp"` waits
-for FSDP (`sharding`), which the port does not have yet, and
-`zero_sharding` with AdamW or LARS is not ported yet either: it raises.
+for FSDP (`sharding`), which the port does not have yet. `zero_sharding`
+splits the state of every optimizer (SGD, AdamW, LARS), as the JAX package
+shards any optax state.
 The telemetry, tracing, learning-health and resilience fields carry the
 JAX package's defaults and checks. The port adds checks of its own to the
 resilience knobs, which the JAX package leaves unchecked: `max_rollbacks`,
@@ -72,7 +73,8 @@ class PretrainConfig:
     grad_sync_topk: float = 0.01      # demo: fraction of each leaf's momentum synced
     grad_sync_demo_beta: float = 0.9  # demo: local momentum decay
     grad_allreduce_dtype: str = "float32"  # fused/bucketed wire dtype: "float32" | "bfloat16"
-    zero_sharding: bool = False       # ZeRO-1: SGD momentum split 1/n over the processes
+    zero_sharding: bool = False       # ZeRO-1: the optimizer's state split 1/n over the
+                                      # processes
                                       # (parallel/zero.py)
     # data
     dataset: str = "synthetic"        # synthetic | synthetic_texture | cifar10 | imagefolder
@@ -241,9 +243,6 @@ class PretrainConfig:
             raise ValueError(f"unknown optimizer {self.optimizer!r}; choose from {OPTIMIZERS}")
         if not 0.0 <= self.crop_min <= 1.0:
             raise ValueError(f"crop_min must be in [0, 1], got {self.crop_min}")
-        if self.zero_sharding and self.optimizer != "sgd":
-            raise ValueError(f"zero_sharding with optimizer={self.optimizer!r} is not ported "
-                             "yet: ZeRO-1 splits the SGD momentum only")
         if self.trace_mode not in ("off", "steps", "full"):
             raise ValueError(f"unknown trace_mode {self.trace_mode!r}; choose from "
                              "off/steps/full")
@@ -342,6 +341,152 @@ class EvalConfig:
     @property
     def effective_lr(self) -> float:
         return _effective_lr(self)
+
+
+@dataclass
+class ServeConfig:
+    """Online embedding service (`moco_tpu_torch/serve/`). One flat
+    dataclass like the drivers', exposed by `python -m moco_tpu_torch.serve`
+    as `--flags`: the JAX package's fields, defaults, checks and messages."""
+
+    pretrained: str = ""              # exported encoder (.safetensors/.npz),
+                                      # any dialect in checkpoint.CHECKPOINT_DIALECTS
+    arch: str = "resnet50"
+    image_size: int = 224
+    cifar_stem: bool = False
+    host: str = "127.0.0.1"
+    port: int = 8080                  # 0 = ephemeral (tests/bench)
+    # micro-batcher (serve/batcher.py): flush on bucket-full OR deadline
+    buckets: tuple[int, ...] = (1, 8, 32, 128)  # padded bucket shapes; one CUDA
+                                      # graph each
+    flush_ms: float = 10.0            # max coalesce wait before a partial
+                                      # bucket flushes (the latency a lone
+                                      # request pays to help the next one)
+    max_queue: int = 256              # admission-queue depth; beyond it
+                                      # requests shed with `overloaded`
+    request_deadline_ms: float = 2000.0  # per-request budget; expired-in-
+                                      # queue requests shed with
+                                      # `deadline_exceeded`, never stall
+    embed_cache_mb: int = 64          # content-hash embedding LRU budget
+                                      # (serve/cache.py; 0 = off)
+    # observability (same events.jsonl stream as training)
+    telemetry_dir: str = ""           # "" = telemetry off
+    snapshot_every: int = 25          # serve-record cadence, in batches
+    # distributed tracing: request/flush spans + capture windows
+    trace_mode: str = "off"           # off | steps | full (README table)
+    trace_capture_steps: int = 50     # capture-window length, in FLUSHED
+                                      # batches (the serve tick unit)
+    trace_capture_budget: int = 3     # max capture windows per process
+    trace_shed_spike: int = 8         # arm a capture when this many
+                                      # overload sheds land within 5 s
+                                      # (0 = shed-spike detector off)
+    # optional kNN-classify endpoint over a precomputed feature bank
+    knn_bank: str = ""                # npz with `features` [N,D] + `labels` [N]
+    knn_k: int = 200
+    knn_temperature: float = 0.07
+    num_classes: int = 0              # 0 = derive from bank labels
+    drain_timeout_s: float = 60.0     # SIGTERM: max wait for in-flight work
+    # hot-reload drift guard: before swapping a reloaded
+    # engine in, embed a fixed probe batch on old+new and refuse (409
+    # reload_collapsed — the fleet quarantines the step) a checkpoint
+    # whose probe embeddings are degenerate
+    reload_probe: int = 8             # probe rows (0 = guard off)
+    reload_min_spread: float = 1e-4   # refuse when 1-‖mean unit row‖ of
+                                      # the NEW engine's probe embeddings
+                                      # falls below this (rank-one
+                                      # collapse as seen from serving)
+    # dual swap: mean probe-row cosine between a paired
+    # bank's recorded probe features and the NEW engine's embedding of
+    # the same rows must clear this floor or the pair is refused
+    # (409 reload_bank_mismatch — the fleet quarantines the pair)
+    bank_agreement_min: float = 0.98
+    # sharded ANN index: ann_cells > 0 requires a verified
+    # paired index next to the bank (python -m moco_tpu_torch.bank_build
+    # --ann-cells)
+    # and replaces the exact /v1/knn vote with the IVF probe; 0 keeps
+    # the exact path bit-identical to before
+    ann_cells: int = 0                # coarse-quantizer cells (0 = exact)
+    ann_nprobe: int = 8               # cells probed per query
+    ann_rerank: int = 0               # candidates kept per probe
+                                      # (0 = knn_k)
+    ann_shard: int = 0                # this replica's cell partition ...
+    ann_shards: int = 1               # ... of how many (cell % shards)
+    # tiered admission: interactive vs batch lanes
+    admission_tiers: bool = True      # False folds "batch" onto the
+                                      # interactive lane
+    batch_max_queue: int = 1024       # batch-lane admission depth
+    batch_deadline_ms: float = 30000.0  # batch-lane default deadline
+
+    def __post_init__(self):
+        # the ONE bucket-ladder rule, shared with the runtime's own check
+        # (serve/batcher.py is numpy+stdlib — safe at config-import time)
+        from moco_tpu_torch.serve.batcher import validate_buckets
+
+        b = validate_buckets(self.buckets)
+        if self.max_queue < b[-1]:
+            raise ValueError(
+                f"max_queue ({self.max_queue}) must hold at least one full "
+                f"bucket ({b[-1]})"
+            )
+        if self.flush_ms < 0 or self.request_deadline_ms <= 0:
+            raise ValueError(
+                "flush_ms must be >= 0 and request_deadline_ms > 0"
+            )
+        if self.embed_cache_mb < 0:
+            raise ValueError(
+                f"embed_cache_mb must be >= 0, got {self.embed_cache_mb}"
+            )
+        if self.reload_probe < 0 or self.reload_min_spread < 0:
+            raise ValueError(
+                "reload_probe and reload_min_spread must be >= 0 "
+                f"(0 disables the guard), got {self.reload_probe} / "
+                f"{self.reload_min_spread}"
+            )
+        if not -1.0 <= self.bank_agreement_min <= 1.0:
+            raise ValueError(
+                "bank_agreement_min is a cosine floor in [-1, 1], got "
+                f"{self.bank_agreement_min}"
+            )
+        if self.trace_mode not in ("off", "steps", "full"):
+            raise ValueError(
+                f"unknown trace_mode {self.trace_mode!r}; choose from "
+                "off/steps/full"
+            )
+        if self.trace_capture_steps < 1 or self.trace_capture_budget < 0 \
+                or self.trace_shed_spike < 0:
+            raise ValueError(
+                "trace_capture_steps must be >= 1, trace_capture_budget "
+                "and trace_shed_spike >= 0"
+            )
+        if self.ann_cells < 0 or self.ann_nprobe < 1 or self.ann_rerank < 0:
+            raise ValueError(
+                "need ann_cells >= 0 (0 = exact), ann_nprobe >= 1, "
+                f"ann_rerank >= 0 (0 = knn_k); got {self.ann_cells} / "
+                f"{self.ann_nprobe} / {self.ann_rerank}"
+            )
+        if self.ann_shards < 1 or not 0 <= self.ann_shard < self.ann_shards:
+            raise ValueError(
+                f"need 0 <= ann_shard < ann_shards, got "
+                f"{self.ann_shard} / {self.ann_shards}"
+            )
+        if self.ann_cells and not self.knn_bank:
+            raise ValueError(
+                "ann_cells > 0 needs a --knn-bank (the index pairs with "
+                "a versioned bank)"
+            )
+        if self.batch_max_queue < b[-1]:
+            raise ValueError(
+                f"batch_max_queue ({self.batch_max_queue}) must hold at "
+                f"least one full bucket ({b[-1]})"
+            )
+        if self.batch_deadline_ms <= 0:
+            raise ValueError(
+                f"batch_deadline_ms must be > 0, got "
+                f"{self.batch_deadline_ms}"
+            )
+
+    def replace(self, **kw) -> "ServeConfig":
+        return dataclasses.replace(self, **kw)
 
 
 PRESETS: dict[str, PretrainConfig | EvalConfig] = {

@@ -32,11 +32,34 @@ Both take the lr from their param groups, which the step sets from the
 schedule before each update; a parameter without a gradient is skipped.
 Their `state_dict()` is `torch.optim.Optimizer`'s: LARS's
 `momentum_buffer`, AdamW's `exp_avg` (mu), `exp_avg_sq` (nu) and `step`.
+The update functions (`lars_trust_ratio`, `lars_momentum_`,
+`adamw_foreach_`) are shared with their ZeRO-1 versions
+(`parallel/zero.py`), which apply them to each process's slices.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def lars_trust_ratio(p_norm: torch.Tensor, u_norm: torch.Tensor, tc: float,
+                     eps: float) -> torch.Tensor:
+    """optax's `scale_by_trust_ratio`: tc * |p| / (|u| + eps), and 1 where
+    |p| or |u| is 0."""
+    ratio = tc * p_norm / (u_norm + eps)
+    return torch.where((p_norm == 0) | (u_norm == 0), 1.0, ratio)
+
+
+def lars_momentum_(state: dict, u: torch.Tensor, lr: float, momentum: float) -> torch.Tensor:
+    """`scale_by_learning_rate` then `trace`: buf = -lr * u + momentum * buf
+    (buf = -lr * u on the first step); returns buf, the step to add."""
+    u = u * -lr
+    buf = state.get("momentum_buffer")
+    if buf is None:
+        buf = state["momentum_buffer"] = u.clone()
+    else:
+        buf.mul_(momentum).add_(u)
+    return buf
 
 
 class LARS(torch.optim.Optimizer):
@@ -58,19 +81,40 @@ class LARS(torch.optim.Optimizer):
                 u = p.grad
                 if p.ndim > 1:
                     u = u + wd * p
-                    p_norm = torch.linalg.vector_norm(p)
-                    u_norm = torch.linalg.vector_norm(u)
-                    ratio = tc * p_norm / (u_norm + eps)
-                    ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, ratio)
-                    u = u * ratio
-                u = u * -group["lr"]
-                state = self.state[p]
-                buf = state.get("momentum_buffer")
-                if buf is None:
-                    buf = state["momentum_buffer"] = u.clone()
-                else:
-                    buf.mul_(group["momentum"]).add_(u)
-                p.add_(buf)
+                    u = u * lars_trust_ratio(torch.linalg.vector_norm(p),
+                                             torch.linalg.vector_norm(u), tc, eps)
+                p.add_(lars_momentum_(self.state[p], u, group["lr"], group["momentum"]))
+
+
+def adamw_foreach_(params: list, grads: list, states: list, group: dict) -> None:
+    """One AdamW update of `params` (in place) from `grads`, with each
+    parameter's state dict in `states` (`exp_avg`, `exp_avg_sq` and `step`,
+    made on the first call): the foreach chain of the module docstring,
+    one step count for all of them."""
+    b1, b2 = group["betas"]
+    for p, s in zip(params, states):
+        if not s:
+            s.update(step=0, exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
+    mus = [s["exp_avg"] for s in states]
+    nus = [s["exp_avg_sq"] for s in states]
+    torch._foreach_mul_(mus, b1)
+    torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
+    torch._foreach_mul_(nus, b2)
+    torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
+    # one count per group: every parameter of it steps together
+    count = states[0]["step"] + 1
+    for s in states:
+        s["step"] = count
+    f32 = torch.float32
+    bc1 = float(1 - torch.tensor(b1, dtype=f32) ** torch.tensor(count, dtype=f32))
+    bc2 = float(1 - torch.tensor(b2, dtype=f32) ** torch.tensor(count, dtype=f32))
+    denom = torch._foreach_sqrt(torch._foreach_div(nus, bc2))
+    torch._foreach_add_(denom, group["eps"])
+    updates = torch._foreach_div(torch._foreach_div(mus, bc1), denom)
+    if group["weight_decay"]:
+        torch._foreach_add_(updates, torch._foreach_mul(params, group["weight_decay"]))
+    torch._foreach_mul_(updates, -group["lr"])
+    torch._foreach_add_(params, updates)
 
 
 class AdamW(torch.optim.Optimizer):
@@ -84,33 +128,6 @@ class AdamW(torch.optim.Optimizer):
             raise ValueError("AdamW takes no closure")
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
-            b1, b2 = group["betas"]
-            for p in params:
-                if not self.state[p]:
-                    self.state[p].update(step=0, exp_avg=torch.zeros_like(p),
-                                         exp_avg_sq=torch.zeros_like(p))
-            states = [self.state[p] for p in params]
-            grads = [p.grad for p in params]
-            mus = [s["exp_avg"] for s in states]
-            nus = [s["exp_avg_sq"] for s in states]
-            torch._foreach_mul_(mus, b1)
-            torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
-            torch._foreach_mul_(nus, b2)
-            torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads),
-                                                        1 - b2))
-            # one count per group: every parameter of it steps together
-            count = states[0]["step"] + 1
-            for s in states:
-                s["step"] = count
-            f32 = torch.float32
-            bc1 = float(1 - torch.tensor(b1, dtype=f32) ** torch.tensor(count, dtype=f32))
-            bc2 = float(1 - torch.tensor(b2, dtype=f32) ** torch.tensor(count, dtype=f32))
-            denom = torch._foreach_sqrt(torch._foreach_div(nus, bc2))
-            torch._foreach_add_(denom, group["eps"])
-            updates = torch._foreach_div(torch._foreach_div(mus, bc1), denom)
-            if group["weight_decay"]:
-                torch._foreach_add_(updates, torch._foreach_mul(params, group["weight_decay"]))
-            torch._foreach_mul_(updates, -group["lr"])
-            torch._foreach_add_(params, updates)
+            if params:
+                adamw_foreach_(params, [p.grad for p in params],
+                               [self.state[p] for p in params], group)

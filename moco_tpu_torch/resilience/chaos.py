@@ -165,6 +165,26 @@ class ChaosPlan:
             return True
         return False
 
+    def maybe_kill_request(self, n_requests: int) -> None:
+        """Serve-side SIGKILL after the n-th admitted request (fire-once,
+        marker persisted: the relaunched replica counts its requests from 0
+        again and must not fire the drill into a crash loop)."""
+        if self.kill_at_request == n_requests and self._fire_once("kill_request"):
+            log_event("chaos", f"injecting SIGKILL at request {n_requests}")
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    def maybe_wedge_request(self, n_requests: int) -> bool:
+        """True once, at the n-th admitted request: the caller (the serve
+        front end) turns into accepting-but-not-answering: sockets still
+        accept, every handler thread then sleeps forever. Unlike the kill,
+        the wedge leaves a live process: only an outside probe-staleness
+        kill ends it."""
+        if self.wedge_at_request == n_requests and self._fire_once("wedge_request"):
+            log_event("chaos", f"injecting serve wedge (accepting-but-not-answering) at "
+                               f"request {n_requests}")
+            return True
+        return False
+
     def maybe_kill_shard(self, n_shards: int) -> None:
         """Staging-server SIGKILL after the n-th served shard (fire-once,
         marker persisted: the relaunched worker counts its shards from 0

@@ -19,8 +19,8 @@ rank 0 prints and writes (checkpoints, their sidecars, the export, the kNN
 baseline); every process restores.
 
 `grad_sync` picks the gradient sync of a process group (fused, bucketed,
-quantized, demo; `parallel/gradsync.py`) and `zero_sharding` splits the SGD
-momentum over it (`parallel/zero.py`); rank 0 prints the sync's bytes a
+quantized, demo; `parallel/gradsync.py`) and `zero_sharding` splits the
+optimizer's state over it (`parallel/zero.py`); rank 0 prints the sync's bytes a
 step once at the start.
 
 Builds the dataset the config names (wrapped in the decode-once cache when
@@ -448,7 +448,7 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
             # duplicate in RAM what the page cache shares
             dataset = CachedDataset(dataset, config.input_cache_mb, stats=stats)
 
-        # under zero_sharding the optimizer splits the momentum over the group;
+        # under zero_sharding the optimizer splits its state over the group;
         # a restore into it keeps this process's slices (the JAX driver's
         # shard_opt_state after the resume)
         state = create_train_state(config, build_encoder(config, group=group), dev,

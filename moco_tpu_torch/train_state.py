@@ -11,7 +11,7 @@ gradient sync's per-process accumulators. The step mutates it in place.
 Every process of a data-parallel run builds the same state from the same
 seed, so the replicas, and the draws of both generators, start and stay
 equal; only the accumulators (the quantized mode's error feedback, DeMo's
-local momentum) and, under ZeRO-1, the momentum slices differ between
+local momentum) and, under ZeRO-1, the optimizer-state slices differ between
 processes.
 """
 
@@ -25,7 +25,7 @@ from torch import nn
 
 from moco_tpu_torch.ops.optim import LARS, AdamW
 from moco_tpu_torch.ops.queue import init_queue
-from moco_tpu_torch.parallel.zero import ShardedSGD
+from moco_tpu_torch.parallel.zero import ShardedAdamW, ShardedLARS, ShardedSGD
 
 
 @dataclass
@@ -51,26 +51,28 @@ def build_optimizer(config, model_q: nn.Module, group=None) -> torch.optim.Optim
 
     - `sgd`: momentum and weight decay on every parameter (BN included):
       `d = g + wd*p; buf = m*buf + d; p -= lr*buf`, the JAX package's
-      `add_decayed_weights` -> `sgd(momentum)` chain. With `zero_sharding`
-      and a process group, the same update with the momentum split over
-      the group (`parallel/zero.py`); a restore into it keeps this
-      process's slices.
+      `add_decayed_weights` -> `sgd(momentum)` chain.
     - `adamw`: `ops/optim.py::AdamW` (betas 0.9/0.999, eps 1e-8),
       `optax.adamw`'s update with its decay on every parameter.
     - `lars`: `ops/optim.py::LARS`, `optax.lars` with both masks
-      `ndim > 1`."""
+      `ndim > 1`.
+
+    With `zero_sharding` and a process group, each is the same update with
+    its state split over the group (`parallel/zero.py`); a restore into it
+    keeps this process's slices."""
     params = [p for p in model_q.parameters() if p.requires_grad]
+    sharded = config.zero_sharding and group is not None
     if config.optimizer == "adamw":
-        return AdamW(params, lr=config.effective_lr, betas=(0.9, 0.999), eps=1e-8,
-                     weight_decay=config.weight_decay)
+        kw = dict(lr=config.effective_lr, betas=(0.9, 0.999), eps=1e-8,
+                  weight_decay=config.weight_decay)
+        return ShardedAdamW(params, group, **kw) if sharded else AdamW(params, **kw)
     if config.optimizer == "lars":
-        return LARS(params, lr=config.effective_lr, weight_decay=config.weight_decay,
-                    momentum=config.sgd_momentum)
+        kw = dict(lr=config.effective_lr, weight_decay=config.weight_decay,
+                  momentum=config.sgd_momentum)
+        return ShardedLARS(params, group, **kw) if sharded else LARS(params, **kw)
     kw = dict(lr=config.effective_lr, momentum=config.sgd_momentum,
               weight_decay=config.weight_decay)
-    if config.zero_sharding and group is not None:
-        return ShardedSGD(params, group, **kw)
-    return torch.optim.SGD(params, **kw)
+    return ShardedSGD(params, group, **kw) if sharded else torch.optim.SGD(params, **kw)
 
 
 def create_train_state(config, model: nn.Module, device, seed: int = 0,
@@ -79,7 +81,7 @@ def create_train_state(config, model: nn.Module, device, seed: int = 0,
     encoder, and draw the queue from a CPU generator seeded with `seed`, so
     the state is the same on every device. v3: the key encoder is the copy
     without the predictor, and there is no queue. `group` is the
-    data-parallel process group ZeRO-1 splits the momentum over."""
+    data-parallel process group ZeRO-1 splits the optimizer state over."""
     device = torch.device(device)
     model_q = model.to(device).train()
     model_k = copy.deepcopy(model_q)

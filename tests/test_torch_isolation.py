@@ -150,6 +150,56 @@ def test_staging_control_plane_imports_only_the_stdlib(module):
     assert proc.stdout.split() == ["[]"]
 
 
+SERVE_MODULES = ["moco_tpu_torch.serve", "moco_tpu_torch.serve.batcher",
+                 "moco_tpu_torch.serve.cache", "moco_tpu_torch.serve.engine",
+                 "moco_tpu_torch.serve.service", "moco_tpu_torch.serve.http",
+                 "moco_tpu_torch.serve.bankbuild", "moco_tpu_torch.serve.ann",
+                 "moco_tpu_torch.serve.fleet", "moco_tpu_torch.serve.__main__",
+                 "moco_tpu_torch.bank_build"]
+
+
+def test_serve_package_is_train_free():
+    """The serving side (every module of `serve/`, its CLI, the bank
+    builder's CLI, and the checkpoint surgery the engine loads through)
+    never imports the training stack, directly or transitively: no
+    `train`, `train_step`, `v3_step`, `train_state` or `ops/optim.py`."""
+    probe = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {SERVE_MODULES + ["moco_tpu_torch.checkpoint"]!r}:
+            importlib.import_module(name)
+        train = ("moco_tpu_torch.train", "moco_tpu_torch.train_step",
+                 "moco_tpu_torch.v3_step", "moco_tpu_torch.train_state",
+                 "moco_tpu_torch.ops.optim")
+        print(sorted(m for m in sys.modules if m in train))
+    """)
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["[]"]
+    expected = {m.name for m in pkgutil.walk_packages(moco_tpu_torch.__path__,
+                                                      "moco_tpu_torch.")}
+    assert set(SERVE_MODULES) <= expected
+
+
+@pytest.mark.parametrize("module", ["moco_tpu_torch.serve.bankbuild",
+                                    "moco_tpu_torch.serve.ann",
+                                    "moco_tpu_torch.serve.batcher",
+                                    "moco_tpu_torch.serve.cache"])
+def test_serve_numpy_modules_import_no_torch(module):
+    """The batcher, the cache, the bank builder and the ANN index are numpy
+    and the standard library (the bank builder's batch lane runs without
+    torch), as in the JAX package."""
+    probe = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        print(sorted(m for m in ("torch", "jax", "moco_tpu") if m in sys.modules))
+    """)
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["[]"]
+
+
 def test_decode_worker_imports_no_torch():
     """The decode worker pays numpy's start-up, not torch's: no torch,
     directly or through a package `__init__`."""

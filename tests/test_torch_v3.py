@@ -626,11 +626,11 @@ def test_v3_presets_equal_the_jax_presets(name):
 def test_v3_config_checks():
     with pytest.raises(ValueError, match="unknown optimizer"):
         PretrainConfig(optimizer="adam")
-    with pytest.raises(ValueError, match="not ported yet"):
-        PretrainConfig(variant="v3", optimizer="adamw", zero_sharding=True)
     with pytest.raises(ValueError, match="crop_min"):
         PretrainConfig(crop_min=1.5)
-    PretrainConfig(variant="v3", optimizer="sgd", zero_sharding=True)
+    # ZeRO-1 splits every optimizer's state (tests/test_torch_zero_optimizers.py)
+    for optimizer in ("sgd", "adamw", "lars"):
+        assert PretrainConfig(variant="v3", optimizer=optimizer, zero_sharding=True).zero_sharding
     # telemetry and health take the JAX defaults; the collapse rollback is
     # accepted (the v3 step rolls back through the same driver)
     assert (PretrainConfig().telemetry_dir, PretrainConfig().health_stride) == ("", 0)

@@ -226,7 +226,7 @@ def run_modes(inputs: str, out_dir: str) -> None:
             if snapshots:
                 snaps.append({k: v.clone() for k, v in state.model_q.state_dict().items()})
         optimizer = state.optimizer
-        momentum_bytes = (optimizer.momentum_bytes() if hasattr(optimizer, "momentum_bytes")
+        momentum_bytes = (optimizer.state_bytes() if hasattr(optimizer, "state_bytes")
                           else sum(s["momentum_buffer"].numel() * 4
                                    for s in optimizer.state.values()))
         torch.save({"metrics": losses, "q": state.model_q.state_dict(),
@@ -439,3 +439,97 @@ def run_bn_steps(inputs: str, out_dir: str) -> None:
                     "queue_ptr": state.queue_ptr,
                     "optimizer": state.optimizer.state_dict()},
                    _out(out_dir, name))
+
+
+def run_zero_optimizers(inputs: str, out_dir: str) -> None:
+    """For each optimizer of `inputs` (`adamw`, `lars`): its plain version
+    and its ZeRO-1 version over the group (`parallel/zero.py`), each over
+    the saved parameters and each step's saved gradients (the same on every
+    process). Saves both runs' final parameters and full state dicts, the
+    state bytes each holds, and the sharded run's parameters and full state
+    dict after `ckpt_steps` (a ZeRO checkpoint); where `inputs` carries a
+    checkpoint of another world size, the sharded run restored from it and
+    taken to the end. Then the v3 steps of `inputs`' `v3` runs."""
+    import copy
+
+    from moco_tpu_torch.ops.optim import LARS, AdamW
+    from moco_tpu_torch.parallel.zero import ShardedAdamW, ShardedLARS
+
+    data = torch.load(inputs, weights_only=False)
+    group = _group()
+    classes = {"adamw": (AdamW, ShardedAdamW), "lars": (LARS, ShardedLARS)}
+
+    def run(make, start_params, grads, state=None, ckpt_steps=None):
+        params = [torch.nn.Parameter(t.clone()) for t in start_params]
+        opt = make(params)
+        if state is not None:
+            opt.load_state_dict(state)
+        ckpt = None
+        for t, step_grads in enumerate(grads):
+            for p, g in zip(params, step_grads):
+                p.grad = g.clone()
+            opt.step()
+            if t + 1 == ckpt_steps:
+                # a copy: the state dict holds the live tensors of whole parameters
+                ckpt = {"params": [p.detach().clone() for p in params],
+                        "optimizer": copy.deepcopy(opt.state_dict())}
+        return params, opt, ckpt
+
+    out = {}
+    for name, kw in data["optimizers"].items():
+        plain_cls, sharded_cls = classes[name]
+        grads = data["grads"]
+        plain, plain_opt, _ = run(lambda ps: plain_cls(ps, **kw), data["params"], grads)
+        zero, zero_opt, ckpt = run(lambda ps: sharded_cls(ps, group, **kw), data["params"],
+                                   grads, ckpt_steps=data["ckpt_steps"])
+        rec = {"plain": [p.detach() for p in plain], "zero": [p.detach() for p in zero],
+               "plain_state": plain_opt.state_dict(), "zero_state": zero_opt.state_dict(),
+               "plain_bytes": sum(v.numel() * v.element_size()
+                                  for s in plain_opt.state.values() for v in s.values()
+                                  if isinstance(v, torch.Tensor)),
+               "zero_bytes": zero_opt.state_bytes(), "ckpt": ckpt}
+        resume = data.get("resume", {}).get(name)
+        if resume is not None:
+            resumed, resumed_opt, _ = run(lambda ps: sharded_cls(ps, group, **kw),
+                                          resume["params"], grads[data["ckpt_steps"]:],
+                                          state=resume["optimizer"])
+            rec["resumed"] = [p.detach() for p in resumed]
+            rec["resumed_state"] = resumed_opt.state_dict()
+        out[name] = rec
+    torch.save(out, _out(out_dir, "zero_optimizers"))
+    if data.get("v3"):
+        _run_v3_legs(data["v3"], group, out_dir)
+
+
+def _run_v3_legs(v3: dict, group, out_dir: str) -> None:
+    """For each `(name, overrides, nudge)` of `v3["runs"]`: the tiny
+    V3Model of `v3["model"]` from its seed (its parameters scaled by
+    `1 + nudge * N(0, 1)` where `nudge`, the key model a copy), the gradient
+    sync attached, and a v3 step on this process's rows of each saved
+    global batch. Saves the metrics and both models."""
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.parallel.gradsync import GradSync
+    from moco_tpu_torch.parallel.mesh import rank, world_size
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_train_step
+
+    n, r = world_size(group), rank(group)
+    for name, overrides, nudge in v3["runs"]:
+        config = PretrainConfig(**{**v3["config"], **overrides})
+        torch.manual_seed(0)
+        state = create_train_state(config, _v3_model(v3["model"]), "cpu", seed=0, group=group)
+        GradSync(config, group).attach(state)
+        if nudge:
+            noise = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for p in state.model_q.parameters():
+                    p.mul_(1 + nudge * torch.randn(p.shape, generator=noise))
+            state.model_k.load_state_dict(state.model_q.state_dict(), strict=False)
+        step = build_train_step(config, v3["steps_per_epoch"], group=group)
+        metrics = []
+        for x1, x2 in v3["images"]:
+            b = x1.shape[0] // n
+            m = step(state, x1[r * b:(r + 1) * b], x2[r * b:(r + 1) * b])
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.save({"metrics": metrics, "q": state.model_q.state_dict(),
+                    "k": state.model_k.state_dict()}, _out(out_dir, name))
