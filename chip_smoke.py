@@ -219,6 +219,25 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             `ShardedAdamW` and `ShardedLARS` in a one-rank NCCL group
             against the plain optimizers. No kernel of the eight launches
             on this path. `python3 chip_smoke.py --phase13` runs it alone.
+14. phase14 the replicated fleet (`python -m moco_tpu_torch.serve_fleet`)
+            of two `python -m moco_tpu_torch.serve` replicas of phase 13's
+            ResNet-50 export on the one card, obsd (`python -m
+            moco_tpu_torch.obsd`) tailing its telemetry, and 32 closed-loop
+            clients in a process of their own: (b) a chaos
+            `kill_at_request` on replica 0 under 1024 requests, nothing
+            lost, the death's class, death-to-healthy seconds, the router's
+            retries; (a) requests/s, p50/p99 and 0 errors through the
+            router, each answer against one replica's row, launch-to-healthy
+            seconds and device memory; (c) a manifested second export and a
+            truncated third step in the watch directory under load: the
+            third quarantined, the roll's seconds, capacity never below
+            N-1, nothing dropped, old rows then new ones; (e) obsd's
+            /metrics, /runs and /slo, the fleet's and obsd's drains, obsd's
+            only writes its slo lines; (d) phase 13's bank and index behind
+            `--ann-shards 2`: /v1/knn equal to a full-index replica, then
+            `partial: true` with one shard killed. No kernel of the eight
+            launches. `python3 chip_smoke.py --phase14` runs it alone (with
+            its own exports and bank).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
@@ -3707,7 +3726,75 @@ def _percentile_ms(values: list, q: float) -> float:
     return 1e3 * ordered[max(0, min(len(ordered) - 1, round(q / 100 * (len(ordered) - 1))))]
 
 
-def run_serving(counters: dict, smi: str) -> dict:
+@contextlib.contextmanager
+def _serving_dir(workdir, prefix: str):
+    """`workdir` as a Path when given (phases 13 and 14 share their exports
+    and bank there), else a temporary directory of this call's own."""
+    if workdir is not None:
+        yield Path(workdir)
+        return
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=prefix) as tmp:
+        yield Path(tmp)
+
+
+def _serving_exports(tmp: Path) -> list[str]:
+    """Two ResNet-50 exports (224 px) of freshly initialized imagenet-moco-v2
+    states, seeds 0 and 1, as `tmp/export/<seed + 1>/encoder.npz`; made once
+    a directory."""
+    import torch
+
+    from moco_tpu_torch import checkpoint as ckpt
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_encoder
+
+    paths = [tmp / "export" / str(seed + 1) / "encoder.npz" for seed in (0, 1)]
+    if all(p.is_file() for p in paths):
+        return [str(p) for p in paths]
+    config = get_preset("imagenet-moco-v2").replace(dataset="synthetic")
+    for seed, path in enumerate(paths):
+        state = create_train_state(config.replace(seed=seed),
+                                   build_encoder(config.replace(seed=seed)), "cuda", seed=seed)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        ckpt.export_encoder_q(state, str(path))
+        del state
+    torch.cuda.empty_cache()
+    return [str(p) for p in paths]
+
+
+def _serving_bank(tmp: Path, export: str, engine, label: str) -> tuple[str, float, float]:
+    """The versioned bank of PHASE13_BANK rows (SyntheticDataset, 10 classes)
+    built through `engine` on `export` in PHASE13_BANK_SHARDS shards as step
+    2 under `tmp/bank`, and its PHASE13_CELLS-cell IVF index, both verified;
+    returns (bank path, build seconds, index seconds)."""
+    import numpy as np
+
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.serve import ann as annmod
+    from moco_tpu_torch.serve import bankbuild
+
+    bank_set = SyntheticDataset(num_samples=PHASE13_BANK, image_size=224, seed=0)
+    cap = PHASE13_BUCKETS[-1]
+
+    def embed_fn(batch):
+        return np.concatenate([engine.embed(batch[i:i + cap]) for i in range(0, len(batch), cap)])
+
+    bank_dir = tmp / "bank"
+    manifest, build_s = _cuda_time(lambda: bankbuild.build_bank(
+        str(bank_dir), 2, bank_set.images, bank_set.labels, embed_fn, checkpoint_path=export,
+        image_size=224, shards=PHASE13_BANK_SHARDS, workers=2, batch_rows=cap))
+    t0 = time.perf_counter()
+    annmod.build_ann_index(str(bank_dir), 2, cells=PHASE13_CELLS)
+    ann_s = time.perf_counter() - t0
+    bad = bankbuild.verify_bank(str(bank_dir), 2), annmod.verify_ann(str(bank_dir), 2)
+    if bad != (None, None) or manifest["rows"] != PHASE13_BANK:
+        fail(f"{label}: the bank or its index does not verify: {bad}", 1)
+    return str(bank_dir / "2" / "bank.npz"), build_s, ann_s
+
+
+def run_serving(counters: dict, smi: str, workdir=None) -> dict:
     """Phase 13, the embedding service on one card: (a) a ResNet-50 export
     (224 px) of a freshly initialized imagenet-moco-v2 state, served by the
     engine over buckets PHASE13_BUCKETS: one CUDA graph a bucket, the
@@ -3737,35 +3824,18 @@ def run_serving(counters: dict, smi: str) -> dict:
     import numpy as np
     import torch
 
-    from moco_tpu_torch import checkpoint as ckpt
-    from moco_tpu_torch.config import ServeConfig, get_preset
+    from moco_tpu_torch.config import ServeConfig
     from moco_tpu_torch.data.datasets import SyntheticDataset
     from moco_tpu_torch.parallel.mesh import init_distributed, process_group, \
         shutdown_distributed
     from moco_tpu_torch.serve import EmbeddingEngine, EmbedService, ServeFrontend
-    from moco_tpu_torch.serve import ann as annmod
-    from moco_tpu_torch.serve import bankbuild
     from moco_tpu_torch.serve.__main__ import build_service
-    from moco_tpu_torch.train_state import create_train_state
-    from moco_tpu_torch.train_step import build_encoder
 
     for fn in counters.values():
         fn.launches = 0
     out = {}
-    with tempfile.TemporaryDirectory(prefix="moco_phase13_") as tmp:
-        tmp = Path(tmp)
-        config = get_preset("imagenet-moco-v2").replace(dataset="synthetic")
-        paths = []
-        for seed in (0, 1):
-            state = create_train_state(config.replace(seed=seed),
-                                       build_encoder(config.replace(seed=seed)), "cuda",
-                                       seed=seed)
-            path = tmp / "export" / str(seed + 1) / "encoder.npz"
-            path.parent.mkdir(parents=True)
-            ckpt.export_encoder_q(state, str(path))
-            paths.append(str(path))
-            del state
-        torch.cuda.empty_cache()
+    with _serving_dir(workdir, "moco_phase13_") as tmp:
+        paths = _serving_exports(tmp)
         # (a) the engine: one CUDA graph a bucket
         engine, load_s = _cuda_time(lambda: EmbeddingEngine.from_checkpoint(
             paths[0], "resnet50", image_size=224, buckets=PHASE13_BUCKETS))
@@ -3939,28 +4009,10 @@ def run_serving(counters: dict, smi: str) -> dict:
             service.drain(timeout_s=60.0)
             frontend.shutdown()
         # (d) a versioned bank through the new engine, an ANN index, /v1/knn
-        bank_set = SyntheticDataset(num_samples=PHASE13_BANK, image_size=224, seed=0)
         query_set = SyntheticDataset(num_samples=PHASE13_QUERIES, image_size=224, seed=999)
-        cap = PHASE13_BUCKETS[-1]
-
-        def embed_fn(batch):
-            return np.concatenate([new_engine.embed(batch[i:i + cap])
-                                   for i in range(0, len(batch), cap)])
-
-        bank_dir = tmp / "bank"
-        manifest, build_s = _cuda_time(lambda: bankbuild.build_bank(
-            str(bank_dir), 2, bank_set.images, bank_set.labels, embed_fn,
-            checkpoint_path=paths[1], image_size=224, shards=PHASE13_BANK_SHARDS, workers=2,
-            batch_rows=cap))
-        t0 = time.perf_counter()
-        annmod.build_ann_index(str(bank_dir), 2, cells=PHASE13_CELLS)
-        ann_s = time.perf_counter() - t0
-        bad = bankbuild.verify_bank(str(bank_dir), 2), annmod.verify_ann(str(bank_dir), 2)
-        if bad != (None, None) or manifest["rows"] != PHASE13_BANK:
-            fail(f"phase13 (d): the bank or its index does not verify: {bad}", 1)
+        bank_path, build_s, ann_s = _serving_bank(tmp, paths[1], new_engine, "phase13 (d)")
         del new_engine, engine
         torch.cuda.empty_cache()
-        bank_path = str(bank_dir / "2" / "bank.npz")
         classes = {}
         for kind, extra in (("exact", {}), ("ann", dict(ann_cells=PHASE13_CELLS))):
             cfg = ServeConfig(pretrained=paths[1], arch="resnet50", port=0, embed_cache_mb=0,
@@ -4011,6 +4063,711 @@ def run_serving(counters: dict, smi: str) -> dict:
             shutdown_distributed()
     print(f"phase13: {smi}", flush=True)
     return out
+
+
+PHASE14_REPLICAS = 2
+PHASE14_KILL_AT = 200        # (b): replica 0 dies at its 200th admitted request (chaos)
+PHASE14_QUERIES = 64         # (d): /v1/knn queries through the router and to the full index
+PHASE14_PARTIAL = 8          # (d): queries with one shard's replica SIGKILLed
+PHASE14_LIMIT_S = 420.0      # the phase's own limit, its cold starts included
+PHASE14_WAIT_S = 300.0       # one replica's launch to healthy: the fleet's startup grace
+PHASE14_SIZE = 224           # the replicas' image size (phase 13's export)
+
+
+def _load_client(spec_path: str) -> None:
+    """`chip_smoke.py --load-client SPEC`: closed-loop clients in a process of
+    their own, so the router's numbers are not the clients'. SPEC (JSON):
+    "targets" [[url, clients], ...], "bodies" (a JSON list of request bodies),
+    "total" (requests over all targets; null: until "stop_file" exists), "out"
+    (an .npz: per request target, client, t0, t1 (wall clock), HTTP status
+    (-1: no answer), pool index, and the embedding rows)."""
+    import http.client
+    import threading
+    import urllib.parse
+
+    import numpy as np
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    with open(spec["bodies"]) as f:
+        bodies = [b.encode() for b in json.load(f)]
+    total, stop_file = spec.get("total"), spec.get("stop_file")
+    end = time.monotonic() + spec.get("max_s", PHASE14_LIMIT_S)
+    parent = os.getppid()
+    n_clients = sum(c for _, c in spec["targets"])
+    lock = threading.Lock()
+    sent = [0]
+    records, rows, errors = [], [], []
+
+    def client(target: int, url: str, c: int, first: int) -> None:
+        host, port = urllib.parse.urlsplit(url).netloc.split(":")
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        i = first
+        while True:
+            with lock:
+                if total is not None and sent[0] >= total:
+                    break
+                sent[0] += 1
+            if (stop_file and os.path.exists(stop_file)) or time.monotonic() > end \
+                    or os.getppid() != parent:
+                break  # stopped, past the phase's limit, or orphaned
+            k = i % len(bodies)
+            i += n_clients
+            t0 = time.time()
+            try:
+                conn.request("POST", "/v1/embed", body=bodies[k],
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                status, data = resp.status, resp.read()
+            except (OSError, http.client.HTTPException) as e:
+                status, data = -1, repr(e).encode()
+                conn.close()
+                conn = http.client.HTTPConnection(host, int(port), timeout=120)
+            t1 = time.time()
+            row = None
+            if status == 200:
+                row = np.asarray(json.loads(data)["embedding"], np.float32)
+            with lock:
+                records.append((target, c, t0, t1, status, k))
+                rows.append(row)
+                if status != 200:
+                    errors.append(f"{url} {status}: {data[:200]!r}")
+        conn.close()
+
+    threads, first = [], 0
+    for target, (url, clients) in enumerate(spec["targets"]):
+        for c in range(clients):
+            threads.append(threading.Thread(target=client, args=(target, url, first, first)))
+            first += 1
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dim = next((len(r) for r in rows if r is not None), 1)
+    emb = np.stack([r if r is not None else np.zeros(dim, np.float32) for r in rows]) \
+        if rows else np.zeros((0, dim), np.float32)
+    np.savez(spec["out"], meta=np.asarray(records, np.float64).reshape(-1, 6), rows=emb,
+             errors=np.asarray(errors[:50] or [""]))
+
+
+class _Load:
+    """One `--load-client` process; `result()` waits for it and reads its
+    records back as (meta [n, 6], rows [n, D], errors)."""
+
+    def __init__(self, tmp: Path, name: str, bodies_path: Path, targets: list, procs: list,
+                 total: int | None = None):
+        self.out = tmp / f"{name}.npz"
+        self.stop_file = tmp / f"{name}.stop"
+        spec = tmp / f"{name}.json"
+        spec.write_text(json.dumps({"targets": targets, "bodies": str(bodies_path),
+                                    "total": total, "stop_file": str(self.stop_file),
+                                    "out": str(self.out)}))
+        self.t0 = time.time()
+        self.proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                      "--load-client", str(spec)], start_new_session=True)
+        procs.append(self.proc)  # killed with the phase's other processes if it fails
+
+    def stop(self) -> None:
+        self.stop_file.write_text("")
+
+    def result(self, timeout: float = 600.0):
+        import numpy as np
+
+        if self.proc.wait(timeout=timeout) != 0:
+            fail(f"phase14: the load process exited {self.proc.returncode}", 1)
+        self.wall = time.time() - self.t0
+        data = np.load(self.out)
+        return data["meta"], data["rows"], [e for e in data["errors"].tolist() if e]
+
+
+def _http_json(url: str, body: dict | None = None, timeout: float = 30.0):
+    """(status, JSON answer) of a GET, or of a POST of `body`."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _fleet_events(tel: Path) -> list[dict]:
+    try:
+        with open(tel / "events.jsonl") as f:
+            return [json.loads(ln) for ln in f if ln.strip()]
+    except OSError:
+        return []
+
+
+def _until(cond, timeout: float, what: str, deadline: float):
+    """Poll `cond` every 50 ms until it answers truthy; fail past `timeout`
+    or past the phase's deadline."""
+    end = min(time.monotonic() + timeout, deadline)
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > end:
+            fail(f"phase14: timed out waiting for {what}", 1)
+        time.sleep(0.05)
+
+
+def _prometheus_ok(text: str) -> dict:
+    """The exposition is well formed (HELP/TYPE before samples, every sample
+    line `name{labels} value`); returns {metric: samples}."""
+    import re
+
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z0-9_]+="[^"]*"'
+                        r'(,[a-zA-Z0-9_]+="[^"]*")*\})? -?[0-9.e+-]+$')
+    typed, metrics = set(), {}
+    for line in text.splitlines():
+        if line.startswith(("# HELP ", "# TYPE ")):
+            parts = line.split(None, 3)
+            if len(parts) < 4 or (parts[1] == "TYPE" and parts[3] not in ("gauge", "counter")):
+                fail(f"phase14 (e): bad exposition line {line!r}", 1)
+            if parts[1] == "TYPE":
+                typed.add(parts[2])
+        elif line:
+            name = line.split("{", 1)[0].split(" ", 1)[0]
+            if not sample.match(line) or name not in typed:
+                fail(f"phase14 (e): bad exposition line {line!r}", 1)
+            metrics[name] = metrics.get(name, 0) + 1
+    if not text.endswith("\n"):
+        fail("phase14 (e): the exposition does not end with a newline", 1)
+    return metrics
+
+
+def _replica_cmd(export: str, *extra: str) -> list[str]:
+    """One port replica serving `export` on card 0 (ResNet-50, 224 px, the
+    bucket ladder of phase 13, the cache off)."""
+    return [sys.executable, "-m", "moco_tpu_torch.serve", "--pretrained", export,
+            "--arch", "resnet50", "--image-size", "224",
+            "--buckets", *[str(b) for b in PHASE13_BUCKETS], "--embed-cache-mb", "0", *extra]
+
+
+class _GpuMemory:
+    """Samples, every 0.5 s, each process's device memory as `nvidia-smi
+    --query-compute-apps` lists it and the card's used memory
+    (`torch.cuda.mem_get_info`); keeps the peaks."""
+
+    def __init__(self):
+        import threading
+
+        import torch
+
+        free, total = torch.cuda.mem_get_info()
+        self.base = total - free
+        self.card_peak = self.base
+        self.per_pid: dict[int, float] = {}
+        self.listed = False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        import torch
+
+        while not self._stop.wait(0.5):
+            free, total = torch.cuda.mem_get_info()
+            self.card_peak = max(self.card_peak, total - free)
+            try:
+                out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                                      "--format=csv,noheader,nounits"], capture_output=True,
+                                     text=True, timeout=10).stdout
+            except (OSError, subprocess.SubprocessError):
+                continue
+            for line in out.splitlines():
+                try:
+                    pid, mib = (int(v) for v in line.split(","))
+                except ValueError:
+                    continue
+                self.listed = self.listed or mib > 0  # a sandbox may list 0 for each
+                self.per_pid[pid] = max(self.per_pid.get(pid, 0), mib)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=15)
+
+    def describe(self, pids: list[int]) -> str:
+        """The peaks so far, with `pids` the replicas alive since the launch."""
+        share = (self.card_peak - self.base) / len(pids) / 2**30
+        card = f"card used {self.base / 2**30:.2f} GiB before the launch, peak " \
+               f"{self.card_peak / 2**30:.2f} GiB with {len(pids)} replicas ({share:.2f} GiB " \
+               "a replica, card-wide)"
+        if not self.listed:
+            return f"{card}; nvidia-smi reports no per-process memory here"
+        mine = ", ".join(f"pid {p} {self.per_pid.get(p, 0) / 1024:.2f} GiB" for p in pids)
+        return f"{card}; per-replica peak (nvidia-smi) {mine}"
+
+
+def _stop_proc(proc, label: str, timeout: float = 120.0, expect_zero: bool = True) -> float:
+    """SIGTERM and wait; returns the drain's seconds. A process that does not
+    exit in time is killed with its process group, and the phase fails."""
+    import signal
+
+    if proc.poll() is not None:
+        fail(f"phase14: {label} exited {proc.returncode} before its stop", 1)
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _kill_group(proc)
+        fail(f"phase14: {label} did not drain in {timeout:.0f} s", 1)
+    if expect_zero and rc != 0:
+        fail(f"phase14: {label} exited {rc} after SIGTERM, not 0", 1)
+    return time.perf_counter() - t0
+
+
+def _kill_group(proc) -> None:
+    import signal
+
+    if proc is not None and proc.poll() is None:
+        with contextlib.suppress(OSError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            proc.wait(timeout=30)
+
+
+def run_fleet(counters: dict, smi: str, workdir=None) -> dict:
+    """Phase 14, the replicated fleet of port replicas and obsd on one card:
+    `python -m moco_tpu_torch.serve_fleet --replicas 2` over two `python -m
+    moco_tpu_torch.serve` replicas of phase 13's ResNet-50 export (its own,
+    made here, when the phase runs alone), with `python -m
+    moco_tpu_torch.obsd` tailing the fleet's telemetry directory, and every
+    load from PHASE13_CLIENTS closed-loop clients in a `--load-client`
+    process of its own. (b) first: replica 0 is SIGKILLed by its chaos
+    (`kill_at_request`) under PHASE13_REQUESTS requests: nothing lost, the
+    death's class, death-to-healthy seconds, the router's retries. (a) then
+    the same load on the whole fleet: requests/s, p50/p99, 0 errors, each
+    answer against one replica's row of the same image within phase 13's
+    cross-bucket tolerance; each replica's launch-to-healthy seconds and
+    device memory. (c) the reload roll under load: a second export with its
+    manifest and a truncated third step in the watch directory; the third is
+    quarantined, the roll's seconds, the router's healthy count never below
+    N-1, no request dropped, each answer the old or the new row, every
+    answer sent after the roll the new one, and one client held on each
+    replica seeing old rows, then new ones. (e) obsd's /metrics, /runs and
+    /slo on that fleet, then the fleet's and obsd's drains (exit 0), and
+    obsd's only writes its own slo lines. (d) phase 13's bank and IVF index
+    behind `--ann-shards 2`: /v1/knn through the router against a lone
+    full-index replica on PHASE14_QUERIES queries, then `partial: true`
+    with one shard's replica SIGKILLed. The autoscaler is not driven here
+    (the CPU tests hold it). None of the eight kernels launches."""
+    import base64
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.resilience.chaos import truncate_checkpoint
+    from moco_tpu_torch.resilience.integrity import manifest_path, write_manifest
+    from moco_tpu_torch.serve import EmbeddingEngine
+    from moco_tpu_torch.serve.fleet import pick_free_port
+
+    for fn in counters.values():
+        fn.launches = 0
+    t_phase = time.monotonic()
+    deadline = t_phase + PHASE14_LIMIT_S
+    out: dict = {}
+    env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs: list = []
+    with _serving_dir(workdir, "moco_phase14_") as shared, \
+            _serving_dir(None, "moco_phase14_run_") as tmp:
+        exports = _serving_exports(shared)
+        bank_path = shared / "bank" / "2" / "bank.npz"
+        if not bank_path.is_file():
+            engine = EmbeddingEngine.from_checkpoint(exports[1], "resnet50", image_size=224,
+                                                     buckets=PHASE13_BUCKETS)
+            engine.warmup()
+            _serving_bank(shared, exports[1], engine, "phase14 (d)")
+            del engine
+            torch.cuda.empty_cache()
+        pool = np.random.RandomState(13).randint(
+            0, 256, (PHASE13_POOL, PHASE14_SIZE, PHASE14_SIZE, 3)).astype(np.uint8)
+        bodies_path = tmp / "bodies.json"
+        bodies_path.write_text(json.dumps([json.dumps(
+            {"image_b64": base64.b64encode(im.tobytes()).decode("ascii"),
+             "shape": list(im.shape)}) for im in pool]))
+        tel, watch = tmp / "fleet", tmp / "watch"
+        watch.mkdir()
+        router = f"http://127.0.0.1:{pick_free_port()}"
+        obsd_url = f"http://127.0.0.1:{pick_free_port()}"
+        memory = _GpuMemory()
+        try:
+            obsd = subprocess.Popen(
+                [sys.executable, "-m", "moco_tpu_torch.obsd", str(tel), "--port",
+                 obsd_url.rsplit(":", 1)[1], "--tick-secs", "0.5"],
+                cwd=ROOT, env=env, start_new_session=True, stdout=open(tmp / "obsd.log", "w"),
+                stderr=subprocess.STDOUT)
+            procs.append(obsd)
+            t_launch = time.time()
+            fleet = subprocess.Popen(
+                [sys.executable, "-m", "moco_tpu_torch.serve_fleet", "--replicas",
+                 str(PHASE14_REPLICAS), "--port", router.rsplit(":", 1)[1], "--telemetry-dir",
+                 str(tel), "--watch-dir", str(watch), "--stats-every-secs", "2",
+                 "--chaos", f"kill_at_request={PHASE14_KILL_AT}", "--chaos-replica", "0",
+                 "--", *_replica_cmd(exports[0])],
+                cwd=ROOT, env=env, start_new_session=True, stdout=open(tmp / "fleet.log", "w"),
+                stderr=subprocess.STDOUT)
+            procs.append(fleet)
+
+            def healthy() -> int:
+                try:
+                    return _http_json(router + "/healthz", timeout=5)[1]["healthy"]
+                except OSError:
+                    if fleet.poll() is not None:
+                        fail(f"phase14: the fleet exited {fleet.returncode}; its log:\n"
+                             f"{(tmp / 'fleet.log').read_text()[-3000:]}", 1)
+                    return -1
+
+            _until(lambda: healthy() == PHASE14_REPLICAS, PHASE14_WAIT_S, "2 healthy replicas",
+                   deadline)
+            events = _fleet_events(tel)
+            launch_t = {e["replica"]: e["t"] for e in events if e.get("event") == "launch"}
+            up_t = {e["replica"]: e["t"] for e in events if e.get("event") == "replica_healthy"}
+            boot = {r: up_t[r] - launch_t[r] for r in sorted(up_t)}
+            run_id = events[0]["run_id"]
+            stats = _http_json(router + "/stats")[1]
+            pids = [r["pid"] for r in stats["replicas"]]
+            ports = [r["port"] for r in stats["replicas"]]
+            print(f"phase14 (a): fleet router {router}, {PHASE14_REPLICAS} replicas (pids {pids}) "
+                  f"healthy {time.time() - t_launch:.2f} s after the launch; launch to healthy "
+                  + ", ".join(f"replica {r} {s:.2f} s" for r, s in boot.items())
+                  + f" (startup grace 300 s)", flush=True)
+            # one replica's own row of each pool image, one request at a time
+            ref = np.stack([np.asarray(_http_json(
+                f"http://127.0.0.1:{ports[1]}/v1/embed", json.loads(b), timeout=120)[1]
+                ["embedding"], np.float32) for b in json.loads(bodies_path.read_text())])
+            scale = float(np.abs(ref).max())
+            tol = PHASE13_ROW_RTOL * scale
+
+            # (b) the kill drill: replica 0's chaos fires under this load
+            load = _Load(tmp, "kill", bodies_path, [[router, PHASE13_CLIENTS]], procs,
+                         total=PHASE13_REQUESTS)
+            meta, rows, errors = load.result()
+            lost = int((meta[:, 4] < 0).sum())
+            ok = meta[:, 4] == 200
+            if lost or len(meta) != PHASE13_REQUESTS:
+                fail(f"phase14 (b): {len(meta)} answers, {lost} lost: {errors[:3]}", 1)
+            events = _fleet_events(tel)
+            exits = [e for e in events if e.get("event") == "replica_exit" and e["replica"] == 0]
+            if not exits:
+                fail("phase14 (b): the chaos never killed replica 0", 1)
+            t_dead = exits[0]["t"]
+            _until(lambda: [e for e in _fleet_events(tel) if e.get("event") == "replica_healthy"
+                            and e["replica"] == 0 and e["t"] > t_dead], PHASE14_WAIT_S,
+                   "replica 0 healthy again", deadline)
+            back = [e for e in _fleet_events(tel) if e.get("event") == "replica_healthy"
+                    and e["replica"] == 0 and e["t"] > t_dead][0]["t"]
+            _until(lambda: healthy() == PHASE14_REPLICAS, PHASE14_WAIT_S, "2 healthy replicas",
+                   deadline)
+            counters_b = _http_json(router + "/stats")[1]["router"]
+            err_b = float(np.abs(rows[ok] - ref[meta[ok, 5].astype(int)]).max())
+            if err_b > tol:
+                fail(f"phase14 (b): answers differ from the replica's rows by {err_b:.3e}", 1)
+            out["b"] = dict(requests=len(meta), ok=int(ok.sum()), lost=lost,
+                            classification=exits[0]["classification"],
+                            death_to_healthy_s=back - t_dead, retries=counters_b["retries"],
+                            retry_ok=counters_b["retry_ok"], row_err=err_b)
+            print(f"phase14 (b): chaos kill_at_request={PHASE14_KILL_AT} on replica 0 under "
+                  f"{PHASE13_CLIENTS} clients: {len(meta)} requests, {int(ok.sum())} answered "
+                  f"200, {len(meta) - int(ok.sum())} structured, {lost} lost; the death "
+                  f"classified {exits[0]['classification']!r} (returncode "
+                  f"{exits[0]['returncode']}), healthy again {back - t_dead:.2f} s after it; "
+                  f"router retries {counters_b['retries']} ({counters_b['retry_ok']} answered "
+                  f"on the retry); answers within {err_b:.3e} of replica 1's rows", flush=True)
+
+            # (a) the whole fleet under the same load
+            before = _http_json(router + "/stats")[1]["router"]
+            load = _Load(tmp, "steady", bodies_path, [[router, PHASE13_CLIENTS]], procs,
+                         total=PHASE13_REQUESTS)
+            meta, rows, errors = load.result()
+            bad = int((meta[:, 4] != 200).sum())
+            if bad or len(meta) != PHASE13_REQUESTS:
+                fail(f"phase14 (a): {len(meta)} answers, {bad} not 200: {errors[:3]}", 1)
+            err_a = float(np.abs(rows - ref[meta[:, 5].astype(int)]).max())
+            if err_a > tol:
+                fail(f"phase14 (a): answers differ from the replica's rows by {err_a:.3e} "
+                     f"(tolerance {tol:.3e})", 1)
+            lat = list(meta[:, 3] - meta[:, 2])
+            wall = float(meta[:, 3].max() - meta[:, 2].min())
+            after = _http_json(router + "/stats")[1]
+            out["a"] = dict(boot_s=boot, rps=len(meta) / wall, p50_ms=_percentile_ms(lat, 50),
+                            p99_ms=_percentile_ms(lat, 99), errors=bad, row_err=err_a,
+                            retries=after["router"]["retries"] - before["retries"],
+                            memory=memory.describe(pids))
+            print(f"phase14 (a): {PHASE13_CLIENTS} clients in their own process through the "
+                  f"router, {len(meta)} requests in {wall:.2f} s: {out['a']['rps']:.1f} "
+                  f"requests/s, latency p50 {out['a']['p50_ms']:.1f} ms p99 "
+                  f"{out['a']['p99_ms']:.1f} ms, {bad} errors, router retries "
+                  f"{out['a']['retries']}; answers within {err_a:.3e} of one replica's row of "
+                  f"the same image (tolerance {PHASE13_ROW_RTOL:g} x max |row| = {tol:.3e}); "
+                  f"{out['a']['memory']}; host cores {os.cpu_count()}", flush=True)
+
+            # (c) the reload roll under load
+            stats = _http_json(router + "/stats")[1]
+            ports = [r["port"] for r in stats["replicas"]]
+            load = _Load(tmp, "roll", bodies_path,
+                         [[router, PHASE13_CLIENTS]] + [[f"http://127.0.0.1:{p}", 1]
+                                                        for p in ports], procs)
+            seen_healthy = []
+            watching = threading.Event()
+
+            def watch_capacity():
+                while not watching.is_set():
+                    try:
+                        seen_healthy.append(_http_json(router + "/healthz", timeout=5)[1]
+                                            ["healthy"])
+                    except OSError:
+                        seen_healthy.append(-1)
+                    time.sleep(0.05)
+
+            capacity = threading.Thread(target=watch_capacity, daemon=True)
+            capacity.start()
+            time.sleep(PHASE13_RELOAD_LEAD_S)
+            # each step is made whole (step 3 then torn) in a staging directory and
+            # moved in, its manifest last, so the watcher never sees a step half
+            # written or step 3 intact
+            stage = tmp / "stage"
+            for step in (2, 3):
+                (stage / str(step)).mkdir(parents=True)
+                (stage / str(step) / "encoder.npz").write_bytes(Path(exports[1]).read_bytes())
+                write_manifest(str(stage), step)
+            truncate_checkpoint(str(stage), 3)
+            (watch / ".integrity").mkdir(exist_ok=True)
+            for step in (2, 3):
+                os.rename(stage / str(step), watch / str(step))
+                os.rename(manifest_path(str(stage), step), manifest_path(str(watch), step))
+            t_drop = time.time()
+
+            def rolled():
+                ev = _fleet_events(tel)
+                done = [e for e in ev if e.get("event") == "reload_done" and e["step"] == 2]
+                quarantined = [e for e in ev if e.get("event") == "reload_quarantine"
+                               and e["step"] == 3]
+                return (done[0], quarantined[0]) if done and quarantined else None
+
+            done, quarantined = _until(rolled, 2 * 300.0, "the reload roll", deadline)
+            time.sleep(PHASE13_RELOAD_LEAD_S)
+            load.stop()
+            meta, rows, errors = load.result()
+            watching.set()
+            capacity.join()
+            ev = _fleet_events(tel)
+            detected = [e for e in ev if e.get("event") == "reload_detected" and e["step"] == 2][0]
+            swaps = [e for e in ev if e.get("event") == "reload_replica" and e.get("step") == 2]
+            new = np.stack([np.asarray(_http_json(
+                f"http://127.0.0.1:{ports[1]}/v1/embed", json.loads(b), timeout=120)[1]
+                ["embedding"], np.float32) for b in json.loads(bodies_path.read_text())])
+            if (meta[:, 4] != 200).any():
+                fail(f"phase14 (c): {int((meta[:, 4] != 200).sum())} requests not answered "
+                     f"200: {errors[:3]}", 1)
+            k = meta[:, 5].astype(int)
+            is_old = np.abs(rows - ref[k]).max(axis=1) <= tol
+            is_new = np.abs(rows - new[k]).max(axis=1) <= tol
+            if not (is_old | is_new).all():
+                fail(f"phase14 (c): {int((~(is_old | is_new)).sum())} answers fit neither "
+                     "engine", 1)
+            gen = np.where(is_old, 0, 1)
+            late_old = (meta[:, 2] > done["t"]) & (gen == 0)
+            early_new = (meta[:, 3] < t_drop) & (gen == 1)
+            if late_old.any() or early_new.any():
+                fail(f"phase14 (c): {int(late_old.sum())} old rows sent after the roll "
+                     f"ended, {int(early_new.sum())} new rows answered before the drop "
+                     f"(targets {sorted(set(meta[late_old | early_new, 0].tolist()))}, first "
+                     f"at {float(meta[late_old | early_new, 2].min()) - done['t']:.3f} s "
+                     f"after the roll's end)", 1)
+            per_replica = {}
+            for target in (1, 2):
+                sel = meta[:, 0] == target
+                order = np.argsort(meta[sel, 2])
+                g = gen[sel][order]
+                if (np.diff(g) < 0).any() or g[0] != 0 or g[-1] != 1:
+                    fail(f"phase14 (c): replica {target - 1}'s own client saw {g.tolist()}", 1)
+                per_replica[target - 1] = float(meta[sel][order][int(np.argmax(g)), 2])
+            routed = meta[:, 0] == 0
+            flips = 0
+            for c in np.unique(meta[routed, 1]):
+                sel = routed & (meta[:, 1] == c)
+                flips += int((np.diff(gen[sel][np.argsort(meta[sel, 2])]) < 0).any())
+            min_healthy = min(h for h in seen_healthy if h >= 0)
+            if min_healthy < PHASE14_REPLICAS - 1:
+                fail(f"phase14 (c): the router's healthy count fell to {min_healthy}", 1)
+            if not (watch / ".quarantine" / "3").is_dir():
+                fail("phase14 (c): the truncated step 3 was not quarantined", 1)
+            roll_s = done["t"] - detected["t"]
+            out["c"] = dict(requests=len(meta), roll_s=roll_s, old=int((gen == 0).sum()),
+                            new=int((gen == 1).sum()), min_healthy=min_healthy,
+                            swap_t={e["replica"]: e["t"] - detected["t"] for e in swaps},
+                            first_new_s={r: t - detected["t"] for r, t in per_replica.items()},
+                            routed_clients_new_then_old=flips, quarantined=quarantined["step"])
+            print(f"phase14 (c): steps 2 (a second export, manifested) and 3 (truncated) "
+                  f"dropped into the watch directory under {PHASE13_CLIENTS} router clients "
+                  f"and one client on each replica: step 3 quarantined "
+                  f"({quarantined['reason']}), step 2 rolled in {roll_s:.2f} s (detected to "
+                  f"done; replica swaps at "
+                  + ", ".join(f"{e['replica']}: {e['t'] - detected['t']:.2f} s" for e in swaps)
+                  + f"); {len(meta)} requests all 200, {out['c']['old']} old rows then "
+                  f"{out['c']['new']} new, none after the roll old; each replica's own client "
+                  f"saw old rows, then new ones (first new at "
+                  + ", ".join(f"{r}: {t:.2f} s" for r, t in out["c"]["first_new_s"].items())
+                  + f"); {flips} of {PHASE13_CLIENTS} router clients saw a new row before an "
+                  f"old one (the replicas swap one at a time); router healthy count never "
+                  f"below {min_healthy}; reload_timeout_s 300 per replica", flush=True)
+
+            # (e) obsd on the fleet: live, then after the drain (a replica's
+            # registry flushes its serve records every 50, and at its drain)
+            _until(lambda: "moco_tpu_router_requests_total" in _obsd_text(obsd_url), 30.0,
+                   "obsd's router series", deadline)
+            live = _prometheus_ok(_obsd_text(obsd_url))
+            slo = _http_json(obsd_url + "/slo")[1]
+            states = {r["name"]: {run: v["state"] for run, v in r["runs"].items()}
+                      for r in slo["rules"]}
+            drain_fleet_s = _stop_proc(fleet, "the fleet")
+
+            def fleet_run():
+                runs = _http_json(obsd_url + "/runs")[1]
+                mine = [r for r in runs["runs"] if r["run_id"] == run_id]
+                srcs = {os.path.basename(s) for r in mine for s in r["srcs"]}
+                ok = mine and {"fleet", "replica0", "replica1"} <= srcs \
+                    and {"fleet", "serve"} <= set(mine[0]["kinds"])
+                return (runs, mine[0], srcs) if ok else None
+
+            runs, run, srcs = _until(fleet_run, 30.0, "obsd's fleet run with both replicas",
+                                     deadline)
+            _until(lambda: _http_json(obsd_url + "/runs")[1]["polls"] > runs["polls"] + 2, 30.0,
+                   "obsd's last ticks", deadline)
+            metrics_text = _obsd_text(obsd_url)
+            series = _prometheus_ok(metrics_text)
+            written = _http_json(obsd_url + "/runs")[1]["slo_written"]
+            _stop_proc(obsd, "obsd")
+            slo_lines, foreign = 0, []
+            for path in tel.rglob("events.jsonl"):
+                for ln in path.read_text().splitlines():
+                    rec = json.loads(ln)
+                    if rec.get("kind") == "slo":
+                        slo_lines += 1
+                        if rec.get("run_id") != run_id:
+                            foreign.append(rec)
+            if slo_lines != written or foreign:
+                fail(f"phase14 (e): {slo_lines} slo lines in the streams, obsd wrote {written}; "
+                     f"{foreign[:2]}", 1)
+            out["e"] = dict(series=len(series), live_series=len(live), streams=runs["streams"],
+                            kinds=run["kinds"], slo_states=states, slo_lines=slo_lines,
+                            fleet_drain_s=drain_fleet_s)
+            print(f"phase14 (e): obsd /metrics valid exposition live ({len(live)} series) and "
+                  f"after the fleet's drain ({len(series)} series, {sum(series.values())} "
+                  f"samples, router requests "
+                  f"{_metric_value(metrics_text, 'moco_tpu_router_requests_total')}, serve "
+                  f"latency {_metric_value(metrics_text, 'moco_tpu_serve_latency_ms')} ms); "
+                  f"/runs {runs['streams']} streams, the fleet's run from {sorted(srcs)} with "
+                  f"kinds {run['kinds']}; /slo states live {states}; obsd wrote {written} slo "
+                  f"line(s) and nothing else; the fleet drained on SIGTERM in "
+                  f"{drain_fleet_s:.2f} s (exit 0), obsd exit 0", flush=True)
+
+            # (d) the ANN scatter-gather over two shards against a full-index replica
+            flags = ["--knn-bank", str(bank_path), "--ann-cells", str(PHASE13_CELLS),
+                     "--ann-nprobe", str(PHASE13_CELLS), "--num-classes", "10"]
+            ann_tel = tmp / "ann_fleet"
+            router2 = f"http://127.0.0.1:{pick_free_port()}"
+            full_port = pick_free_port()
+            fleet2 = subprocess.Popen(
+                [sys.executable, "-m", "moco_tpu_torch.serve_fleet", "--replicas", "2",
+                 "--ann-shards", "2", "--port", router2.rsplit(":", 1)[1], "--telemetry-dir",
+                 str(ann_tel), "--", *_replica_cmd(exports[1], *flags)],
+                cwd=ROOT, env=env, start_new_session=True,
+                stdout=open(tmp / "fleet2.log", "w"), stderr=subprocess.STDOUT)
+            procs.append(fleet2)
+            full = subprocess.Popen(
+                _replica_cmd(exports[1], *flags, "--port", str(full_port)), cwd=ROOT, env=env,
+                start_new_session=True, stdout=open(tmp / "full.log", "w"),
+                stderr=subprocess.STDOUT)
+            procs.append(full)
+
+            def up(url):
+                try:
+                    return _http_json(url + "/healthz", timeout=5)[0] == 200
+                except OSError:
+                    return False
+
+            t0 = time.time()
+            _until(lambda: up(router2) and _http_json(router2 + "/healthz")[1]["healthy"] == 2
+                   and up(f"http://127.0.0.1:{full_port}"), PHASE14_WAIT_S,
+                   "the sharded fleet and the full-index replica", deadline)
+            boot2 = time.time() - t0
+            queries = SyntheticDataset(num_samples=PHASE14_QUERIES, image_size=PHASE14_SIZE,
+                                       seed=999)
+            q_bodies = [{"image_b64": base64.b64encode(im.tobytes()).decode("ascii"),
+                         "shape": list(im.shape)} for im in queries.images]
+            fan, ref_cls = [], []
+            for b in q_bodies:
+                st, ans = _http_json(router2 + "/v1/knn", b, timeout=120)
+                if st != 200 or ans.get("partial") or ans.get("shards_answered") != 2:
+                    fail(f"phase14 (d): the fan-out answered {st} {ans}", 1)
+                fan.append(ans["class"])
+                st, ans = _http_json(f"http://127.0.0.1:{full_port}/v1/knn", b, timeout=120)
+                if st != 200:
+                    fail(f"phase14 (d): the full-index replica answered {st} {ans}", 1)
+                ref_cls.append(ans["class"])
+            agree = sum(a == b for a, b in zip(fan, ref_cls))
+            if agree != len(fan):
+                fail(f"phase14 (d): the fan-out agrees with the full index on {agree} of "
+                     f"{len(fan)} queries", 1)
+            victim = [r for r in _http_json(router2 + "/stats")[1]["replicas"]
+                      if r["shard"] == 1][0]
+            os.kill(victim["pid"], signal.SIGKILL)
+            partial = []
+            for b in q_bodies[:PHASE14_PARTIAL]:
+                st, ans = _http_json(router2 + "/v1/knn", b, timeout=120)
+                partial.append((st, ans.get("partial"), ans.get("shards_answered")))
+            if any(p != (200, True, 1) for p in partial):
+                fail(f"phase14 (d): with shard 1's replica killed the answers were {partial}", 1)
+            fan_stats = _http_json(router2 + "/stats")[1]["router"]
+            _stop_proc(fleet2, "the sharded fleet")
+            _stop_proc(full, "the full-index replica")
+            out["d"] = dict(queries=len(fan), agree=agree, partial=len(partial), boot_s=boot2,
+                            knn_fanout=fan_stats["knn_fanout"],
+                            knn_partial=fan_stats["knn_partial"])
+            print(f"phase14 (d): --ann-shards 2 over phase 13's bank ({PHASE13_BANK} rows, "
+                  f"{PHASE13_CELLS} cells, nprobe {PHASE13_CELLS}) and a lone full-index "
+                  f"replica, healthy {boot2:.2f} s after their launch: /v1/knn through the "
+                  f"router equals the full index on {agree} of {len(fan)} queries (each "
+                  f"partial: false, 2 shards answered); with shard 1's replica SIGKILLed "
+                  f"{len(partial)} of {len(partial)} answers 200 with partial: true (1 shard); "
+                  f"router knn_fanout {fan_stats['knn_fanout']} knn_partial "
+                  f"{fan_stats['knn_partial']}", flush=True)
+        finally:
+            memory.close()
+            for p in procs:
+                _kill_group(p)
+    launched = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    if launched:
+        fail(f"phase14: the serving path launched training kernels: {launched}", 1)
+    out["seconds"] = time.monotonic() - t_phase
+    print(f"phase14: {out['seconds']:.1f} s (limit {PHASE14_LIMIT_S:.0f} s); {smi}", flush=True)
+    return out
+
+
+def _obsd_text(url: str) -> str:
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url + "/metrics", timeout=10) as resp:
+            return resp.read().decode("utf-8")
+    except OSError:
+        return ""
+
+
+def _metric_value(text: str, name: str) -> str:
+    return next((ln.rsplit(" ", 1)[1] for ln in text.splitlines() if ln.startswith(name)),
+                "absent")
 
 
 def main() -> None:
@@ -4108,6 +4865,15 @@ def main() -> None:
         print(smi)
         print(json.dumps({"phase13": r}, default=str))
         return
+    if "--phase14" in sys.argv[1:]:
+        # phase 14 alone, on one card: it makes its own exports and bank
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        r = run_fleet(counters, smi)
+        print(smi)
+        print(json.dumps({"phase14": r}, default=str))
+        return
     if "--phase10" in sys.argv[1:]:
         # phase 10 alone, on one card
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4168,7 +4934,10 @@ def main() -> None:
     check_against_cpu(fused=True, counters={k: counters[k] for k in FUSED_PER_STEP})
 
     run_checkpoint_and_evals(counters, smi)
-    run_serving(counters, smi)
+    with _serving_dir(None, "moco_serving_") as serving:
+        # phase 14's fleet serves phase 13's exports and bank
+        run_serving(counters, smi, serving)
+        run_fleet(counters, smi, serving)
     print(smi)  # the card's name and power limit, as nvidia-smi prints them
     # name: (source, TPU kernel it replaces, shape reported in the line)
     sources = {
@@ -4201,4 +4970,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--load-client"]:
+        _load_client(sys.argv[2])  # phase 14's clients, in a process of their own
+    else:
+        main()

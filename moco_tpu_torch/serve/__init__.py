@@ -18,11 +18,12 @@
                  moco_tpu_torch.bank_build`): sharded, resumable corpus
                  re-embed bound to its checkpoint by an integrity manifest
     ann.py       IVF ANN index over a versioned bank (numpy)
-    fleet.py     the supervision pieces the input service's staging
-                 server uses (`FleetLaunchError`, `pick_free_port`,
-                 `FleetPolicy`, `ReplicaState`); pure stdlib. The
-                 replicated fleet (router, autoscaler, fleet supervisor,
-                 checkpoint watcher) is not ported yet.
+    fleet.py     the replicated fleet (`python -m
+                 moco_tpu_torch.serve_fleet` mounts it): the router,
+                 the fleet supervisor, the checkpoint watcher and its
+                 reload roll, the ANN scatter-gather, the autoscaler;
+                 pure stdlib (the input service's staging server
+                 reuses its supervision pieces)
 
 Train-free: nothing here imports `train`, `train_step`, `v3_step` or
 `ops/optim.py` (`tests/test_torch_isolation.py`), so the server stays
@@ -61,8 +62,11 @@ _EXPORTS = {
     "build_bank": "bankbuild",
     "load_bank": "bankbuild",
     "read_bank_meta": "bankbuild",
+    "CheckpointWatcher": "fleet",
     "FleetLaunchError": "fleet",
     "FleetPolicy": "fleet",
+    "FleetRouter": "fleet",
+    "FleetSupervisor": "fleet",
     "ReplicaState": "fleet",
     "pick_free_port": "fleet",
 }

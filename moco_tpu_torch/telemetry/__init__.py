@@ -1,11 +1,12 @@
 """Structured run telemetry and learning health of the port (port of
-`moco_tpu/telemetry/`, without the `aggregate` module).
+`moco_tpu/telemetry/`).
 
 Step-phase timing (data / host / device / comm), analytic-FLOPs MFU against
 the card's peak, device and host memory, pod-aggregated JSONL events, the
 heartbeat, the `log_event` bridge, the span layer with its capture windows
-(`trace.py`) and the in-step collapse diagnostics (`health.py`). The files
-they write are the JAX package's: `tools/telemetry_report.py` renders an
+(`trace.py`), the in-step collapse diagnostics (`health.py`), and obsd's
+fleet-wide aggregator and SLO engine (`aggregate.py`, stdlib only). The
+files they write are the JAX package's: `tools/telemetry_report.py` renders an
 `events.jsonl` of either, `tools/trace_report.py` merges their spans.
 
 This __init__ is LAZY (PEP 562): each public name resolves its submodule on
@@ -21,6 +22,13 @@ import importlib
 _EXPORTS = {
     "DeviceMonitor": "device",
     "host_rss_bytes": "device",
+    "Aggregator": "aggregate",
+    "ObsServer": "aggregate",
+    "PercentileWindow": "aggregate",
+    "SLOEngine": "aggregate",
+    "SLORule": "aggregate",
+    "StreamTailer": "aggregate",
+    "load_rules": "aggregate",
     "MFUEstimator": "mfu",
     "detect_peak_flops": "mfu",
     "model_fwd_flops": "mfu",

@@ -78,6 +78,9 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
             "moco_tpu_torch.data.service.fleet", "moco_tpu_torch.serve",
             "moco_tpu_torch.serve.fleet",
             "moco_tpu_torch.staging_server"} <= {m.name for m in expected}
+    # the replicated fleet's CLI, and obsd: its aggregator and its CLI
+    assert {"moco_tpu_torch.serve_fleet", "moco_tpu_torch.telemetry.aggregate",
+            "moco_tpu_torch.obsd"} <= {m.name for m in expected}
 
 
 def test_span_layer_imports_without_torch_or_numpy():
@@ -150,12 +153,67 @@ def test_staging_control_plane_imports_only_the_stdlib(module):
     assert proc.stdout.split() == ["[]"]
 
 
+FLEET_AND_OBSD = ["moco_tpu_torch.serve.fleet", "moco_tpu_torch.serve_fleet",
+                  "moco_tpu_torch.telemetry.aggregate", "moco_tpu_torch.obsd"]
+
+
+@pytest.mark.parametrize("module", FLEET_AND_OBSD)
+def test_fleet_and_obsd_import_only_the_stdlib(module):
+    """The fleet's router and supervisor, its CLI, obsd's aggregator and
+    obsd's CLI load the standard library and the port's own stdlib modules
+    alone, transitively (the JAX package's `fleet-stdlib-only` and
+    `obsd-stdlib-only` rules): the routing tier and the watcher outlive
+    replicas that run the card out of memory. torch and numpy are blocked
+    at import, so not even a lazy path may reach them."""
+    probe = textwrap.dedent(f"""
+        import importlib, sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("torch", "numpy", "jax", "moco_tpu"):
+                    raise ImportError(f"imported {{name}}")
+                return None
+
+        before = set(sys.modules)
+        sys.meta_path.insert(0, Block())
+        mod = importlib.import_module({module!r})
+        new = {{m.split(".")[0] for m in set(sys.modules) - before}}
+        print(sorted(m for m in new if m not in sys.stdlib_module_names
+                     and m != "moco_tpu_torch"))
+    """)
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["[]"]
+
+
+def test_serve_package_stays_lazy_with_the_fleet():
+    """Importing `moco_tpu_torch.serve.fleet` runs the `serve` package's
+    body and loads neither torch nor numpy; the fleet's names resolve
+    through the lazy `_EXPORTS` on first access."""
+    probe = textwrap.dedent("""
+        import sys
+        import moco_tpu_torch.serve.fleet
+        import moco_tpu_torch.serve as serve
+        heavy = sorted(m for m in ("torch", "numpy") if m in sys.modules)
+        names = [serve.FleetSupervisor.__name__, serve.FleetRouter.__name__,
+                 serve.CheckpointWatcher.__name__, serve.FleetPolicy.__name__]
+        heavy_after = sorted(m for m in ("torch", "numpy") if m in sys.modules)
+        print(heavy, heavy_after, names)
+    """)
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ("[] [] ['FleetSupervisor', 'FleetRouter', "
+                                   "'CheckpointWatcher', 'FleetPolicy']")
+
+
 SERVE_MODULES = ["moco_tpu_torch.serve", "moco_tpu_torch.serve.batcher",
                  "moco_tpu_torch.serve.cache", "moco_tpu_torch.serve.engine",
                  "moco_tpu_torch.serve.service", "moco_tpu_torch.serve.http",
                  "moco_tpu_torch.serve.bankbuild", "moco_tpu_torch.serve.ann",
                  "moco_tpu_torch.serve.fleet", "moco_tpu_torch.serve.__main__",
-                 "moco_tpu_torch.bank_build"]
+                 "moco_tpu_torch.bank_build", "moco_tpu_torch.serve_fleet"]
 
 
 def test_serve_package_is_train_free():
@@ -356,9 +414,14 @@ def test_eval_entry_points_set_the_precision_policy(entry, tmp_path):
     fn = getattr({"lincls": lincls, "knn": knn}[module], name)
     missing = str(tmp_path / "missing.npz")
     _tf32_on()
+    # a tiny arch and 32 px synthetic images: the probe builds its dataset
+    # and every entry point its backbone before it reads the checkpoint, and
+    # neither size is what is checked here
     with pytest.raises((FileNotFoundError, OSError)):
         if name == "main":
-            fn(["--pretrained", missing, "--dataset", "synthetic", "--device", "cpu"])
+            fn(["--pretrained", missing, "--dataset", "synthetic", "--arch", "resnet_tiny",
+                "--image-size", "32", "--device", "cpu"])
         else:
-            fn(EvalConfig(pretrained=missing, dataset="synthetic"), device="cpu")
+            fn(EvalConfig(pretrained=missing, dataset="synthetic", arch="resnet_tiny",
+                          image_size=32), device="cpu")
     assert _policy_set()

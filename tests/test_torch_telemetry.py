@@ -522,10 +522,18 @@ def runs(tmp_path_factory, mesh8):
     jax_cfg = jax_get_preset("cifar10-moco-v1").replace(
         **TELEMETRY_RUN, telemetry_dir=str(tmp / "jax"))
     jax_train(jax_cfg, mesh8)
-    return dict(jax=jax_cfg,
-                on=_port_run(tmp, "on", telemetry_dir="x"),
-                health=_port_run(tmp, "health", telemetry_dir="x", health_stride=2),
-                off=_port_run(tmp, "off", telemetry_dir=""))
+    # the three port runs on two intra-op threads: each is compared only with
+    # the others (bit for bit) and by its records' keys, and on a host whose
+    # cores the other test processes share, more threads only spin
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        return dict(jax=jax_cfg,
+                    on=_port_run(tmp, "on", telemetry_dir="x"),
+                    health=_port_run(tmp, "health", telemetry_dir="x", health_stride=2),
+                    off=_port_run(tmp, "off", telemetry_dir=""))
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _events(config) -> list[dict]:
