@@ -239,6 +239,25 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             launches. `python3 chip_smoke.py --phase14` runs it alone (with
             its own exports and bank).
 
+15. phase15 FSDP for the v3 pretrain (`parallel/fsdp.py`):
+            `imagenet-moco-v3-vitb` (ViT-B/16, 224 px, bf16, remat, AdamW) at
+            batch 128 in a one-rank NCCL group under deterministic cuDNN,
+            3 steps with `sharding="dp"` and 3 with "fsdp" (every parameter
+            split over the one-rank fsdp group: shard, gather on use,
+            release), losses, both encoders and AdamW's state equal bit for
+            bit; the blur's 2 launches a step held against its plain
+            version; the state's bytes a card, the memory allocated between
+            steps and at the peak, the gather's CUDA-event time a step.
+            `python3 chip_smoke.py --phase15` runs it alone; under
+            `torchrun --nproc-per-node 4 chip_smoke.py --phase15`, at 256 a
+            card: (a) fsdp (1 x 4) against dp bit for bit, a card's state
+            bytes at most 0.27 of dp's; (b) fsdp_tp (2 x 2) bit for bit;
+            (c) fsdp_tp with quantized int8, the two-hop reduce, losses
+            within 5% of dp's, each hop's bytes; (d) a 4-rank fsdp
+            checkpoint restored by a 2-rank fsdp run (`--phase15d DIR`
+            under a two-process torchrun on cards 0 and 1): both encoders
+            bit for bit, the accumulators zero.
+
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
 Exits 2 without a CUDA device or without the `moco_tpu_torch` package next
@@ -4755,6 +4774,318 @@ def run_fleet(counters: dict, smi: str, workdir=None) -> dict:
     return out
 
 
+PHASE15_BATCH = 128         # the one-card run: ViT-B/16, 224 px, bf16, remat, AdamW
+PHASE15_STEPS = 3           # steps of each run
+PHASE15_RANK_BATCH = 256    # --phase15 under torchrun: a card's share of the global batch
+PHASE15_BYTES_RATIO = 0.27  # (a): a card's state bytes under fsdp (1 x 4) over dp's, at most
+PHASE15_QUANT_RTOL = 0.05   # (c): |loss - dp's| <= rtol * max(|dp's|, 1), the JAX band
+# the torchrun variables a child launch of its own must not inherit
+TORCHRUN_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE", "GROUP_RANK",
+                "GROUP_WORLD_SIZE", "ROLE_RANK", "ROLE_NAME", "ROLE_WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT")
+
+
+def _phase15_config(batch: int, **overrides):
+    """`imagenet-moco-v3-vitb` at full width on synthetic data at `batch`,
+    without the warmup (its first steps would move the weights by a few
+    ulps)."""
+    from moco_tpu_torch.config import get_preset
+
+    return get_preset("imagenet-moco-v3-vitb").replace(
+        dataset="synthetic", batch_size=batch, staging_workers=4, prefetch_depth=2,
+        print_freq=1, warmup_epochs=0, **overrides)
+
+
+def _fsdp_train(config, label: str, counters: dict, dataset, steps: int, device) -> dict:
+    """`_v3_train` of a v3 config (the blur's two launches a step counted
+    and held against its plain version) with the fsdp plan's gathers timed
+    by CUDA events, the memory allocated after each release (between
+    steps; dp: after the run) and at the peak, both over what was allocated
+    before the run, the gradient sync's bytes of each step and its
+    `describe()`, and the state's bytes a card."""
+    import torch
+
+    from moco_tpu_torch.parallel import fsdp
+    from moco_tpu_torch.parallel.gradsync import GradSync
+
+    plan_cls = fsdp.ShardingPlan
+    real_gather, real_release, real_finish = plan_cls.gather, plan_cls.release, GradSync.finish
+    gathers, between, carried, described = [], [], [], []
+
+    def gather(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real_gather(self)
+        end.record()
+        gathers.append((start, end))
+
+    def release(self):
+        real_release(self)
+        between.append(torch.cuda.memory_allocated(device))
+
+    def finish(self, state):
+        real_finish(self, state)
+        carried.append(self.last_bytes)
+        if not described:
+            described.append(self.describe(state.model_q.named_parameters()))
+
+    base = torch.cuda.memory_allocated(device)  # what earlier runs still hold
+    plan_cls.gather, plan_cls.release, GradSync.finish = gather, release, finish
+    try:
+        r = _v3_train(config, label, counters, dataset, steps, V3_VIT_PER_STEP, device=device)
+    finally:
+        plan_cls.gather, plan_cls.release, GradSync.finish = real_gather, real_release, \
+            real_finish
+    torch.cuda.synchronize()
+    state = r["state"]
+    r.update(gather_ms=[s.elapsed_time(e) for s, e in gathers[:steps]],
+             between_gib=((between[steps - 1] if state.fsdp is not None
+                           else torch.cuda.memory_allocated(device)) - base) / 2**30,
+             peak_gib=r["max_memory_gib"] - base / 2**30,
+             carried=carried, describe=described[0] if described else None,
+             bytes=fsdp.state_bytes_per_device(state))
+    if state.fsdp is not None and len(gathers) < steps:
+        fail(f"{label}: {len(gathers)} gathers in {steps} steps", 1)
+    return r
+
+
+def _rank0() -> bool:
+    """This process is rank 0 of its torchrun (or runs alone)."""
+    return int(os.environ.get("RANK", 0)) == 0
+
+
+def _fsdp_line(label: str, r: dict, smi: str) -> None:
+    if not _rank0():
+        return
+    ms = r["gather_ms"]
+    gather = (f", gather {sum(ms[1:]) / max(len(ms) - 1, 1):.2f} ms a step over steps "
+              f"2-{len(ms)} ({', '.join(f'{v:.2f}' for v in ms)})" if ms else "")
+    print(f"{label}: {r['imgs_per_s']:.1f} imgs/s over steps 2-{len(r['losses'])}, state "
+          f"{r['bytes']['state_bytes_per_device'] / 2**20:.2f} MiB a card (params "
+          f"{r['bytes']['param_bytes_per_device'] / 2**20:.2f}, optimizer "
+          f"{r['bytes']['opt_bytes_per_device'] / 2**20:.2f}), allocated between steps "
+          f"{r['between_gib']:.3f} GiB, peak {r['peak_gib']:.3f} GiB (over what was held "
+          f"before){gather}, losses "
+          f"{r['losses']} ({smi})", flush=True)
+
+
+def _fsdp_equal(a: dict, b: dict, label: str) -> None:
+    """Fail unless two runs are equal bit for bit: losses, both models, the
+    optimizer's full state (a collective under fsdp), the generators."""
+    diff = _v3_states_differ(a["state"], b["state"])
+    if a["losses"] != b["losses"]:
+        diff.append(f"losses {a['losses']} != {b['losses']}")
+    if diff:
+        fail(f"{label}: the runs differ in {diff[:6]}", 1)
+    if _rank0():
+            print(f"{label}: equal bit for bit: {len(a['losses'])} losses, both encoders, "
+              "AdamW's moments and steps, the generators", flush=True)
+
+
+def _fsdp_legs(counters: dict, dataset, smi: str, batch: int, device, group,
+               ckpt_dir=None) -> dict:
+    """Phase 15's runs in the group: dp, then fsdp, each PHASE15_STEPS
+    steps of ViT-B/16 at `batch`, bit for bit; on more than one rank also
+    (b) fsdp_tp, (c) fsdp_tp with quantized int8 (the two-hop reduce) and,
+    with `ckpt_dir`, (d)'s fsdp run with quantized int8 that checkpoints
+    its last step."""
+    import torch
+
+    from moco_tpu_torch.parallel.mesh import world_size
+
+    n = world_size(group)
+    data = _Repeat(dataset, batch * (PHASE15_STEPS + 1))
+    out = {}
+    runs = {}
+    for name, kw in (("dp", {}), ("fsdp", dict(sharding="fsdp"))):
+        runs[name] = _fsdp_train(_phase15_config(batch, **kw), f"phase15 {name} {n} card(s)",
+                                 counters, data, PHASE15_STEPS, device)
+        _fsdp_line(f"phase15 {name} {n} card(s)", runs[name], smi)
+    _fsdp_equal(runs["fsdp"], runs["dp"], f"phase15 fsdp vs dp {n} card(s)")
+    ratio = (runs["fsdp"]["bytes"]["state_bytes_per_device"]
+             / runs["dp"]["bytes"]["state_bytes_per_device"])
+    if n > 1 and ratio > PHASE15_BYTES_RATIO:
+        fail(f"phase15: fsdp holds {ratio:.3f} of dp's state bytes a card, above "
+             f"{PHASE15_BYTES_RATIO}", 1)
+    for name, r in runs.items():
+        out[name] = {k: r[k] for k in ("losses", "imgs_per_s", "peak_gib", "between_gib",
+                                       "gather_ms", "bytes", "blur")}
+    out["state_bytes_ratio"] = ratio
+    if _rank0():
+        print(f"phase15 fsdp/dp state bytes a card: {ratio:.4f} ({smi})", flush=True)
+    if n == 1:
+        return out
+    dp = runs.pop("dp")
+    del runs
+    tp = _fsdp_train(_phase15_config(batch, sharding="fsdp_tp"), f"phase15 fsdp_tp {n} cards",
+                     counters, data, PHASE15_STEPS, device)
+    _fsdp_line(f"phase15 fsdp_tp {n} cards", tp, smi)
+    _fsdp_equal(tp, dp, f"phase15 fsdp_tp vs dp {n} cards")
+    out["fsdp_tp"] = {k: tp[k] for k in ("losses", "imgs_per_s", "peak_gib", "between_gib",
+                                         "gather_ms", "bytes")}
+    del tp
+    q = _fsdp_train(_phase15_config(batch, sharding="fsdp_tp", grad_sync="quantized"),
+                    f"phase15 fsdp_tp quantized {n} cards", counters, data, PHASE15_STEPS,
+                    device)
+    _fsdp_line(f"phase15 fsdp_tp quantized {n} cards", q, smi)
+    far = [(a, b) for a, b in zip(q["losses"], dp["losses"])
+           if abs(a - b) > PHASE15_QUANT_RTOL * max(abs(b), 1.0)]
+    if far:
+        fail(f"phase15: the two-hop quantized losses leave the JAX band of dp's: {far}", 1)
+    acc = max(float(v.abs().max()) for v in q["state"].gradsync.values())
+    hops = q["describe"].get("multihop")
+    if hops is None or not acc:
+        fail(f"phase15: fsdp_tp quantized ran no two-hop reduce (describe {q['describe']}, "
+             f"largest accumulator {acc})", 1)
+    if _rank0():
+        print(f"phase15 two-hop: intra (fsdp {hops['intra_size']}) {hops['intra_bytes_per_step']} "
+              f"B a step, inter (data {hops['inter_size']}) {hops['inter_bytes_per_step']} B, "
+              f"analytic {q['describe']['sync_bytes_per_step']} B, carried "
+              f"{q['describe']['carried_bytes_per_step']} B, carried in each step "
+              f"{q['carried']}; losses {q['losses']} against dp's {dp['losses']}, largest "
+              f"accumulator {acc:.4g} ({smi})", flush=True)
+    out["fsdp_tp_quantized"] = dict(losses=q["losses"], describe=q["describe"],
+                                    carried=q["carried"], max_acc=acc)
+    del q
+    if ckpt_dir is not None:
+        d = _fsdp_train(_phase15_config(batch, sharding="fsdp", grad_sync="quantized",
+                                        ckpt_dir=str(ckpt_dir), steps_per_epoch=PHASE15_STEPS),
+                        f"phase15 fsdp quantized {n} cards, checkpointed", counters, data,
+                        PHASE15_STEPS, device)
+        out["checkpoint"] = dict(step=d["state"].step, losses=d["losses"], max_acc=max(
+            float(v.abs().max()) for v in d["state"].gradsync.values()))
+        del d
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_fsdp(counters: dict, dataset, smi: str) -> dict:
+    """Phase 15 on one card: dp and fsdp (`imagenet-moco-v3-vitb`) in a
+    one-rank NCCL group, under deterministic cuDNN."""
+    import tempfile
+
+    import torch
+
+    from moco_tpu_torch.parallel.mesh import init_distributed, process_group, \
+        shutdown_distributed
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="moco_nccl_") as tmp:
+            device = init_distributed("cuda", rank=0, world_size=1,
+                                      init_method=f"file://{Path(tmp) / 'store'}")
+            try:
+                return _fsdp_legs(counters, dataset, smi, PHASE15_BATCH, device,
+                                  process_group())
+            finally:
+                shutdown_distributed()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def fsdp_across_cards(counters: dict, dataset, smi: str) -> dict:
+    """`--phase15` under torchrun: (a)-(c) over every card, (d)'s
+    checkpoint, then (d) itself: rank 0 launches `--phase15d` under a
+    two-process torchrun on cards 0 and 1 once the group has ended."""
+    import tempfile
+
+    import torch
+
+    from moco_tpu_torch.parallel.mesh import init_distributed, process_group, \
+        shutdown_distributed
+
+    import shutil
+
+    import torch.distributed as dist
+
+    torch.backends.cudnn.deterministic = True
+    is_main = _rank0()
+    device = init_distributed("cuda")
+    group = process_group()
+    try:
+        # rank 0's directory, for every rank
+        names = [None] * dist.get_world_size(group)
+        dist.all_gather_object(names, tempfile.mkdtemp(prefix="moco_phase15_") if is_main
+                               else None, group=group)
+        ckpt_dir = Path(names[0])
+        out = _fsdp_legs(counters, dataset, smi, PHASE15_RANK_BATCH * len(names), device,
+                         group, ckpt_dir=ckpt_dir)
+    finally:
+        shutdown_distributed()
+    if not is_main:
+        return out
+    env = {k: v for k, v in os.environ.items()
+           if k not in TORCHRUN_ENV and not k.startswith("TORCHELASTIC_")}
+    env["CUDA_VISIBLE_DEVICES"] = "0,1"
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", "2", str(ROOT / "chip_smoke.py"), "--phase15d",
+                           str(ckpt_dir)], env=env, capture_output=True, text=True,
+                          timeout=600)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(proc.stdout[-6000:], proc.stderr[-4000:], sep="\n", flush=True)
+    if proc.returncode:
+        fail(f"phase15 (d): the two-rank restore exited {proc.returncode}", 1)
+    out["restore_2_ranks"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    return out
+
+
+def fsdp_restore_check(ckpt_dir: Path) -> dict:
+    """`--phase15d DIR` under a two-process torchrun: (d), the four-rank
+    fsdp checkpoint of `DIR` restored by a two-rank fsdp run through
+    `train.train` (no step taken): both encoders bit for bit with the saved
+    ones, the accumulators zero, the `ckpt-dialect` event of the world-size
+    change logged."""
+    import torch
+
+    from moco_tpu_torch import train
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.parallel.mesh import init_distributed, process_group, rank, \
+        shutdown_distributed, world_size
+    from moco_tpu_torch.utils import logging as mlog
+
+    events = []
+    device = init_distributed("cuda")
+    try:
+        group = process_group()
+        payload = torch.load(ckpt_dir / str(PHASE15_STEPS) / "state.pt", map_location="cpu",
+                             weights_only=True)
+        batch = PHASE15_RANK_BATCH * 4
+        config = _phase15_config(batch, sharding="fsdp", grad_sync="quantized",
+                                 ckpt_dir=str(ckpt_dir), resume="auto",
+                                 steps_per_epoch=PHASE15_STEPS)
+
+        def sink(kind, msg, fields):
+            events.append((kind, msg))
+
+        mlog.add_event_sink(sink)
+        try:
+            state, _ = train.train(config, max_steps=PHASE15_STEPS, device=device,
+                                   dataset=_Repeat(SyntheticDataset(64, image_size=224),
+                                                   (PHASE15_STEPS + 1) * batch))
+        finally:
+            mlog.remove_event_sink(sink)
+        diff = [f"{name}.{k}" for name in ("model_q", "model_k")
+                for k, v in getattr(state, name).state_dict().items()
+                if not torch.equal(v.cpu(), payload[name][k])]
+        acc = max(float(v.abs().max()) for v in state.gradsync.values())
+        saved_acc = max(float(v.abs().max()) for v in payload["gradsync"]["acc"].values())
+        dialect = [m for k, m in events if k == "ckpt-dialect"]
+        # the event is rank 0's to log
+        if diff or acc or not saved_acc or state.step != PHASE15_STEPS or (
+                rank(group) == 0 and not dialect):
+            fail(f"phase15 (d): the 2-rank restore differs in {diff[:6]}, largest accumulator "
+                 f"{acc} (saved {saved_acc}), step {state.step}, ckpt-dialect events "
+                 f"{dialect}", 1)
+        return dict(ranks=world_size(group), step=state.step, saved_max_acc=saved_acc,
+                    event=dialect[0] if dialect else None,
+                    shard_bytes=state.fsdp is not None and sum(
+                        t.numel() * t.element_size() for t in state.fsdp.shards.values()))
+    finally:
+        shutdown_distributed()
+
+
 def _obsd_text(url: str) -> str:
     import urllib.request
 
@@ -4884,6 +5215,32 @@ def main() -> None:
         print(smi)
         print(json.dumps({"phase10": r}, default=str))
         return
+    if "--phase15d" in sys.argv[1:]:
+        # phase 15's (d) under a two-process torchrun, started by --phase15's rank 0
+        r = fsdp_restore_check(Path(sys.argv[sys.argv.index("--phase15d") + 1]))
+        if int(os.environ.get("RANK", 0)) == 0:
+            print(json.dumps(r, default=str))
+        return
+    if "--phase15" in sys.argv[1:]:
+        # phase 15 alone: under `torchrun --nproc-per-node <cards> chip_smoke.py
+        # --phase15` (a)-(d) across the cards, else the one-card run
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        dataset = SyntheticDataset(num_samples=STEPS * BATCH, image_size=224)
+        if "WORLD_SIZE" in os.environ:
+            r = fsdp_across_cards(counters, dataset, smi)
+            if int(os.environ.get("RANK", 0)) == 0:
+                cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                        "--format=csv,noheader"], capture_output=True,
+                                       text=True, timeout=60, check=True).stdout.split("\n")
+                print(json.dumps({"phase15": r, "cards": [c.strip() for c in cards
+                                                          if c.strip()]}, default=str))
+            return
+        r = run_fsdp(counters, dataset, smi)
+        print(smi)
+        print(json.dumps({"phase15": r}, default=str))
+        return
     if "--phase7" in sys.argv[1:]:
         # phase 7 alone, across every card: under
         # `torchrun --nproc-per-node <cards> chip_smoke.py --phase7`
@@ -4916,6 +5273,7 @@ def main() -> None:
     run_resilience(counters, dataset, smi)
     run_supervised(counters, smi)
     run_sync_bn_and_service(counters, smi)
+    run_fsdp(counters, dataset, smi)
     del dataset
     print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
           f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "

@@ -24,7 +24,12 @@ the accumulators, or fresh zeros, with a logged event, when the checkpoint
 has none (PRs 10-11), has another mode's, or was saved at another world
 size. A restore with no step walks back from the newest step past any that
 fails its manifest or its load. Restore loads onto the device of the state
-it fills.
+it fills. Under `sharding="fsdp"|"fsdp_tp"` (`parallel/fsdp.py`) the state on
+disk is the dp state's logical tree: a save gathers the full parameters
+and optimizer state (every process calls it) and releases them after, and
+a restore keeps this process's slices, at any world size and from any
+mode; the sidecar's `sharding` stamp (`read_recorded_sharding`) records the
+mode the state was saved under, as the JAX package's does.
 
 Asynchronous saves. `save_checkpoint(..., wait=False)` writes the position
 sidecar first, then snapshots the state into pinned host memory with
@@ -53,6 +58,7 @@ state. `.safetensors` needs the `safetensors` package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -162,11 +168,14 @@ def checkpoint_manager(directory: str, max_to_keep: int = 3) -> CheckpointManage
 
 
 def write_position(directory: str, step: int, position: tuple[int, int] | None,
-                   devices: int | None = None) -> None:
+                   devices: int | None = None, sharding: str | None = None) -> None:
     """Record the data-stream position `(epoch, next_batch_index)` a run
-    restored from `step` resumes at (atomically), and `devices`, the number
-    of processes the state was saved under (the JAX package's mesh-size
-    stamp). Absent or unreadable, a resume falls back to step arithmetic."""
+    restored from `step` resumes at (atomically), `devices`, the number of
+    processes the state was saved under (the JAX package's mesh-size stamp),
+    and `sharding`, the mode it was saved under (a mode change at the same
+    world size leaves the accumulators' shapes as they were, so the driver
+    reads this stamp to restart them from zeros). Absent or unreadable, a
+    resume falls back to step arithmetic."""
     if position is None:
         return
     path = position_path(directory, step)
@@ -174,6 +183,8 @@ def write_position(directory: str, step: int, position: tuple[int, int] | None,
     payload = {"epoch": int(position[0]), "batch": int(position[1])}
     if devices is not None:
         payload["devices"] = int(devices)
+    if sharding is not None:
+        payload["sharding"] = str(sharding)
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         json.dump(payload, f)
@@ -204,6 +215,15 @@ def read_recorded_devices(directory: str, step: int) -> int | None:
         return int(_read_sidecar(directory, step)["devices"])
     except (KeyError, TypeError, ValueError):
         return None
+
+
+def read_recorded_sharding(directory: str, step: int) -> str | None:
+    """The sharding mode `step` was saved under; None when its sidecar has
+    no stamp (a checkpoint from before it: the driver takes it as "dp") or
+    cannot be read."""
+    d = _read_sidecar(directory, step)
+    mode = d.get("sharding") if d is not None else None
+    return str(mode) if mode is not None else None
 
 
 def _prune_sidecars(mgr: CheckpointManager) -> None:
@@ -359,10 +379,20 @@ def _load_gradsync(state, saved: dict | None, step: int, group) -> None:
 def load_state(state, payload: dict, group=None):
     """Fill `state` in place from a `state_payload` (on the state's
     device), bit for bit; returns it. `group` is the process group whose
-    rank picks this process's accumulators."""
+    rank picks this process's accumulators. An fsdp state takes its slices
+    of the full parameters (and the optimizer its slices of the state)."""
     _check_payload(state, payload)
-    state.model_q.load_state_dict(payload["model_q"])
-    state.model_k.load_state_dict(payload["model_k"])
+    plan = getattr(state, "fsdp", None)
+    if plan is not None:
+        plan.materialize()
+    try:
+        state.model_q.load_state_dict(payload["model_q"])
+        state.model_k.load_state_dict(payload["model_k"])
+        if plan is not None:
+            plan.reshard()
+    finally:
+        if plan is not None:
+            plan.release()
     state.optimizer.load_state_dict(payload["optimizer"])
     if state.queue is not None:
         with torch.no_grad():
@@ -378,35 +408,39 @@ def load_state(state, payload: dict, group=None):
 
 def save_checkpoint(mgr: CheckpointManager, state, step: int,
                     position: tuple[int, int] | None = None, devices: int | None = None,
-                    group=None, wait: bool = True) -> None:
+                    group=None, wait: bool = True, sharding: str | None = None) -> None:
     """Save `state` as step `step`: its position sidecar (with the
-    `devices` stamp), then the state, then the integrity manifest; then
-    drop the sidecars of pruned steps. In a process group every process
-    gathers its accumulators and momentum slices to the payload, rank 0
-    writes, and every process waits at a barrier until it has.
+    `devices` and `sharding` stamps), then the state, then the integrity
+    manifest; then drop the sidecars of pruned steps. In a process group
+    every process gathers its accumulators, momentum slices and (fsdp) its
+    parameter shards to the payload, rank 0 writes, and every process waits
+    at a barrier until it has.
 
     `wait=False` returns once the state's copies are queued (see the module
     docstring): the payload is written on a thread and the manifest, the
     sidecar pruning and the barrier wait for the next save or
     `finalize_checkpoints`. A pending save is finalized first either way."""
     finalize_checkpoints(mgr, group)
-    optimizer = state.optimizer.state_dict()
-    gradsync = gather_gradsync(state, group)
-    if group is None or dist.get_rank(group) == 0:
-        write_position(mgr.directory, step, position, devices)
-        if wait:
-            mgr.save(step, state_payload(state, optimizer, gradsync))
-            write_manifest(mgr.directory, step)
-            _prune_sidecars(mgr)
-        else:
-            payload = state_payload(state, optimizer, gradsync, non_blocking=True)
-            ready = None
-            device = next(state.model_q.parameters()).device
-            if device.type == "cuda":
-                ready = torch.cuda.Event()
-                # behind every copy queued on the stream the next step runs on
-                ready.record(torch.cuda.current_stream(device))
-            mgr.save_async(step, payload, ready)
+    plan = getattr(state, "fsdp", None)
+    full = plan.gathered() if plan is not None else contextlib.nullcontext()
+    with full:  # the copies below are queued before the full storage is released
+        optimizer = state.optimizer.state_dict()
+        gradsync = gather_gradsync(state, group)
+        if group is None or dist.get_rank(group) == 0:
+            write_position(mgr.directory, step, position, devices, sharding)
+            if wait:
+                mgr.save(step, state_payload(state, optimizer, gradsync))
+                write_manifest(mgr.directory, step)
+                _prune_sidecars(mgr)
+            else:
+                payload = state_payload(state, optimizer, gradsync, non_blocking=True)
+                ready = None
+                device = next(state.model_q.parameters()).device
+                if device.type == "cuda":
+                    ready = torch.cuda.Event()
+                    # behind every copy queued on the stream the next step runs on
+                    ready.record(torch.cuda.current_stream(device))
+                mgr.save_async(step, payload, ready)
     if not wait:
         mgr.pending_manifest = step
     elif group is not None:

@@ -12,11 +12,12 @@ that `ckpt_dir` defaults to "" (no checkpoints unless asked for) in both
 configs, so a run writes nothing into its working directory by default,
 and that `shuffle_mode`, `grad_allreduce_dtype`, `optimizer` and
 `crop_min` are checked here (the JAX package checks them where they are used). The
-gradient-sync knobs and `zero_sharding` carry the JAX package's checks and
-messages; its rule that `zero_sharding` excludes `sharding != "dp"` waits
-for FSDP (`sharding`), which the port does not have yet. `zero_sharding`
-splits the state of every optimizer (SGD, AdamW, LARS), as the JAX package
-shards any optax state.
+gradient-sync knobs, `zero_sharding`, `sharding` and `sharding_axis_size`
+carry the JAX package's checks and messages, its rule that `zero_sharding`
+excludes `sharding != "dp"` included. `zero_sharding` splits the state of
+every optimizer (SGD, AdamW, LARS), as the JAX package shards any optax
+state; `sharding="fsdp"|"fsdp_tp"` shards the v3 step's parameters and
+optimizer state (`parallel/fsdp.py`).
 The telemetry, tracing, learning-health and resilience fields carry the
 JAX package's defaults and checks. The port adds checks of its own to the
 resilience knobs, which the JAX package leaves unchecked: `max_rollbacks`,
@@ -76,6 +77,17 @@ class PretrainConfig:
     zero_sharding: bool = False       # ZeRO-1: the optimizer's state split 1/n over the
                                       # processes
                                       # (parallel/zero.py)
+    sharding: str = "dp"              # "dp" (parameters whole on every process) | "fsdp"
+                                      # (v3 only: parameters and optimizer state split
+                                      # 1/n over every process, gathered on use;
+                                      # parallel/fsdp.py) | "fsdp_tp" (split over an
+                                      # inner group of sharding_axis_size processes,
+                                      # whole across the groups; quantized grad_sync
+                                      # becomes the two-hop reduce)
+    sharding_axis_size: int = 0       # the inner (fsdp) group's size for fsdp_tp; 0 =
+                                      # derive (every process for fsdp, the largest
+                                      # proper divisor for fsdp_tp). Must divide the
+                                      # number of processes.
     # data
     dataset: str = "synthetic"        # synthetic | synthetic_texture | cifar10 | imagefolder
     data_dir: str = ""
@@ -221,6 +233,23 @@ class PretrainConfig:
         if self.shuffle_mode not in ("permute", "ring"):
             raise ValueError(f"unknown shuffle_mode {self.shuffle_mode!r}; choose from "
                              "permute/ring")
+        # the sharding knobs: literals kept in step with parallel/mesh.SHARDING_MODES
+        if self.sharding not in ("dp", "fsdp", "fsdp_tp"):
+            raise ValueError(f"unknown sharding {self.sharding!r}; choose from "
+                             "dp/fsdp/fsdp_tp")
+        if self.sharding != "dp" and self.variant != "v3":
+            raise ValueError(
+                f"sharding={self.sharding!r} requires variant='v3': the queue-based v1/v2 "
+                "step needs the replicated queue's identical-enqueue invariant (and its "
+                "encoders fit per-chip) — FSDP targets the queue-free large-batch v3 regime")
+        if self.sharding_axis_size < 0:
+            raise ValueError(f"sharding_axis_size must be >= 0, got "
+                             f"{self.sharding_axis_size}")
+        if self.sharding != "dp" and self.zero_sharding:
+            raise ValueError(
+                "zero_sharding and sharding=fsdp/fsdp_tp are mutually exclusive: fsdp "
+                "already shards the optimizer state over the fsdp axis — re-placing it with "
+                "the ZeRO-1 data-axis layout would silently re-replicate the shards")
         if self.collective_chunks < 1:
             raise ValueError(f"collective_chunks must be >= 1, got {self.collective_chunks}")
         if self.grad_sync not in ("fused", "bucketed", "quantized", "demo"):

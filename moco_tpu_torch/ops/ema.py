@@ -17,9 +17,13 @@ from torch import nn
 
 
 @torch.no_grad()
-def ema_update(model_k: nn.Module, model_q: nn.Module, momentum: float) -> None:
+def ema_update(model_k: nn.Module, model_q: nn.Module, momentum: float,
+               local=None) -> None:
     """In place over the key encoder's parameters: `p_k <- m * p_k + (1 - m)
-    * p_q`, with `p_q` the query parameter of the same name."""
+    * p_q`, with `p_q` the query parameter of the same name. `local(p)`
+    names the tensor that holds `p` (`parallel/fsdp.py`: a process's shard
+    of a split parameter); the update is elementwise, so on shards it is the
+    update of the whole parameters, bit for bit."""
     q = dict(model_q.named_parameters())
     names = [n for n, _ in model_k.named_parameters()]
     missing = [n for n in names if n not in q]
@@ -28,6 +32,8 @@ def ema_update(model_k: nn.Module, model_q: nn.Module, momentum: float) -> None:
                          "encoder")
     pk = [p for _, p in model_k.named_parameters()]
     pq = [q[n] for n in names]
+    if local is not None:
+        pk, pq = [local(p) for p in pk], [local(p) for p in pq]
     torch._foreach_mul_(pk, momentum)
     torch._foreach_add_(pk, torch._foreach_mul(pq, 1.0 - momentum))
 

@@ -1,7 +1,7 @@
 """ShuffleBN, the gathers and the gradient reduces across processes (port of
 `moco_tpu/parallel/collectives.py`: `all_gather_batch`, `batch_shuffle`,
-`batch_unshuffle`, `ring_shuffle`, `chained_psum`, `quantized_psum_mean`) on
-`torch.distributed`.
+`batch_unshuffle`, `ring_shuffle`, `chained_psum`, `quantized_psum_mean`,
+`multihop_quantized_psum_mean`) on `torch.distributed`.
 
 Every function takes the process group (`parallel/mesh.py`); `group=None`
 is one process, where the "global batch" is the local one and nothing is
@@ -23,6 +23,10 @@ communicated.
   segment (an all-reduce MAX of the stacked absmaxes), summed on an int32
   carrier, or bf16 summed in bf16; it returns the means and each process's
   own quantization error, in the JAX package's order of operations.
+- `multihop_quantized_mean` is `multihop_quantized_psum_mean`, the two-hop
+  reduce of the fsdp_tp layout: an exact f32 sum over the inner (fsdp)
+  group, then `quantized_mean` of those sums over the outer (data) group,
+  the means and errors divided by the inner group's size.
 - Why ShuffleBN exists: with per-process BatchNorm, a query and its
   positive key normalized in one group would share batch statistics and
   leak which sample is the positive. Shuffling the key batch across
@@ -160,11 +164,13 @@ def int8_scales(segments: list[torch.Tensor], group) -> torch.Tensor:
 
 class PendingMean:
     """A `quantized_mean` whose sum is on the wire; `wait()` returns its
-    `(means, errors)`."""
+    `(means, errors)`, each divided by `fan_in` too where it is not 1 (the
+    two-hop reduce's inner group)."""
 
     def __init__(self, work, summed, segments, qs, scales, n: int, wire_dtype: str):
         self.work, self.summed, self.segments, self.qs = work, summed, segments, qs
         self.scales, self.n, self.wire_dtype = scales, n, wire_dtype
+        self.fan_in = 1  # `multihop_quantized_mean` sets its inner group's size
 
     def wait(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
         if self.work is not None:
@@ -180,6 +186,9 @@ class PendingMean:
             else:
                 means.append(seg / self.n)
                 errs.append(s - q.float())
+        if self.fan_in != 1:
+            means = [m / self.fan_in for m in means]
+            errs = [e / self.fan_in for e in errs]
         return means, errs
 
 
@@ -212,4 +221,28 @@ def quantized_mean(segments: list[torch.Tensor], group, wire_dtype: str,
         raise ValueError(f"unknown quantized wire dtype {wire_dtype!r}")
     work, = all_reduce_buckets([flat], group)
     pending = PendingMean(work, flat, segments, qs, scales, n, wire_dtype)
+    return pending if async_op else pending.wait()
+
+
+def multihop_quantized_mean(segments: list[torch.Tensor], inter_group, intra_group,
+                            wire_dtype: str, async_op: bool = False):
+    """The two-hop mean over every rank of the fsdp_tp layout (the JAX
+    package's DynamiQ-style `multihop_quantized_psum_mean`): hop 1 sums the
+    f32 `segments` exactly over `intra_group` (the fast links inside a
+    node), hop 2 is `quantized_mean` of those sums over `inter_group` (the
+    slow links between nodes), with its shared scales and int32 carrier.
+    Returns `(means, errors)` as `quantized_mean` does, or a `PendingMean`.
+
+    The quantization acts on the intra SUM, which every member of an intra
+    group shares, so the raw residual belongs to the group: each member
+    keeps residual / n_intra, and the next step's exact hop 1 reassembles
+    the whole residual once (each member carrying all of it would feed it
+    back n_intra-fold). The means are the inter means / n_intra."""
+    n_intra = world_size(intra_group)
+    sizes = [s.numel() for s in segments]
+    flat = torch.cat(segments)
+    if intra_group is not None:
+        dist.all_reduce(flat, group=intra_group)
+    pending = quantized_mean(list(flat.split(sizes)), inter_group, wire_dtype, async_op=True)
+    pending.fan_in = n_intra
     return pending if async_op else pending.wait()

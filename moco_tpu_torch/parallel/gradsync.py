@@ -28,6 +28,14 @@ encoder's gradients over the process group:
   optimizer zero gradients, so SGD's momentum and weight decay still move
   the parameters, as in the JAX step.
 
+Under the fsdp_tp layout (`parallel/mesh.py::Layout`, both sizes above 1)
+`quantized` is the two-hop reduce of the JAX package's
+`GradSync.for_mesh`: each bucket is summed exactly in f32 over the fsdp
+group, then sent compressed over the data group
+(`collectives.multihop_quantized_mean`); `describe()` then carries the
+`multihop` block and `sync_bytes_per_step` counts both hops. The other
+modes reduce over the whole group, in the same order as without a layout.
+
 Buckets follow the reverse of the parameters' registration order, the order
 the backward makes their gradients final (DDP's order), not flax's
 alphabetical leaf order; they are launched strictly in that order, so every
@@ -56,7 +64,8 @@ import weakref
 import torch
 import torch.distributed as dist
 
-from moco_tpu_torch.parallel.collectives import all_reduce_buckets, quantized_mean
+from moco_tpu_torch.parallel.collectives import all_reduce_buckets, \
+    multihop_quantized_mean, quantized_mean
 from moco_tpu_torch.parallel.mesh import world_size
 
 GRAD_SYNC_MODES = ("fused", "bucketed", "quantized", "demo")
@@ -114,16 +123,21 @@ class _Bucket:
 
 class GradSync:
     """One gradient-sync strategy over `group` (None: one process, for
-    `attach` and `describe`). The step calls `start(state)` before the
-    backward and `finish(state)` after it; then every gradient of the query
-    encoder is the synced one."""
+    `attach` and `describe`), told the fsdp_tp `layout` of that group where
+    there is one. The step calls `start(state)` before the backward and
+    `finish(state)` after it; then every gradient of the query encoder is
+    the synced one."""
 
-    def __init__(self, config, group):
+    def __init__(self, config, group, layout=None):
         self.mode = config.grad_sync
         if self.mode not in GRAD_SYNC_MODES:
             raise ValueError(f"unknown grad_sync {self.mode!r}; choose from {GRAD_SYNC_MODES}")
         self.group = group
         self.n = world_size(group)
+        self.layout = layout
+        # the two-hop reduce: quantized with both axes of the layout above 1
+        self.multihop = (self.mode == "quantized" and layout is not None
+                         and layout.data > 1 and layout.fsdp > 1)
         self.allreduce_dtype = config.grad_allreduce_dtype
         leaf_wire_dtype(torch.float32, self.allreduce_dtype)  # checked at build
         self.bucket_bytes = int(float(config.grad_sync_bucket_mb) * 2**20)
@@ -190,10 +204,29 @@ class GradSync:
             info["buckets"] = len(self._bucket_plan())
         if self.mode == "quantized":
             info["quant_dtype"] = self.quant_dtype
+        if self.multihop:
+            # the exact hop rides the fsdp (inner) group, the compressed hop
+            # the data (outer) one
+            info["multihop"] = {
+                "intra_axis": "fsdp", "intra_size": self.layout.fsdp,
+                "inter_axis": "data", "inter_size": self.layout.data,
+                "intra_bytes_per_step": self._hop_bytes("intra"),
+                "inter_bytes_per_step": self._hop_bytes("inter"),
+            }
         if self.mode == "demo":
             info["cadence"] = self.cadence
             info["topk"] = self.topk
         return info
+
+    def _hop_bytes(self, hop: str) -> int:
+        """One process's wire bytes of one hop of the two-hop reduce:
+        `intra`, the exact f32 sum; `inter`, the compressed payload and the
+        int8 scales."""
+        size = sum(p.size for p in self._plans)
+        if hop == "intra":
+            return 4 * size
+        inter = size * (1 if self.quant_dtype == "int8" else 2)
+        return inter + (4 * len(self._plans) if self.quant_dtype == "int8" else 0)
 
     def sync_bytes_per_step(self) -> int:
         """The JAX package's analytic wire payload of one process a step:
@@ -209,14 +242,18 @@ class GradSync:
                 total += p.size * leaf_wire_dtype(p.dtype, self.allreduce_dtype).itemsize
         if self.mode == "quantized" and self.quant_dtype == "int8":
             total += 4 * len(self._plans)
+        if self.multihop:
+            total += self._hop_bytes("intra")  # the exact hop is wire traffic too
         return total
 
     def carried_bytes_per_step(self) -> float:
         """What this process hands its collectives a step: the int8
-        payload on its int32 carrier (plus the f32 absmaxes of the MAX), the
-        DeMo buffer averaged over the cadence; else the analytic bytes."""
+        payload on its int32 carrier (plus the f32 absmaxes of the MAX, and
+        the exact f32 hop of the two-hop reduce), the DeMo buffer averaged
+        over the cadence; else the analytic bytes."""
+        intra = self._hop_bytes("intra") if self.multihop else 0
         if self.mode == "quantized" and self.quant_dtype == "int8":
-            return 4 * sum(p.size for p in self._plans) + 4 * len(self._plans)
+            return 4 * sum(p.size for p in self._plans) + 4 * len(self._plans) + intra
         if self.mode == "demo":
             return 8 * sum(p.k for p in self._plans) / self.cadence
         return self.sync_bytes_per_step()
@@ -299,8 +336,14 @@ class GradSync:
             return
         segs = [g.reshape(-1).float() + self._acc[p.name].reshape(-1)
                 for p, g in zip(b.plans, grads)]
-        b.pending = quantized_mean(segs, self.group, self.quant_dtype, async_op=True)
         size = sum(p.size for p in b.plans)
+        if self.multihop:
+            b.pending = multihop_quantized_mean(segs, self.layout.data_group,
+                                                self.layout.fsdp_group, self.quant_dtype,
+                                                async_op=True)
+            self.last_bytes += 4 * size
+        else:
+            b.pending = quantized_mean(segs, self.group, self.quant_dtype, async_op=True)
         self.last_bytes += (4 * size + 4 * len(segs) if self.quant_dtype == "int8"
                             else 2 * size)
 

@@ -13,6 +13,17 @@ takes the place of per-device BN.
   network beyond localhost.
 - A world size of 1 with no `init_method` creates no group: the plain
   one-process path.
+
+The 2-D layout of `sharding="fsdp"|"fsdp_tp"` (the JAX package's
+`create_mesh_2d`, `default_fsdp_size`, `mesh_for_config`): the world's n
+ranks form M data replicas of K ranks each (M * K = n). Rank r sits at
+`(r // K, r % K)`, the order in which `create_mesh_2d` reshapes the flat
+device list, so a `(1, n)` layout reduces over the same ranks in the same
+order as the 1-D group. `layout_for_config` gives `(M, K)` and raises the
+JAX package's errors; `build_layout` makes the subgroups of a process
+group: the fsdp group (K consecutive ranks, over which parameters are
+split and gathered) and the data group (ranks `f, f + K, ...`, the
+replicas of one shard).
 """
 
 from __future__ import annotations
@@ -24,6 +35,8 @@ import torch
 import torch.distributed as dist
 
 from moco_tpu_torch.utils.device import resolve_device
+
+SHARDING_MODES = ("dp", "fsdp", "fsdp_tp")
 
 
 def process_group():
@@ -113,3 +126,69 @@ def shutdown_distributed() -> None:
     """Leave the process group, if this process joined one."""
     if process_group() is not None:
         dist.destroy_process_group()
+
+
+def default_fsdp_size(sharding: str, n_devices: int) -> int:
+    """The fsdp group's size a `sharding_axis_size=0` config resolves to:
+    every rank for fsdp; for fsdp_tp the largest proper divisor (4 ranks ->
+    data 2 x fsdp 2, 8 -> 2 x 4), a placeholder for the real intra-node
+    group size that `sharding_axis_size` pins."""
+    if sharding == "fsdp":
+        return n_devices
+    for d in range(n_devices // 2, 0, -1):
+        if n_devices % d == 0:
+            return d
+    return 1
+
+
+def layout_for_config(config, world: int) -> tuple[int, int]:
+    """`(data, fsdp)`: the replicas and the ranks a parameter is split over
+    that `config.sharding` asks of `world` ranks; dp is `(world, 1)`.
+    Raises ValueError, with the JAX package's messages, for an fsdp request
+    of a sub-group and for a group size that does not divide `world`."""
+    mode = config.sharding
+    if mode == "dp":
+        return world, 1
+    fsdp_size = int(config.sharding_axis_size) or default_fsdp_size(mode, world)
+    if mode == "fsdp" and fsdp_size != world:
+        raise ValueError(
+            f"sharding='fsdp' shards over ALL {world} devices; "
+            f"sharding_axis_size={fsdp_size} asks for a sub-group — that "
+            "is the fsdp_tp hybrid, say so explicitly")
+    if fsdp_size < 1 or world % fsdp_size != 0:
+        raise ValueError(f"fsdp axis size {fsdp_size} must divide the device count {world}")
+    return world // fsdp_size, fsdp_size
+
+
+class Layout:
+    """The 2-D layout of one process group: `data` replicas of `fsdp`
+    ranks. `fsdp_group` and `data_group` are this rank's subgroups (None
+    where one has a single rank, `group` itself where it spans it);
+    `fsdp_rank` is this rank's index in its fsdp group."""
+
+    def __init__(self, data: int, fsdp: int, fsdp_group, data_group, fsdp_rank: int):
+        self.data, self.fsdp = data, fsdp
+        self.fsdp_group, self.data_group, self.fsdp_rank = fsdp_group, data_group, fsdp_rank
+
+
+def build_layout(config, group) -> Layout | None:
+    """The layout of `config.sharding` over `group`, its subgroups made
+    (None for dp, or with no group: the one-process step). Every rank
+    creates every subgroup, in the same order (`dist.new_group` is a
+    collective of the whole world), on gloo and on NCCL."""
+    if config.sharding == "dp" or group is None:
+        return None
+    n, r = world_size(group), rank(group)
+    data, fsdp = layout_for_config(config, n)
+
+    def subgroups(members: list[list[int]], size: int):
+        mine = None
+        for ranks in members:
+            g = group if size == n else dist.new_group(ranks) if size > 1 else None
+            if r in ranks:
+                mine = g
+        return mine
+
+    fsdp_group = subgroups([list(range(d * fsdp, (d + 1) * fsdp)) for d in range(data)], fsdp)
+    data_group = subgroups([list(range(f, n, fsdp)) for f in range(fsdp)], data)
+    return Layout(data, fsdp, fsdp_group, data_group, r % fsdp)

@@ -35,8 +35,10 @@ Request file: `key=value` pairs, whitespace- or comma-separated, e.g.
 `devices=2 grad_sync_cadence=4`, or an empty file ("resize to whatever is
 visible now"). `slow=1` flags the new cards as slowly linked without naming
 a cadence; the supervisor then applies its `--resize-slow-cadence`.
-`sharding=` parses as in the JAX package; the driver has no `--sharding`
-yet, so such a relaunch exits 2 at argparse and the supervisor reverts it.
+`sharding=` parses as in the JAX package and the relaunch argv gains
+`--sharding <mode>`: `train.main` checks that layout against the new
+count before any rendezvous (EXIT_CONFIG_ERROR when it cannot divide it),
+and the restore takes its slices of the state in the new mode.
 Consumption renames the file to `resize.request.honored` (atomic), so a
 stale request can never fire again in the next incarnation.
 

@@ -159,17 +159,19 @@ def param_drift(params_q, params_k, step: int, stride: int) -> dict[str, torch.T
 
 
 @torch.no_grad()
-def crush_key_params(model_k: torch.nn.Module) -> torch.nn.Module:
+def crush_key_params(model_k: torch.nn.Module, local=None) -> torch.nn.Module:
     """Rewrite `model_k`'s parameters in place so that its forward maps
     EVERY input to one constant feature: kernels (parameters of two or more
     dims) and normalization scales (the 1-D `weight`s, flax's `scale`)
     zeroed, the remaining 1-D parameters (biases) set to one, as the JAX
     package's `crush_key_params` does to a flax tree. BN running statistics
     are left alone. The drill re-applies it after every step: it models a
-    persistently wedged momentum update."""
+    persistently wedged momentum update. `local(p)` names the tensor that
+    holds `p` (an fsdp process's shard of it)."""
     for name, p in model_k.named_parameters():
+        held = p if local is None else local(p)
         if name.rsplit(".", 1)[-1] == "weight" and p.ndim == 1 or p.ndim != 1:
-            p.zero_()
+            held.zero_()
         else:
-            p.fill_(1.0)
+            held.fill_(1.0)
     return model_k

@@ -114,7 +114,7 @@ class RunTelemetry:
             steps_per_epoch=steps_per_epoch,
             n_chips=n_chips,
             n_procs=n_procs,
-            sharding="dp",
+            sharding=getattr(config, "sharding", "dp"),
             device_kind=kind,
             peak_flops_per_chip=self.mfu.peak_flops_per_chip,
             flops_per_step=self.mfu.flops_per_step,
@@ -300,17 +300,3 @@ def health_block(health_dev: dict, metrics: dict) -> dict:
     block = {k.removeprefix("h_"): round(float(v), 6) for k, v in values.items()}
     block["acc1"] = round(float(values["acc1"]), 4)
     return block
-
-
-def state_bytes_per_device(state) -> dict:
-    """Bytes this process holds of both encoders' parameters and of the
-    optimizer's state (its ZeRO-1 slices under `zero_sharding`)."""
-
-    def nbytes(tensors) -> int:
-        return sum(t.numel() * t.element_size() for t in tensors)
-
-    params_b = nbytes(state.model_q.parameters()) + nbytes(state.model_k.parameters())
-    opt_b = nbytes(v for s in state.optimizer.state.values() for v in s.values()
-                   if isinstance(v, torch.Tensor))
-    return {"param_bytes_per_device": params_b, "opt_bytes_per_device": opt_b,
-            "state_bytes_per_device": params_b + opt_b}

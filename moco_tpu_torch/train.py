@@ -21,7 +21,14 @@ baseline); every process restores.
 `grad_sync` picks the gradient sync of a process group (fused, bucketed,
 quantized, demo; `parallel/gradsync.py`) and `zero_sharding` splits the
 optimizer's state over it (`parallel/zero.py`); rank 0 prints the sync's bytes a
-step once at the start.
+step once at the start. `sharding` (`--sharding fsdp|fsdp_tp`, with
+`--sharding-axis-size K` for fsdp_tp) splits a v3 run's parameters and
+optimizer state over the group, or over inner groups of K ranks
+(`parallel/fsdp.py`): the state is placed after it is built and before any
+restore; `main` checks the layout against the number of ranks before any
+rendezvous; a checkpoint saved under another mode at the same world size
+restarts the gradient sync's accumulators from zeros (the sidecar's
+`sharding` stamp says which mode it was).
 
 Builds the dataset the config names (wrapped in the decode-once cache when
 `input_cache_mb` > 0; with `input_prestage` the pre-staged epoch cache of
@@ -115,7 +122,8 @@ import torch
 
 from moco_tpu_torch.checkpoint import checkpoint_manager, export_encoder_q, \
     export_v3_backbone, export_vit_encoder, finalize_checkpoints, maybe_resume, \
-    read_position, read_recorded_devices, resume_dir, save_checkpoint
+    read_position, read_recorded_devices, read_recorded_sharding, resume_dir, \
+    save_checkpoint
 from moco_tpu_torch.config import PretrainConfig, add_config_flags, collect_overrides, \
     get_preset, preset_names
 from moco_tpu_torch.data.augment import aug_config_for, two_crops
@@ -127,11 +135,12 @@ from moco_tpu_torch.data.service.client import ServiceConfigError, service_epoch
 from moco_tpu_torch.data.service.prestage import PrestagedDataset
 from moco_tpu_torch.evals.knn import build_feature_fn, encode_dataset
 from moco_tpu_torch.ops.knn import knn_accuracy
+from moco_tpu_torch.parallel.fsdp import place_state, state_bytes_per_device
 from moco_tpu_torch.parallel.gradsync import GradSync
 from moco_tpu_torch.parallel.launch import ENV_INIT_METHOD, join_launcher, exit_with, \
     launch, strip_device_flag
-from moco_tpu_torch.parallel.mesh import init_distributed, local_batch_size, process_group, \
-    rank, shutdown_distributed, topology, world_size
+from moco_tpu_torch.parallel.mesh import build_layout, init_distributed, layout_for_config, \
+    local_batch_size, process_group, rank, shutdown_distributed, topology, world_size
 from moco_tpu_torch.resilience.chaos import active_chaos, clear_chaos, install_chaos, \
     parse_chaos_spec
 from moco_tpu_torch.resilience.errors import CollapseError, DataQualityError, \
@@ -370,6 +379,7 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
     world, me = world_size(group), rank(group)
     is_main = me == 0
     local_b = local_batch_size(config.batch_size, world)
+    n_data, n_fsdp = layout_for_config(config, world)  # raises for a layout world cannot take
     if config.knn_monitor and config.knn_every_epochs < 1:
         raise ValueError(f"knn_every_epochs must be >= 1 (got {config.knn_every_epochs}); "
                          "disable the monitor with knn_monitor=False instead")
@@ -453,20 +463,41 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
         # shard_opt_state after the resume)
         state = create_train_state(config, build_encoder(config, group=group), dev,
                                    seed=config.seed, group=group)
+        # the fsdp layout's subgroups (every rank makes every one); None for dp
+        layout = build_layout(config, group)
         # the gradient sync's per-process accumulators, attached before any
-        # resume so that a restore fills them (or restarts them from zeros)
-        gradsync = GradSync(config, group)
+        # resume so that a restore fills them (or restarts them from zeros);
+        # told the layout, so that it describes the reduce the step runs
+        gradsync = GradSync(config, group, layout)
         gradsync.attach(state)
+        # fsdp: the parameters and optimizer state split before any restore,
+        # which then keeps this process's slices
+        state = place_state(state, config, layout)
         if group is not None:
             report(f"grad_sync: {gradsync.describe(state.model_q.named_parameters())}")
         mgr = checkpoint_manager(config.ckpt_dir) if config.ckpt_dir else None
         # every process restores the state, and its own accumulators
         state = maybe_resume(mgr, state, config.resume, group)
+        if gradsync.needs_state and state.step:
+            # a mode change at the same world size leaves the accumulators'
+            # shapes as they were, but they were accumulated under another
+            # reduce: the sidecar's stamp tells
+            recorded = read_recorded_sharding(resume_dir(mgr, config.resume),
+                                              state.step) or "dp"
+            if recorded != config.sharding:
+                if is_main:
+                    log_event("ckpt-dialect",
+                              f"step {state.step} was saved under sharding={recorded!r}, this "
+                              f"run uses {config.sharding!r} — discarding its gradsync "
+                              "accumulators: error-feedback/momentum state restarts from "
+                              "zeros")
+                for t in state.gradsync.values():
+                    t.zero_()
         if telemetry is not None:
             # the sync plan: mode, knobs, the JAX package's analytic bytes a step
             sync_plan = gradsync.describe(state.model_q.named_parameters())
             sync_plan.pop("carried_bytes_per_step")  # the port's own count, not in the schema
-            telemetry.set_grad_sync(dict(sync_plan, sharding="dp"))
+            telemetry.set_grad_sync(dict(sync_plan, sharding=config.sharding))
         # the state's bytes a device, recorded once its first step has made
         # the optimizer's buffers
         sharding_pending = telemetry is not None
@@ -509,7 +540,8 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
         # rank 0 reports and writes
         if config.knn_monitor and state.step == 0:
             # what random features score on the same data, before any step
-            acc0, is_val = knn_monitor(config, feature_fn, state, dataset, monitor_val)
+            with _full_params(state):
+                acc0, is_val = knn_monitor(config, feature_fn, state, dataset, monitor_val)
             tag0 = "knn_val_top1_untrained" if is_val else "knn_train_top1_untrained"
             history.append({"step": 0, tag0: acc0})
             report(f"Epoch [-1] kNN({'val' if is_val else 'train'}) top-1 {100 * acc0:.2f}% "
@@ -587,10 +619,11 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                     if telemetry is not None:
                         telemetry.timer.mark_dispatch()
                         if sharding_pending:
-                            from moco_tpu_torch.telemetry.run import state_bytes_per_device
-
                             sharding_pending = False
-                            telemetry.set_sharding(dict(mode="dp", mesh_shape={"data": world},
+                            mesh_shape = ({"data": world} if config.sharding == "dp"
+                                          else {"data": n_data, "fsdp": n_fsdp})
+                            telemetry.set_sharding(dict(mode=config.sharding,
+                                                        mesh_shape=mesh_shape,
                                                         **state_bytes_per_device(state)))
                         # stride-gated fence: the other steps stay asynchronous
                         telemetry.timer.maybe_fence(state.step, metrics["loss"],
@@ -663,7 +696,8 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                         if plan.maybe_collapse(state.step):
                             # every step from the onset: the EMA would heal a
                             # one-shot crush
-                            crush_key_params(state.model_k)
+                            crush_key_params(state.model_k, None if state.fsdp is None
+                                             else state.fsdp.local)
                         # after on_step, so the heartbeat records this step
                         plan.maybe_kill(state.step)
                         plan.maybe_freeze(state.step)
@@ -708,7 +742,7 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                 if telemetry is not None:
                     # a supervisor widens its staleness window for the eval
                     telemetry.phase_beat("eval", state.step)
-                with watchdog.suspended():  # minutes with no beat are no hang
+                with watchdog.suspended(), _full_params(state):  # no beat is no hang
                     acc, is_val = knn_monitor(config, feature_fn, state, dataset,
                                               monitor_val)
                 tag = "knn_val_top1" if is_val else "knn_train_top1"
@@ -726,7 +760,7 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                             else (epoch, next_batch))
                 # asynchronous: the write overlaps the next epoch's steps
                 save_checkpoint(mgr, state, state.step, position=position, devices=world,
-                                group=group, wait=False)
+                                group=group, wait=False, sharding=config.sharding)
             epoch, skip = epoch + 1, 0
             t_last += time.perf_counter() - t_pause  # the printed step time leaves these out
         if sentinel is not None:
@@ -759,9 +793,12 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
                       f"writing {'elastic' if resized else 'emergency'} checkpoint at step "
                       f"{state.step}, then exiting cleanly", step=state.step, pid=os.getpid())
             save_checkpoint(mgr, state, state.step, position=position, devices=world,
-                            group=group)
+                            group=group, sharding=config.sharding)
         history.append({"step": state.step, "resized" if resized else "preempted": True})
-    elif config.export_path and is_main:
+    if state.fsdp is not None:
+        # the full parameters for the export and the caller (every rank)
+        state.fsdp.gather()
+    if not (preempted or resized) and config.export_path and is_main:
         if config.variant == "v3":
             export_v3_backbone(state, config.export_path, config.image_size)
         elif config.arch.startswith("vit"):
@@ -770,6 +807,12 @@ def _train_once(config: PretrainConfig, max_steps: int | None, device, dataset, 
             export_encoder_q(state, config.export_path)
         print(f"exported encoder -> {config.export_path}", flush=True)
     return state, history
+
+
+def _full_params(state):
+    """The full parameters of an fsdp state for the body (gathered and
+    released by every rank), else nothing to do."""
+    return state.fsdp.gathered() if state.fsdp is not None else contextlib.nullcontext()
 
 
 def service_dataset_len(endpoints_spec) -> int:
@@ -857,6 +900,9 @@ def main(argv=None) -> None:
             _check_num_devices(args.num_devices, args.device)
         # the device and rank the group would take, before any rendezvous
         topology(args.device)
+        # and the sharding layout those ranks can take (a resize may have
+        # appended a --sharding the new count cannot divide)
+        layout_for_config(config, args.num_devices or int(os.environ.get("WORLD_SIZE", "1")))
     except (RuntimeError, ValueError) as e:
         # a device or world this host can never give (a resize to more cards
         # than it has): a relaunch of the same argv cannot succeed either

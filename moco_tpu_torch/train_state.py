@@ -25,6 +25,7 @@ from torch import nn
 
 from moco_tpu_torch.ops.optim import LARS, AdamW
 from moco_tpu_torch.ops.queue import init_queue
+from moco_tpu_torch.parallel.fsdp import FSDPAdamW, FSDPLARS, FSDPSGD
 from moco_tpu_torch.parallel.zero import ShardedAdamW, ShardedLARS, ShardedSGD
 
 
@@ -42,9 +43,13 @@ class TrainState:
     # (quantized, demo; empty otherwise) and the mode they belong to
     gradsync: dict = field(default_factory=dict)
     gradsync_mode: str = "fused"
+    # parallel/fsdp.py: the ShardingPlan whose shards this process holds
+    # (None: every parameter whole)
+    fsdp: object | None = None
 
 
-def build_optimizer(config, model_q: nn.Module, group=None) -> torch.optim.Optimizer:
+def build_optimizer(config, model_q: nn.Module, group=None,
+                    plan=None) -> torch.optim.Optimizer:
     """The optimizer of `config.optimizer` over the query encoder's
     trainable parameters (a frozen patch embedding stays out: the JAX
     package's `optax.masked`); the lr is set each step from the schedule.
@@ -59,19 +64,26 @@ def build_optimizer(config, model_q: nn.Module, group=None) -> torch.optim.Optim
 
     With `zero_sharding` and a process group, each is the same update with
     its state split over the group (`parallel/zero.py`); a restore into it
-    keeps this process's slices."""
+    keeps this process's slices. With an fsdp `plan` (`parallel/fsdp.py`)
+    each updates the plan's shards."""
     params = [p for p in model_q.parameters() if p.requires_grad]
     sharded = config.zero_sharding and group is not None
     if config.optimizer == "adamw":
         kw = dict(lr=config.effective_lr, betas=(0.9, 0.999), eps=1e-8,
                   weight_decay=config.weight_decay)
+        if plan is not None:
+            return FSDPAdamW(params, plan, **kw)
         return ShardedAdamW(params, group, **kw) if sharded else AdamW(params, **kw)
     if config.optimizer == "lars":
         kw = dict(lr=config.effective_lr, weight_decay=config.weight_decay,
                   momentum=config.sgd_momentum)
+        if plan is not None:
+            return FSDPLARS(params, plan, **kw)
         return ShardedLARS(params, group, **kw) if sharded else LARS(params, **kw)
     kw = dict(lr=config.effective_lr, momentum=config.sgd_momentum,
               weight_decay=config.weight_decay)
+    if plan is not None:
+        return FSDPSGD(params, plan, **kw)
     return ShardedSGD(params, group, **kw) if sharded else torch.optim.SGD(params, **kw)
 
 

@@ -38,6 +38,14 @@ diagnostics of the v1/v2 step (q1 and the local k2, the local gradients,
 the drift over the EMA-covered parameters: the predictor stays out) but no
 queue's. With no process group the step is the one-card step, and a
 one-process group computes the same bits.
+
+Under `sharding="fsdp"|"fsdp_tp"` (a state placed by
+`parallel/fsdp.py::place_state`) the step runs the JAX package's FSDP
+branch: the EMA on this process's shards, the full parameters gathered
+before the forwards, the gradient sync of the whole group on the full
+gradients (the two-hop reduce for quantized fsdp_tp), the health drift
+read, the optimizer on the shards with this process's slice of each synced
+gradient, and the full parameters released. The dp step is unchanged.
 """
 
 from __future__ import annotations
@@ -94,16 +102,22 @@ def build_v3_train_step(config, steps_per_epoch: int, group=None):
     total_steps = config.epochs * steps_per_epoch
     temperature = config.temperature
     chunks = config.collective_chunks
-    gradsync = None if group is None else GradSync(config, group)
     stride = config.health_stride
     time_comm = group is not None and bool(config.telemetry_dir)
+    gradsync = None  # made at the first step, for the layout of its state
 
     def step(state: TrainState, x1: torch.Tensor, x2: torch.Tensor) -> dict:
+        nonlocal gradsync
+        plan = state.fsdp
+        if group is not None and gradsync is None:
+            gradsync = GradSync(config, group, None if plan is None else plan.layout)
         lr = sched(state.step)
         on_stride = stride > 0 and state.step % stride == 0
         m = (momentum_schedule(config.momentum_ema, state.step, total_steps)
              if config.momentum_ramp else config.momentum_ema)
-        ema_update(state.model_k, state.model_q, m)
+        ema_update(state.model_k, state.model_q, m, None if plan is None else plan.local)
+        if plan is not None:
+            plan.gather()  # on use: the full weights live until the release below
         with torch.no_grad():
             k1 = l2_normalize(state.model_k(x1))
             k2 = l2_normalize(state.model_k(x2))
@@ -148,6 +162,8 @@ def build_v3_train_step(config, steps_per_epoch: int, group=None):
         for g in state.optimizer.param_groups:
             g["lr"] = lr
         state.optimizer.step()
+        if plan is not None:
+            plan.release()
         state.step += 1
         out = {**metrics, "lr": lr, "momentum": m}
         if time_comm:

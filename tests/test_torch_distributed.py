@@ -207,11 +207,12 @@ def test_two_rank_train_shards_crops_checkpoint_and_resume(tmp_path):
     spawn("run_train", 2, (TRAIN, out, "whole", 4, TRAIN_N), TIMEOUT)
     spawn("run_train", 1, (TRAIN, out, "alone", 4, TRAIN_N), TIMEOUT, group=False)
     spawn("run_train", 2, ({**TRAIN, "ckpt_dir": ckpt}, out, "first", 2, TRAIN_N), TIMEOUT)
-    # one checkpoint, by rank 0, stamped with the world size
+    # one checkpoint, by rank 0, stamped with the world size and the
+    # sharding mode (the JAX driver's sidecar)
     assert sorted(os.listdir(ckpt)) == [".integrity", ".position", "2"]
     assert read_recorded_devices(ckpt, 2) == 2
     with open(os.path.join(ckpt, ".position", "2.json")) as f:
-        assert json.load(f) == {"epoch": 1, "batch": 0, "devices": 2}
+        assert json.load(f) == {"epoch": 1, "batch": 0, "devices": 2, "sharding": "dp"}
     spawn("run_train", 2, ({**TRAIN, "ckpt_dir": ckpt, "resume": "auto"}, out, "resumed", 4,
                            TRAIN_N), TIMEOUT)
     whole, alone, resumed = (_load(out, n, w) for n, w in

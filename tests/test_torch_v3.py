@@ -559,15 +559,17 @@ def test_v3_resume_equals_the_uninterrupted_run(optimizer, tmp_path):
     """A tiny v3 pretrain checkpointed at its first epoch's end and resumed
     to step 3 equals the uninterrupted 3-step run bit for bit: both models,
     the optimizer's state (AdamW's moments and counts, LARS's buffers), the
-    step and the augmentation generator."""
+    step and the augmentation generator. The uninterrupted run writes that
+    checkpoint (step 2, asynchronously) and goes on: its first two steps
+    are the checkpointed run's; the resume names step 2."""
     from moco_tpu_torch import train
 
     quiet = dict(device="cpu", on_step=lambda *a: None)
     config = _tiny_v3_config(optimizer=optimizer)
-    whole, _ = train.train(config, max_steps=3, **quiet)
     ck = str(tmp_path / "ck")
-    train.train(config.replace(ckpt_dir=ck), max_steps=2, **quiet)
-    resumed, _ = train.train(config.replace(ckpt_dir=ck, resume="auto"), max_steps=3, **quiet)
+    whole, _ = train.train(config.replace(ckpt_dir=ck), max_steps=3, **quiet)
+    assert 2 in ckpt.checkpoint_manager(ck).all_steps()
+    resumed, _ = train.train(config.replace(ckpt_dir=ck, resume="2"), max_steps=3, **quiet)
     _same_state(resumed, whole)
 
 

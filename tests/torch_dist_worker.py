@@ -533,3 +533,129 @@ def _run_v3_legs(v3: dict, group, out_dir: str) -> None:
             metrics.append({k: float(v) for k, v in m.items()})
         torch.save({"metrics": metrics, "q": state.model_q.state_dict(),
                     "k": state.model_k.state_dict()}, _out(out_dir, name))
+
+
+def _fsdp_model(spec: dict):
+    """The tiny V3Model of `spec`: a ViT of `patch`, `width`, `depth` and
+    `heads` with the heads of `embed_dim` and `hidden_dim`."""
+    from moco_tpu_torch.models.vit import ViT
+    from moco_tpu_torch.v3_step import V3Model
+
+    backbone = ViT(patch_size=spec["patch"], width=spec["width"], depth=spec["depth"],
+                   num_heads=spec["heads"], image_size=spec["image_size"])
+    return V3Model(backbone, embed_dim=spec["embed_dim"], hidden_dim=spec["hidden_dim"])
+
+
+def run_fsdp_steps(inputs: str, out_dir: str) -> None:
+    """For each `(name, config overrides)` of `inputs["runs"]`: the tiny
+    V3Model of `inputs["model"]` with the saved weights, its state placed
+    as the config's `sharding` asks (`parallel/fsdp.py::place_state`, after
+    the gradient sync's accumulators are attached; a name ending in
+    `_plain` skips the layout and the placement, the dp calls as they were
+    before FSDP), and a v3 step on this process's rows of each saved global
+    batch. Saves the metrics, both models (gathered), the optimizer's full
+    state dict, this process's accumulators, its state bytes after each
+    step, the bytes its query model's storage holds between steps, the
+    gradient sync's `describe()` and the shard axes. Then the driver legs
+    of `inputs["legs"]` (`run_fsdp_driver`)."""
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.parallel.fsdp import place_state, state_bytes_per_device, \
+        state_shardings
+    from moco_tpu_torch.parallel.gradsync import GradSync
+    from moco_tpu_torch.parallel.mesh import build_layout, rank, world_size
+    from moco_tpu_torch.train_state import create_train_state
+    from moco_tpu_torch.train_step import build_train_step
+
+    data = torch.load(inputs, weights_only=False)
+    group = _group()
+    n, r = world_size(group), rank(group)
+    sd = data["state_dict"]
+    for name, overrides in data["runs"]:
+        config = PretrainConfig(**{**data["config"], **overrides})
+        state = create_train_state(config, _fsdp_model(data["model"]), "cpu", seed=0,
+                                   group=group)
+        state.model_q.load_state_dict(sd)
+        state.model_k.load_state_dict({k: v for k, v in sd.items()
+                                       if not k.startswith("predictor.")})
+        if name.endswith("_plain"):
+            gradsync = GradSync(config, group)
+            gradsync.attach(state)
+        else:
+            layout = build_layout(config, group)
+            gradsync = GradSync(config, group, layout)
+            gradsync.attach(state)
+            state = place_state(state, config, layout)
+        step = build_train_step(config, data["steps_per_epoch"], group=group)
+        metrics, bytes_between = [], []
+        for x1, x2 in data["images"]:
+            b = x1.shape[0] // n
+            m = step(state, x1[r * b:(r + 1) * b], x2[r * b:(r + 1) * b])
+            metrics.append({k: float(v) for k, v in m.items()})
+            bytes_between.append(state_bytes_per_device(state))
+        held = sum(p.untyped_storage().nbytes() for p in state.model_q.parameters())
+        optimizer = state.optimizer.state_dict()
+        if state.fsdp is not None:
+            state.fsdp.gather()
+        torch.save({"metrics": metrics, "q": state.model_q.state_dict(),
+                    "k": state.model_k.state_dict(), "optimizer": optimizer,
+                    "gradsync": {k: v.clone() for k, v in state.gradsync.items()},
+                    "bytes": bytes_between, "held_q_bytes": held,
+                    "describe": gradsync.describe(state.model_q.named_parameters()),
+                    "axes": state_shardings(state),
+                    "optimizer_class": type(state.optimizer).__name__},
+                   _out(out_dir, name))
+    if data.get("legs"):
+        run_fsdp_driver(data["legs"], out_dir, data["model"])
+
+
+def run_fsdp_driver(legs: list, out_dir: str, model: dict | None = None) -> None:
+    """For each `(name, config fields, max_steps, n_images)` of `legs`:
+    `train()` on `IndexedImages` (the encoder the tiny V3Model of `model`
+    where given), the `log_event` events of the call kept. Saves the
+    history, the events, the final step, both models, the optimizer's full
+    state dict and this process's accumulators."""
+    import moco_tpu_torch.train as driver
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.utils import logging as mlog
+
+    if model is not None:
+        driver.build_encoder = lambda config, group=None: _fsdp_model(model)
+    for name, config_kw, max_steps, n_images in legs:
+        config = PretrainConfig(**config_kw)
+        events = []
+
+        def sink(kind, msg, fields, events=events):
+            events.append((kind, msg))
+
+        mlog.add_event_sink(sink)
+        try:
+            state, history = driver.train(config, max_steps=max_steps, device="cpu",
+                                          dataset=IndexedImages(n_images, config.image_size),
+                                          on_step=lambda *a: None)
+        finally:
+            mlog.remove_event_sink(sink)
+        torch.save({"history": history, "events": events, "step": state.step,
+                    "q": state.model_q.state_dict(), "k": state.model_k.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "gradsync": {k: v.clone() for k, v in state.gradsync.items()}},
+                   _out(out_dir, name))
+
+
+def run_multihop(inputs: str, out_dir: str) -> None:
+    """`collectives.multihop_quantized_mean` of this rank's row of the
+    saved draw over the layout of the saved config (its fsdp and data
+    subgroups made by `build_layout`), on each wire dtype."""
+    from moco_tpu_torch.config import PretrainConfig
+    from moco_tpu_torch.parallel.collectives import multihop_quantized_mean
+    from moco_tpu_torch.parallel.mesh import build_layout, rank
+
+    data = torch.load(inputs, weights_only=False)
+    layout = build_layout(PretrainConfig(**data["config"]), _group())
+    row = data["x"][rank(_group())]
+    out = {}
+    for wire in ("int8", "bfloat16"):
+        means, errs = multihop_quantized_mean([row.clone()], layout.data_group,
+                                              layout.fsdp_group, wire)
+        out[wire] = {"mean": means[0], "err": errs[0],
+                     "layout": (layout.data, layout.fsdp, layout.fsdp_rank)}
+    torch.save(out, _out(out_dir, "multihop"))
