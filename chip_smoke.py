@@ -258,6 +258,23 @@ Phases; any failure ends the run with a nonzero exit and no result line:
             under a two-process torchrun on cards 0 and 1): both encoders
             bit for bit, the accumulators zero.
 
+16. phase16 config 1 (`cifar10-moco-v1`: ResNet-18 with the CIFAR stem,
+            32 px, f32, K=4096, B=256) from a `cifar-10-batches-py` tree
+            written from a seed (5 x 512 train, 512 test images): (a) the
+            tree; (b) `python -m moco_tpu_torch.train --preset
+            cifar10-moco-v1 --data-dir <tree>` for 3 epochs with its kNN
+            monitor (the untrained row first, finite losses, the queue
+            pointer 256 ahead a step, imgs/s), then 4 steps of it in this
+            process with the BN pair's launches counted (2 and 1 a BN a
+            step, 20 BNs) and the peak memory; (c) the BN pair at the four
+            ResNet-18@32 shapes [262144, 64], [65536, 128], [16384, 256],
+            [4096, 512] in f32 and bf16, as in phase 2, and one profiled
+            step's launches and device records against the count worked out
+            from the encoder's BNs; (d) on (b)'s export, the probe for an
+            epoch with a checkpoint, `--evaluate` after a resume
+            (`sanity_check` against the file) and kNN, each CLI exiting 0.
+            `python3 chip_smoke.py --phase16` runs it alone.
+
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels, and the result object.
 Exits 2 without a CUDA device or without the `moco_tpu_torch` package next
@@ -420,20 +437,23 @@ def _sums_close(kname: str, shape_name: str, got, ref, scale) -> float:
     return err
 
 
-def check_stats_kernels(stats) -> dict:
-    """channel_sums / channel_grad_sums at all 12 R50 BN shapes (bf16):
-    each against its plain version, twice with the same bits; its time in
-    eager back-to-back calls ("call ms") and in a CUDA graph of the same
-    calls ("device ms"), with inputs of 100 MB or less rotated through
-    copies; the library call's the same two ways; and the sums over one
-    step's launches."""
+def check_stats_kernels(stats, shapes: dict = R50_BN_SHAPES, dtype: str = "bfloat16",
+                        label: str = "kernel") -> dict:
+    """channel_sums / channel_grad_sums at every BN shape of `shapes` (all
+    12 R50 BN shapes by default) in `dtype`: each against its plain
+    version, twice with the same bits; its time in eager back-to-back calls
+    ("call ms") and in a CUDA graph of the same calls ("device ms"), with
+    inputs of 100 MB or less rotated through copies; the library call's the
+    same two ways; and the sums over one step's launches."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    short = {"bfloat16": "bf16", "float32": "f32"}[dtype]
     report = {"channel_sums": {}, "channel_grad_sums": {}}
-    for name, ((m, c), n_bn) in R50_BN_SHAPES.items():
-        x = (torch.randn((m, c), generator=gen, device="cuda") * 2 + 0.5).bfloat16()
-        dy = torch.randn((m, c), generator=gen, device="cuda").bfloat16()
+    for name, ((m, c), n_bn) in shapes.items():
+        x = (torch.randn((m, c), generator=gen, device="cuda") * 2 + 0.5).to(dt)
+        dy = torch.randn((m, c), generator=gen, device="cuda").to(dt)
         xf = x.float()
         mean = xf.mean(0)
         rstd = torch.rsqrt(xf.var(0, correction=0) + 1e-5)
@@ -478,7 +498,7 @@ def check_stats_kernels(stats) -> dict:
                      library_device_ms=graph_ms(each(k["library"]), iters),
                      bound_ms=k["bound"][0], bound_by=k["bound"][1])
             report[kname][name] = r
-            print(f"kernel {kname} {name} [{m}, {c}] bf16 x{n_bn}: call {r['ms']:.4f} ms, "
+            print(f"{label} {kname} {name} [{m}, {c}] {short} x{n_bn}: call {r['ms']:.4f} ms, "
                   f"device {r['device_ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
                   f"{r['bound_by']}, {100 * r['bound_ms'] / r['device_ms']:.0f}% of it; plain "
                   f"{r['plain_ms']:.4f} ms; library call {r['library_ms']:.4f} ms, device "
@@ -491,7 +511,8 @@ def check_stats_kernels(stats) -> dict:
         launches = sum(per * r["bns"] for r in rows.values())
         total = {key: sum(per * r["bns"] * r[key] for r in rows.values())
                  for key in ("device_ms", "ms", "bound_ms", "library_device_ms")}
-        print(f"kernel {kname} per step: {launches} launches, device {total['device_ms']:.4f} ms "
+        print(f"{label} {kname} {short} per step: {launches} launches, device "
+              f"{total['device_ms']:.4f} ms "
               f"(call {total['ms']:.4f} ms), bound {total['bound_ms']:.4f} ms "
               f"({total['device_ms'] / total['bound_ms']:.2f}x), library device "
               f"{total['library_device_ms']:.4f} ms", flush=True)
@@ -952,18 +973,18 @@ def profile_step(config, state, dataset, label: str, counters: dict,
     print(f"profile {label} BN pair: " + ", ".join(
         f"{name}_rows {n} launches {ms:.3f} ms" for name, (n, ms) in pair.items()), flush=True)
     for name, (n, _) in pair.items():
-        if n != PER_STEP[name]:
+        if n != expected[name]:
             fail(f"profile {label}: {name}_rows launched {n} times in one step, expected "
-                 f"{PER_STEP[name]}", 1)
+                 f"{expected[name]}", 1)
     if any("sum_partials" in e.key for e in kernel_events):
         fail(f"profile {label}: a second pass (sum_partials) ran", 1)
     blur_ev = [e for e in kernel_events if "blur_rows" in e.key]
     blur_n = sum(e.count for e in blur_ev)
     print(f"profile {label} blur: blur_rows {blur_n} launches "
           f"{sum(e.device_time_total for e in blur_ev) / 1e3:.3f} ms", flush=True)
-    if blur_n != PER_STEP["gaussian_blur_batch"]:
+    if blur_n != expected["gaussian_blur_batch"]:
         fail(f"profile {label}: blur_rows launched {blur_n} times in one step, expected "
-             f"{PER_STEP['gaussian_blur_batch']}", 1)
+             f"{expected['gaussian_blur_batch']}", 1)
     print(f"profile {label} by category (ms): " + ", ".join(
         f"{c} {t:.2f} ({100 * t / busy_ms:.1f}%)" for c, t in totals.items()), flush=True)
     top = sorted(kernel_events, key=lambda e: e.device_time_total, reverse=True)[:15]
@@ -5086,6 +5107,175 @@ def fsdp_restore_check(ckpt_dir: Path) -> dict:
         shutdown_distributed()
 
 
+# phase 16: config 1 (`cifar10-moco-v1`: ResNet-18 with the CIFAR stem, 32 px,
+# K=4096, f32) from a written `cifar-10-batches-py` tree of 5 x 512 train and
+# 512 test images (10 steps an epoch at batch 256)
+PHASE16_PER_BATCH = 512
+PHASE16_TEST = 512
+PHASE16_EPOCHS = 3
+PHASE16_STEPS = 4           # the in-process run whose peak memory is read
+# [N*H*W, C] of every ResNet-18 BN with the CIFAR stem at batch 256, 32 px,
+# and how many BNs of that shape one encoder has (20 in all)
+R18_BN_SHAPES = {
+    "s1_64": ((BATCH * 32 * 32, 64), 5), "s2_128": ((BATCH * 16 * 16, 128), 5),
+    "s3_256": ((BATCH * 8 * 8, 256), 5), "s4_512": ((BATCH * 4 * 4, 512), 5),
+}
+
+
+def _cli(argv: list[str], label: str, timeout: float = 600) -> str:
+    """Run `python -m <argv>` from the checkout; its output lands in
+    chiprun_out/phase16_<label>.log. Fails unless it exits 0."""
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], env=env, capture_output=True,
+                          text=True, timeout=timeout, cwd=str(ROOT))
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / f"phase16_{label}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"phase16 {label}: exit {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-2000:]}", 1)
+    print(f"phase16 {label}: exit 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return proc.stdout
+
+
+def run_config1(counters: dict, stats, smi: str) -> dict:
+    """Phase 16: config 1 on the card. (a) a `cifar-10-batches-py` tree
+    written from a seed; (b) `python -m moco_tpu_torch.train --preset
+    cifar10-moco-v1 --data-dir <tree>` for PHASE16_EPOCHS epochs with its
+    kNN monitor (the untrained row first, finite losses, the queue pointer
+    256 ahead a step, imgs/s), then the same config in this process for the
+    peak memory; (c) the BN pair at the four ResNet-18@32 shapes in f32 and
+    bf16 against its plain version, timed, and one profiled step
+    (`profile_step`) whose launches must equal the count worked out from
+    the encoder's BNs; (d) the probe for an epoch with a checkpoint,
+    `--evaluate` after a resume (`sanity_check` against the file), and,
+    in a process beside theirs, kNN, on (b)'s export."""
+    import re
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from moco_tpu_torch import train
+    from moco_tpu_torch.config import get_preset
+    from moco_tpu_torch.data.datasets import CIFAR10, write_cifar10_tree
+    from moco_tpu_torch.models.fast_bn import FastBatchNorm
+
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="moco_cifar_") as tmp:
+        tmp = Path(tmp)
+        # (a)
+        t0 = time.perf_counter()
+        tree = write_cifar10_tree(str(tmp / "data"), per_batch=PHASE16_PER_BATCH,
+                                  test_size=PHASE16_TEST, seed=0)
+        size = sum(f.stat().st_size for f in Path(tree).iterdir())
+        data = CIFAR10(str(tmp / "data"))
+        if len(data) != 5 * PHASE16_PER_BATCH or data.images.shape[1:] != (32, 32, 3):
+            fail(f"phase16 (a): the tree reads back {len(data)} images", 1)
+        print(f"phase16 (a): cifar-10-batches-py with 5 x {PHASE16_PER_BATCH} train and "
+              f"{PHASE16_TEST} test images, {size} bytes, written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        # (b) through the CLI
+        config = get_preset("cifar10-moco-v1").replace(data_dir=str(tmp / "data"),
+                                                       print_freq=1)
+        enc = tmp / "enc.npz"
+        text = _cli(["moco_tpu_torch.train", "--preset", "cifar10-moco-v1", "--data-dir",
+                     str(tmp / "data"), "--epochs", str(PHASE16_EPOCHS), "--print-freq", "1",
+                     "--export-path", str(enc)], "train")
+        lines = text.splitlines()
+        steps = [(int(m[1]), float(m[2]), int(float(m[3])), float(m[4])) for m in (
+            re.match(r"^step (\d+) loss (\S+) .* queue_ptr (\S+) step_s (\S+) ", ln)
+            for ln in lines) if m]
+        knn = [ln for ln in lines if "kNN(" in ln]
+        spe = 5 * PHASE16_PER_BATCH // BATCH
+        total = PHASE16_EPOCHS * spe
+        if len(steps) != total or [s[0] for s in steps] != list(range(1, total + 1)):
+            fail(f"phase16 (b): {len(steps)} step lines, expected {total}", 1)
+        if not knn or not knn[0].startswith("Epoch [-1] kNN(val)") or \
+                lines.index(knn[0]) > next(i for i, ln in enumerate(lines)
+                                           if ln.startswith("step ")):
+            fail(f"phase16 (b): the untrained kNN row does not come first: {knn[:2]}", 1)
+        if not all(math.isfinite(s[1]) for s in steps):
+            fail(f"phase16 (b): non-finite losses {[s[1] for s in steps]}", 1)
+        ptrs = [s[2] for s in steps]
+        if ptrs != [BATCH * n % config.num_negatives for n in range(1, total + 1)]:
+            fail(f"phase16 (b): queue pointers {ptrs}", 1)
+        if not enc.is_file():
+            fail("phase16 (b): no export", 1)
+        # steady: every step but each epoch's first (its loader stages from cold)
+        steady = [s[3] for s in steps if (s[0] - 1) % spe]
+        cli_rate = BATCH * len(steady) / sum(steady)
+        print(f"phase16 (b): cifar10-moco-v1 (ResNet-18 CIFAR stem, 32 px, f32, K=4096, "
+              f"B={BATCH}) through the CLI, {total} steps, losses {steps[0][1]:.4f} -> "
+              f"{steps[-1][1]:.4f}, queue pointer {ptrs[-1]} after {total} steps, kNN rows "
+              f"{len(knn)} ({knn[0]}; last: {knn[-1]}), {cli_rate:.1f} imgs/s steady (host "
+              f"clock, metrics on the host every step) ({smi})", flush=True)
+        # (b) in this process: the peak memory
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        state, history = train.train(config, max_steps=PHASE16_STEPS, device="cuda",
+                                     on_step=lambda step, m, sec: times.append(sec))
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        bns = sum(isinstance(m, FastBatchNorm) for m in state.model_q.modules())
+        rate = BATCH * (len(times) - 1) / sum(times[1:])
+        print(f"phase16 (b) in process: {PHASE16_STEPS} steps, {bns} BNs an encoder, "
+              f"{rate:.1f} imgs/s over steps 2-{PHASE16_STEPS}, peak memory {peak:.3f} GiB "
+              f"over the {held / 2**30:.3f} held before ({smi})", flush=True)
+        out["train"] = dict(cli_imgs_per_s=cli_rate, imgs_per_s=rate, peak_gib=peak,
+                            losses=[s[1] for s in steps], bns=bns, knn=knn)
+        # (c) the BN pair at the ResNet-18@32 shapes, and one profiled step
+        # whose launches must be the count worked out from the encoder's BNs
+        if sum(n for _, n in R18_BN_SHAPES.values()) != bns:
+            fail(f"phase16 (c): the shape table holds other BNs than the encoder's {bns}", 1)
+        out["kernels"] = {dt: check_stats_kernels(stats, R18_BN_SHAPES, dt, "phase16 (c)")
+                          for dt in ("float32", "bfloat16")}
+        per_step = {name: 0 for name in counters}
+        per_step.update(channel_sums=BN_LAUNCHES["channel_sums"] * bns,
+                        channel_grad_sums=BN_LAUNCHES["channel_grad_sums"] * bns)
+        busy_ms, wall_ms = profile_step(config, state, data, "config1", counters, per_step)
+        out["profile"] = dict(launches=per_step, busy_ms=busy_ms, wall_ms=wall_ms)
+        print(f"phase16 (c): one profiled config-1 step launched channel_sums "
+              f"{per_step['channel_sums']} and channel_grad_sums "
+              f"{per_step['channel_grad_sums']} times (2 and 1 a BN, {bns} BNs), device "
+              f"busy {busy_ms:.2f} of {wall_ms:.2f} ms", flush=True)
+        del state, history
+        torch.cuda.empty_cache()
+        # (d) the journey on (b)'s export
+        common = ["--pretrained", str(enc), "--arch", "resnet18", "--cifar-stem", "true",
+                  "--dataset", "cifar10", "--data-dir", str(tmp / "data"), "--image-size",
+                  "32", "--num-classes", "10"]
+        probe = common + ["--batch-size", str(BATCH), "--epochs", "1", "--ckpt-dir",
+                          str(tmp / "probe")]
+        # kNN needs nothing of the probe: its process runs beside the probe's
+        with ThreadPoolExecutor(1) as pool:
+            knn_run = pool.submit(_cli, ["moco_tpu_torch.evals.knn", *common], "knn")
+            text = _cli(["moco_tpu_torch.evals.lincls", *probe], "lincls")
+            acc = re.search(r"best val Acc@1: (\S+)", text)
+            again = _cli(["moco_tpu_torch.evals.lincls", *probe, "--resume", "auto",
+                          "--evaluate", "true"], "lincls_evaluate")
+            ev = re.search(r"Evaluate: val Acc@1 (\S+)", again)
+            knn_text = knn_run.result()
+        top1 = re.search(r"kNN top-1: (\S+)%", knn_text)
+        if not (acc and ev and top1):
+            fail("phase16 (d): a CLI printed no accuracy", 1)
+        if abs(float(ev[1]) - float(acc[1])) > 1e-6:
+            fail(f"phase16 (d): --evaluate after the resume gave {ev[1]}, the epoch "
+                 f"{acc[1]}", 1)
+        out["evals"] = dict(lincls_acc1=float(acc[1]), evaluate_acc1=float(ev[1]),
+                            knn_top1=float(top1[1]))
+        print(f"phase16 (d): the probe 1 epoch val Acc@1 {acc[1]} (sanity_check passed), "
+              f"--evaluate after the resume {ev[1]}, kNN top-1 {top1[1]}% ({smi})",
+              flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase16: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _obsd_text(url: str) -> str:
     import urllib.request
 
@@ -5241,6 +5431,15 @@ def main() -> None:
         print(smi)
         print(json.dumps({"phase15": r}, default=str))
         return
+    if "--phase16" in sys.argv[1:]:
+        # phase 16 alone, on one card: config 1 and its journey
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        r = run_config1(counters, stats, smi)
+        print(smi)
+        print(json.dumps({"phase16": r}, default=str))
+        return
     if "--phase7" in sys.argv[1:]:
         # phase 7 alone, across every card: under
         # `torchrun --nproc-per-node <cards> chip_smoke.py --phase7`
@@ -5296,6 +5495,7 @@ def main() -> None:
         # phase 14's fleet serves phase 13's exports and bank
         run_serving(counters, smi, serving)
         run_fleet(counters, smi, serving)
+    run_config1(counters, stats, smi)
     print(smi)  # the card's name and power limit, as nvidia-smi prints them
     # name: (source, TPU kernel it replaces, shape reported in the line)
     sources = {

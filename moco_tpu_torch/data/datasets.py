@@ -5,7 +5,8 @@ classes, names and bytes).
   low-frequency pattern per class plus per-sample noise).
 - `SyntheticTextureDataset`: clusterable fake data an untrained network
   cannot solve (a class texture under a strong per-sample color cast).
-- `CIFAR10`: the `cifar-10-batches-py` pickle layout.
+- `CIFAR10`: the `cifar-10-batches-py` pickle layout; `write_cifar10_tree`
+  writes a tree in that layout from a seed (tests, `chip_smoke.py`).
 - `ImageFolder`: a class-per-subdirectory image tree, each image decoded
   whole into a fixed `[stage_size, 2 * stage_size]` landscape uint8
   canvas (portrait images transposed, fit-downscaled, edge-padded) by the
@@ -147,6 +148,45 @@ class CIFAR10:
 
     def get_batch(self, indices: np.ndarray):
         return self.images[indices], self.labels[indices], full_extents(len(indices), 32, 32)
+
+
+def write_cifar10_tree(root: str, per_batch: int = 512, test_size: int = 512,
+                       seed: int = 0) -> str:
+    """Write a `cifar-10-batches-py` tree under `root` in the dataset's own
+    pickle layout (5 train batches of `per_batch` images and a test batch,
+    uint8 `[N, 3072]` channel-major rows, labels 0-9, `batches.meta`),
+    drawn from `seed` with numpy: each class a fixed low-frequency color
+    pattern, each image half that pattern and half one of its own, plus
+    noise (so that instances differ past the augmentation, as photographs
+    do). Returns the tree's path."""
+    rng = np.random.RandomState(seed)
+
+    def pattern(n: int) -> np.ndarray:
+        return rng.rand(n, 3, 4, 4).repeat(8, axis=2).repeat(8, axis=3)
+
+    protos = pattern(10)
+    out = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(out, exist_ok=True)
+
+    def batch(name: str, n: int) -> None:
+        labels = rng.randint(0, 10, size=n)
+        imgs = 0.5 * (protos[labels] + pattern(n)) + 0.1 * rng.randn(n, 3, 32, 32)
+        data = (np.clip(imgs, 0, 1) * 255).astype(np.uint8).reshape(n, 3072)
+        with open(os.path.join(out, name), "wb") as f:
+            pickle.dump({b"batch_label": name.encode(), b"labels": labels.tolist(),
+                         b"data": data,
+                         b"filenames": [f"{name}_{i}.png".encode() for i in range(n)]},
+                        f, protocol=2)
+
+    for i in range(1, 6):
+        batch(f"data_batch_{i}", per_batch)
+    batch("test_batch", test_size)
+    names = [b"airplane", b"automobile", b"bird", b"cat", b"deer", b"dog", b"frog",
+             b"horse", b"ship", b"truck"]
+    with open(os.path.join(out, "batches.meta"), "wb") as f:
+        pickle.dump({b"label_names": names, b"num_cases_per_batch": per_batch,
+                     b"num_vis": 3072}, f, protocol=2)
+    return out
 
 
 @dataclass

@@ -59,6 +59,28 @@ def test_cifar10_matches_jax(cifar_dir, train):
     assert ours.get_batch(idx)[0].shape == (len(idx), 32, 32, 3)
 
 
+@pytest.mark.parametrize("train", [True, False])
+def test_written_cifar_tree_reads_the_same_through_both_readers(tmp_path, train):
+    """`write_cifar10_tree`'s files are the dataset's pickle layout: the
+    port's and the JAX package's readers give the same arrays, and the same
+    seed writes the same bytes."""
+    root = tmp_path / "a"
+    out = datasets.write_cifar10_tree(str(root), per_batch=20, test_size=12, seed=5)
+    assert sorted(os.listdir(out)) == sorted(
+        [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch", "batches.meta"])
+    ours, ref = datasets.CIFAR10(str(root), train=train), jdata.CIFAR10(str(root), train=train)
+    assert len(ours) == len(ref) == (100 if train else 12)
+    np.testing.assert_array_equal(ours.images, ref.images)
+    np.testing.assert_array_equal(ours.labels, ref.labels)
+    idx = np.arange(len(ours))[::-1]
+    _assert_same_batch(ours.get_batch(idx), ref.get_batch(idx))
+    assert ours.images.shape[1:] == (32, 32, 3) and set(ours.labels) <= set(range(10))
+    again = datasets.write_cifar10_tree(str(tmp_path / "b"), per_batch=20, test_size=12, seed=5)
+    for name in os.listdir(out):
+        with open(os.path.join(out, name), "rb") as f, open(os.path.join(again, name), "rb") as g:
+            assert f.read() == g.read(), name
+
+
 def test_cifar10_missing_batch_raises(tmp_path):
     with pytest.raises(FileNotFoundError, match="cifar-10-batches-py"):
         datasets.CIFAR10(str(tmp_path))

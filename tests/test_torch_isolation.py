@@ -81,6 +81,8 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
     # the replicated fleet's CLI, and obsd: its aggregator and its CLI
     assert {"moco_tpu_torch.serve_fleet", "moco_tpu_torch.telemetry.aggregate",
             "moco_tpu_torch.obsd"} <= {m.name for m in expected}
+    # the learning horizon's entry point
+    assert "moco_tpu_torch.horizon" in {m.name for m in expected}
 
 
 def test_span_layer_imports_without_torch_or_numpy():

@@ -102,3 +102,31 @@ def test_r50_structure_matches_flax():
     assert all(state[k].shape == ref[k].shape for k in ref)
     assert sum(isinstance(m, resnet.FastBatchNorm) for m in model.modules()) == 53
     assert len(list(model.parameters())) == 53 + 2 * 53 + 4
+
+
+def test_resnet18_cifar_init_statistics_match_flax():
+    """The horizon's encoder (ResNet-18, CIFAR stem, 128-d head) as each
+    package initializes it from its own generator: every BN parameter and
+    statistic and the head's bias equal, and each weight tensor's mean and
+    standard deviation within 4 standard errors of flax's (the frameworks
+    draw other numbers from the same truncated normal)."""
+    jmodel = jresnet.build_resnet("resnet18", num_classes=128, cifar_stem=True)
+    variables = jax.jit(lambda key: jmodel.init(key, jnp.zeros((1, 32, 32, 3)),
+                                                train=False))(jax.random.key(0))
+    ref = params_from_jax(jax.tree.map(np.asarray, variables["params"]),
+                          jax.tree.map(np.asarray, variables["batch_stats"]))
+    model = resnet.build_resnet("resnet18", num_classes=128, cifar_stem=True,
+                                generator=torch.Generator().manual_seed(0))
+    state = {k: v.numpy().astype(np.float64) for k, v in model.state_dict().items()}
+    assert state.keys() == ref.keys()
+    weights = [k for k in ref if k.endswith("weight") and ref[k].ndim > 1]
+    assert len(weights) == 21  # 20 convs and the head
+    for k in ref:
+        want = np.asarray(ref[k], np.float64)
+        got = state[k]
+        if k not in weights:
+            np.testing.assert_array_equal(got, want, err_msg=k)
+            continue
+        n, std = want.size, want.std()
+        assert abs(got.mean() - want.mean()) < 4 * std * np.sqrt(2 / n), k
+        assert abs(got.std() - std) < 4 * std * np.sqrt(1 / n), k

@@ -40,6 +40,12 @@ R50_BN_SHAPES = {
     "l2_512": ((200704, 512), 5), "l3_256": ((50176, 256), 11), "l3_512": ((50176, 512), 1),
     "l3_1024": ((50176, 1024), 7), "l4_512": ((12544, 512), 5), "l4_2048": ((12544, 2048), 4),
 }
+# [M, C] of the ResNet-18 BNs with the CIFAR stem at batch 256, 32 px
+# (`cifar10-moco-v1`), and how many of each an encoder has
+R18_BN_SHAPES = {
+    "s1_64": ((262144, 64), 5), "s2_128": ((65536, 128), 5), "s3_256": ((16384, 256), 5),
+    "s4_512": ((4096, 512), 5),
+}
 RAGGED_M = (1, 7, 1000, 4097)
 RAGGED_C = (1, 3, 24, 64, 2050)
 OPERANDS = {"sums": 1, "grad": 2}
@@ -57,26 +63,56 @@ def test_r50_encoder_has_53_bns():
     assert sum(n for _, n in R50_BN_SHAPES.values()) == 53
 
 
+def test_r18_cifar_encoder_has_20_bns_at_these_shapes():
+    """The port's ResNet-18 with the CIFAR stem feeds its BNs these [M, C]
+    (a forward at batch 2, M scaled to batch 256)."""
+    from collections import Counter
+
+    from moco_tpu_torch.models.fast_bn import FastBatchNorm
+    from moco_tpu_torch.models.resnet import build_resnet
+
+    model = build_resnet("resnet18", cifar_stem=True, num_classes=128)
+    seen = []
+    for mod in model.modules():
+        if isinstance(mod, FastBatchNorm):
+            mod.register_forward_hook(lambda _m, a, _o: seen.append(
+                (a[0].shape[0] * a[0].shape[2] * a[0].shape[3] * 128, a[0].shape[1])))
+    model(torch.zeros(2, 32, 32, 3))  # NHWC images
+    assert Counter(seen) == {shape: n for shape, n in R18_BN_SHAPES.values()}
+    assert sum(n for _, n in R18_BN_SHAPES.values()) == 20
+
+
+# (net, shape name, element bytes): ResNet-50 in bf16; ResNet-18@32
+# (`cifar10-moco-v1`) in f32, its preset's dtype, and bf16, the horizon's
+BN_PLANS = ([("r50", name, 2) for name in R50_BN_SHAPES]
+            + [("r18", name, elem) for name in R18_BN_SHAPES for elem in (2, 4)])
+
+
 @pytest.mark.parametrize("kind", list(OPERANDS))
-@pytest.mark.parametrize("name", list(R50_BN_SHAPES))
-def test_plan_at_r50_shapes(name, kind):
-    """A full wave at every shape (every SM busy, fewer than one tile's
-    worth of its slots empty: 264 blocks up to C = 512, 256 of 264 at
-    C = 1024 and 2048), 16-byte loads of 128-byte row segments, at least
-    one batch of rows per row lane, 8 loads in flight a thread, partials
-    at most 2% of the input bytes."""
-    (m, c), _ = R50_BN_SHAPES[name]
-    plan = stats_plan(m, c, 2, OPERANDS[kind])
+@pytest.mark.parametrize("net, name, elem", BN_PLANS)
+def test_plan_at_bn_shapes(net, name, elem, kind):
+    """16-byte loads of 128-byte row segments, 8 loads in flight a thread,
+    partials at most 2% of the input bytes, and a full wave (every SM busy,
+    fewer than one tile's worth of its slots empty: 264 blocks where the
+    tiles divide 264, 256 of 264 at 16 and 32 tiles) wherever M has the
+    rows for it; where it has not (ResNet-18's [16384, 256] and
+    [4096, 512] at 2 bytes), the wave is cut short only because each row
+    lane holds a single batch of rows."""
+    (m, c), _ = (R50_BN_SHAPES if net == "r50" else R18_BN_SHAPES)[name]
+    plan = stats_plan(m, c, elem, OPERANDS[kind])
     _covers_once(plan)
-    assert plan.vec == 8 and plan.tile * 2 == STATS_SEGMENT == 128
+    assert plan.vec * elem == 16 and plan.tile * elem == STATS_SEGMENT == 128
     assert plan.capacity == STATS_SMS * STATS_BLOCKS_PER_SM == 264
-    assert plan.capacity - plan.tiles < plan.blocks <= plan.capacity
-    assert plan.waves > 0.96 and plan.blocks >= plan.sms
-    if c <= 512:
-        assert plan.waves == 1.0
     assert plan.rows_per_slab >= plan.row_lanes * plan.batch
+    assert plan.blocks <= plan.capacity
+    if plan.blocks > plan.capacity - plan.tiles:  # a full wave
+        assert plan.waves > 0.96 and plan.blocks >= plan.sms
+        if plan.capacity % plan.tiles == 0:
+            assert plan.waves == 1.0
+    else:
+        assert net == "r18" and elem == 2 and plan.rows_per_slab == plan.row_lanes * plan.batch
     assert plan.batch * OPERANDS[kind] == STATS_LOADS == 8  # loads in flight a thread
-    assert 50 * plan.workspace_bytes <= OPERANDS[kind] * m * c * 2
+    assert 50 * plan.workspace_bytes <= OPERANDS[kind] * m * c * elem
     assert plan.fold_width == 4                      # the last block loads float4s
     assert plan.slabs * plan.tile <= 264 * 64        # partials a last block folds
 

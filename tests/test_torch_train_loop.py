@@ -160,3 +160,23 @@ def test_cli_trains_from_a_cifar_tree(cifar_dir, capsys):
     out = capsys.readouterr().out
     assert "dataset='cifar10'" in out
     assert "step 1 loss" in out and "step 2 loss" in out and "queue_ptr 16" in out
+
+
+def test_cli_trains_config1_from_a_written_cifar_tree(tmp_path, capsys):
+    """Two steps of `cifar10-moco-v1` at its widths (ResNet-18, CIFAR stem,
+    K=4096, embed 128) at batch 4 from a `write_cifar10_tree` tree: the
+    untrained kNN row first, finite losses, the queue pointer a batch ahead
+    a step."""
+    datasets.write_cifar10_tree(str(tmp_path), per_batch=8, test_size=8, seed=3)
+    train.main(["--preset", "cifar10-moco-v1", "--data-dir", str(tmp_path), "--batch-size",
+                "4", "--max-steps", "2", "--print-freq", "1", "--knn-bank-size", "32",
+                "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "arch='resnet18'" in out and "num_negatives=4096" in out
+    lines = out.splitlines()
+    knn = [i for i, ln in enumerate(lines) if "kNN(" in ln]
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    assert lines[knn[0]].startswith("Epoch [-1] kNN(val)") and knn[0] < lines.index(steps[0])
+    values = [dict(zip(ln.split()[2::2], ln.split()[3::2])) for ln in steps]
+    assert [float(v["queue_ptr"]) for v in values] == [4, 8]
+    assert all(np.isfinite(float(v["loss"])) for v in values)
