@@ -1611,14 +1611,67 @@ def _step_logits(config, state, images, extents):
     return metrics["loss"].clone(), captured[0], state.queue[ptr:ptr + BATCH].clone()
 
 
-def run_checkpoint_and_evals(counters: dict, smi: str) -> dict:
+class _Prebuilt:
+    """A value made by `make()` on a background thread, started early so
+    that its host work (numpy, which releases the GIL in its array loops)
+    runs beside the kernel build and the first phases; `get()` waits for
+    it and re-raises what it raised."""
+
+    def __init__(self, make):
+        import threading
+
+        self._out = {}
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                self._out["value"] = make()
+            except BaseException as e:  # handed to get()
+                self._out["error"] = e
+            self.seconds = time.perf_counter() - t0
+
+        self._thread = threading.Thread(target=run, daemon=True, name="prebuild")
+        self._thread.start()
+
+    def get(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+class _PhaseClock:
+    """The whole script's wall time by part, printed as each part ends
+    (`wall: <part> <s> s, <s> s in all`): the script's budget is read from
+    these lines."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def mark(self, part: str) -> None:
+        now = time.perf_counter()
+        print(f"wall: {part} {now - self.last:.1f} s, {now - self.start:.1f} s in all",
+              flush=True)
+        self.last = now
+
+
+def phase5_datasets():
+    """Phase 5's bank and queries: 4096 + 1024 synthetic 224 px images."""
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+
+    return (SyntheticDataset(num_samples=PHASE5_BANK, image_size=224, seed=0),
+            SyntheticDataset(num_samples=PHASE5_QUERIES, image_size=224, seed=999))
+
+
+def run_checkpoint_and_evals(counters: dict, smi: str, datasets: _Prebuilt) -> dict:
     """Phase 5, on the card at ResNet-50's full width (224 px, batch 256,
     2048-d features, a 1000-class probe): pretrain 2 steps and save, resume
     into a fresh state (every tensor, both generators, the queue pointer
     and the step bit for bit), one more step of each under deterministic
     cuDNN (loss, logits and enqueued keys equal); export `encoder_q` to
     .npz and `load_for_inference` it; encode a 4096-image bank and 1024
-    queries and run the streamed kNN, held against the CPU; train the
+    queries (`datasets`, `phase5_datasets` made on a thread started beside
+    the kernel build) and run the streamed kNN, held against the CPU; train the
     linear probe, checkpoint, resume, validate, `--evaluate`,
     `sanity_check`. Times the encode, the probe step, one save and one
     restore."""
@@ -1630,7 +1683,6 @@ def run_checkpoint_and_evals(counters: dict, smi: str) -> dict:
     from moco_tpu_torch import checkpoint as ckpt
     from moco_tpu_torch import train
     from moco_tpu_torch.config import EvalConfig, get_preset
-    from moco_tpu_torch.data.datasets import SyntheticDataset
     from moco_tpu_torch.evals import lincls
     from moco_tpu_torch.evals.knn import encode_dataset
     from moco_tpu_torch.ops import knn
@@ -1639,10 +1691,10 @@ def run_checkpoint_and_evals(counters: dict, smi: str) -> dict:
 
     out = {}
     t0 = time.perf_counter()
-    bank_set = SyntheticDataset(num_samples=PHASE5_BANK, image_size=224, seed=0)
-    query_set = SyntheticDataset(num_samples=PHASE5_QUERIES, image_size=224, seed=999)
+    bank_set, query_set = datasets.get()
     print(f"phase5: {PHASE5_BANK} + {PHASE5_QUERIES} synthetic 224 px images in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{datasets.seconds:.1f} s on a background thread, {time.perf_counter() - t0:.1f} s "
+          "of it waited for here", flush=True)
     with tempfile.TemporaryDirectory(prefix="moco_phase5_") as tmp:
         tmp = Path(tmp)
         # 1. pretrain and save, resume into a fresh state
@@ -5314,8 +5366,17 @@ def main() -> None:
           f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}", flush=True)
 
+    from moco_tpu_torch.data.datasets import SyntheticDataset
     from moco_tpu_torch.ops import _build, blur, fused_conv, fused_conv3x3, stats
 
+    # the whole script: the images of phases 3-15 and of phase 5 are made
+    # beside the kernel build and the kernels' checks
+    whole = not any(a.startswith("--phase") for a in sys.argv[1:])
+    if whole:
+        clock = _PhaseClock()
+        main_set = _Prebuilt(lambda: SyntheticDataset(num_samples=STEPS * BATCH,
+                                                      image_size=224))
+        phase5_sets = _Prebuilt(phase5_datasets)
     t0 = time.perf_counter()
     path, log = _build.build()
     _build.load_library()
@@ -5328,7 +5389,6 @@ def main() -> None:
                 "bn_relu_conv3x3": fused_conv3x3.bn_relu_conv3x3,
                 "bn_relu_conv3x3_s2": fused_conv3x3.bn_relu_conv3x3_s2,
                 "conv3x3_dw": fused_conv3x3.conv3x3_dw}
-    from moco_tpu_torch.data.datasets import SyntheticDataset
 
     if "--phase8" in sys.argv[1:]:
         # phase 8 alone: under `torchrun --nproc-per-node <cards> chip_smoke.py
@@ -5449,30 +5509,40 @@ def main() -> None:
             print(json.dumps({"phase7": runs, "ranks": int(os.environ.get("WORLD_SIZE", 1))}))
         return
 
+    clock.mark("build")
     report = check_stats_kernels(stats)
     report["gaussian_blur_batch"] = {"224px": check_blur_kernel(blur)}
     report.update(check_fused_kernels(fused_conv, fused_conv3x3))
+    clock.mark("phase 2 (the kernels)")
     from moco_tpu_torch.config import get_preset
 
     # one epoch holds every step of phases 3 and 3b: each step's batch is
     # staged while the one before it runs
-    dataset = SyntheticDataset(num_samples=STEPS * BATCH, image_size=224)
+    dataset = main_set.get()
+    print(f"phases 3-15: {STEPS * BATCH} synthetic 224 px images in {main_set.seconds:.1f} s "
+          "on a background thread", flush=True)
     config = get_preset("imagenet-moco-v2").replace(dataset="synthetic")
     check_prefetched(dataset, "slice")
     summary = run_slice(counters, "slice", config, dataset, STEPS)
     fused_summary = run_slice(counters, "fused", config.replace(fused_bn_conv=True), dataset,
                               FUSED_STEPS)
+    clock.mark("phases 3 and 3b")
     run_distributed(counters, dataset)
     sync_modes_in_group(counters, dataset)
+    clock.mark("phases 6 and 7")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    run_v3(counters, dataset, smi)
-    run_telemetry(counters, dataset, smi)
-    run_resilience(counters, dataset, smi)
+    for part, run in (("phase 8", run_v3), ("phase 9", run_telemetry),
+                      ("phase 10", run_resilience)):
+        run(counters, dataset, smi)
+        clock.mark(part)
     run_supervised(counters, smi)
+    clock.mark("phase 11")
     run_sync_bn_and_service(counters, smi)
+    clock.mark("phase 12")
     run_fsdp(counters, dataset, smi)
+    clock.mark("phase 15")
     del dataset
     print(f"slice vs fused: {summary['imgs_per_s']:.1f} vs {fused_summary['imgs_per_s']:.1f} "
           f"imgs/s, peak memory {summary['max_memory_gib']:.2f} vs "
@@ -5487,15 +5557,20 @@ def main() -> None:
               f"{r['busy_ms']:.2f}/{r['wall_ms']:.2f} ms, steady step less busy "
               f"{1e3 * r['steady_step_s'] - r['busy_ms']:.2f} ms, in-epoch step less busy "
               f"{1e3 * (r['in_epoch_step_s'] or math.nan) - r['busy_ms']:.2f} ms", flush=True)
+    clock.mark("phase 4")
     check_against_cpu()
     check_against_cpu(fused=True, counters={k: counters[k] for k in FUSED_PER_STEP})
-
-    run_checkpoint_and_evals(counters, smi)
+    clock.mark("card vs CPU")
+    run_checkpoint_and_evals(counters, smi, phase5_sets)
+    clock.mark("phase 5")
     with _serving_dir(None, "moco_serving_") as serving:
         # phase 14's fleet serves phase 13's exports and bank
         run_serving(counters, smi, serving)
+        clock.mark("phase 13")
         run_fleet(counters, smi, serving)
+        clock.mark("phase 14")
     run_config1(counters, stats, smi)
+    clock.mark("phase 16")
     print(smi)  # the card's name and power limit, as nvidia-smi prints them
     # name: (source, TPU kernel it replaces, shape reported in the line)
     sources = {

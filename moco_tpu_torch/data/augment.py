@@ -225,9 +225,18 @@ def _per_sample(v: torch.Tensor) -> torch.Tensor:
     return v.view(-1, 1, 1, 1)
 
 
+_LUMA = (0.299, 0.587, 0.114)
+# the weights as the image dtype holds them: the JAX package's are
+# weak-typed constants, rounded to the pipeline dtype (bf16: 0.298828125,
+# 0.5859375, 0.11376953125) before they multiply
+_LUMA_IN = {dt: tuple(float(torch.tensor(w).to(dt)) for w in _LUMA) for dt in _DTYPES.values()}
+
+
 def grayscale(img: torch.Tensor) -> torch.Tensor:
-    """ITU-R 601-2 luma (PIL's 'L'), [B, H, W] in the image dtype."""
-    return img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114
+    """ITU-R 601-2 luma (PIL's 'L'), [B, H, W] in the image dtype, with the
+    weights rounded to that dtype."""
+    wr, wg, wb = _LUMA_IN[img.dtype]
+    return img[..., 0] * wr + img[..., 1] * wg + img[..., 2] * wb
 
 
 def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:

@@ -400,3 +400,86 @@ def test_v1_two_crops_statistics_match_jax():
                                                       torch.Generator().manual_seed(3)))
     assert ks_2samp(jh * jw, ph * pw).pvalue > 0.001
     assert ks_2samp(jw / jh, pw / ph).pvalue > 0.001
+
+
+# ---------------------------------------------------------------------------
+# the v1 recipe draw for draw: the JAX pipeline's own per-sample draws,
+# packed into the port's ViewParams
+# ---------------------------------------------------------------------------
+
+
+def _jax_view_draws(view_key, n: int, cfg) -> dict:
+    """Each sample's draws of one JAX view, from the pipeline's own keys:
+    `_sample_keys` (one key a sample), `_augment_one`'s six-way split, then
+    `_rrc_params` on the crop key, the flip and grayscale draws of
+    `_random_resized_crop` / `_random_grayscale`, and `_color_jitter`'s
+    six-way split and draws."""
+    def one(key):
+        kcrop, kjit, kgray, _kblur, kflip, _ksol = jax.random.split(key, 6)
+        y0, x0, ch, cw = jaug._rrc_params(kcrop, 32.0, 32.0, cfg)
+        kb, kc, ks, kh, kp, kperm = jax.random.split(kjit, 6)
+        factors = jnp.stack([jax.random.uniform(k, (), minval=max(0.0, 1.0 - x), maxval=1.0 + x)
+                             for k, x in ((kb, cfg.brightness), (kc, cfg.contrast),
+                                          (ks, cfg.saturation))])
+        return dict(
+            y0=y0, x0=x0, crop_h=ch, crop_w=cw,
+            flip=jax.random.uniform(kflip, ()) < cfg.flip_prob,
+            jitter_factors=factors,
+            hue_shift=jax.random.uniform(kh, (), minval=-cfg.hue, maxval=cfg.hue),
+            jitter_perm=jax.random.permutation(kperm, 4),
+            jitter_apply=jax.random.uniform(kp, ()) < cfg.jitter_prob,
+            gray_apply=jax.random.uniform(kgray, ()) < cfg.grayscale_prob)
+
+    with jax.disable_jit():  # op by op, as the reference views are made
+        draws = jax.vmap(one)(jaug._sample_keys(view_key, 0, n))
+    return {k: np.asarray(v) for k, v in draws.items()}
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_v1_views_draw_for_draw_match_jax(dtype):
+    """The horizon's views (v1 at 32 px, texture images) sample for sample:
+    each JAX view's own draws (keys split as `jaug.two_crops` splits them)
+    packed into the port's `ViewParams` and run through `apply_view` give
+    `jaug.two_crops`'s views, its ops run one at a time (`disable_jit`).
+    f32 within rtol 1e-5 / atol 1e-5 (the resize matmuls and the HSV round
+    trip sum in another order); bf16, where both round every op, within one
+    bf16 ulp of the larger value. The compiled program is not the
+    reference here: XLA fuses the HSV conversion and, at pixels where two
+    channels tie, picks another hue sector than the op-by-op run (on the
+    CPU, 0.2-1.7% of a view's pixels)."""
+    from moco_tpu.data.datasets import SyntheticTextureDataset
+
+    n = 64
+    images, _, extents = SyntheticTextureDataset(num_samples=n, image_size=32,
+                                                 num_classes=16).get_batch(np.arange(n))
+    jcfg, cfg = jaug.v1_aug_config(32)._replace(dtype=dtype), aug.v1_aug_config(32)._replace(
+        dtype=dtype)
+    key = jax.random.key(11)
+    with jax.disable_jit():
+        ref = [np.asarray(v.astype(jnp.float32)) for v in jaug.two_crops(
+            jnp.asarray(images), key, jcfg, jnp.asarray(extents))]
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    for view_key, want in zip(jax.random.split(key), ref):
+        d = _jax_view_draws(view_key, n, jcfg)
+        assert d["gray_apply"].any() and not d["gray_apply"].all() and d["flip"].any()
+        p = aug.ViewParams(
+            t(d["y0"]), t(d["x0"]), t(d["crop_h"]), t(d["crop_w"]), t(d["flip"]),
+            t(d["jitter_factors"]), t(d["hue_shift"]), t(d["jitter_perm"].astype(np.int64)),
+            t(d["jitter_apply"]), t(d["gray_apply"]), torch.zeros(n, 0),
+            t(extents[:, 0]).float(), t(extents[:, 1]).float(), t(extents[:, 2] > 0))
+        got = aug.apply_view(t(images), p, cfg).float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            diff = np.abs(got - want)
+            over = diff > _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+            assert not over.any(), (f"{over.sum()} of {over.size} values beyond one bf16 ulp, "
+                                    f"max difference {diff.max()}")

@@ -80,7 +80,13 @@ RUNS = [
     ("fsdp_demo", dict(sharding="fsdp", grad_sync="demo", grad_sync_topk=0.25)),
     ("dp_lars", dict(optimizer="lars", lr=0.5, weight_decay=1e-4)),
     ("fsdp_lars", dict(sharding="fsdp", optimizer="lars", lr=0.5, weight_decay=1e-4)),
+    ("fsdp_chunks2", dict(sharding="fsdp", collective_chunks=2)),
+    ("fsdp_tp_chunks2", dict(sharding="fsdp_tp", collective_chunks=2)),
 ]
+# the R50 leg's structure (a ResNet backbone: BN in the backbone and the
+# heads) at resnet_tiny's width, dp and fsdp at 2 ranks
+R50 = dict(resnet="resnet_tiny", embed_dim=16, hidden_dim=32)
+R50_RUNS = [("r50_dp", {}), ("r50_fsdp", dict(sharding="fsdp"))]
 LARS_RTOL = 1e-6
 # the driver legs: 16 a global batch, 3 steps an epoch, a checkpoint at step 3
 DRIVER = dict(CONFIG, batch_size=16, steps_per_epoch=3, knn_monitor=False, print_freq=1,
@@ -146,16 +152,34 @@ def port(jax_dp, tmp_path_factory):
               3, 64),
              ("telemetry", dict(DRIVER, sharding="fsdp", grad_sync="fused", telemetry_dir=tel,
                                 peak_flops_per_chip=1e12, telemetry_stride=1), 2, 64)]
-    spawn("run_fsdp_driver", 2, (legs2, out, TINY))
+    # the 2-rank group: the R50 leg's dp and fsdp steps, then the driver legs
+    r50_inputs = os.path.join(out, "r50_inputs.pt")
+    r50 = _r50_model()
+    torch.save({"config": dict(CONFIG, arch="resnet50"), "model": R50,
+                "state_dict": r50.state_dict(),
+                "images": [(torch.from_numpy(a.copy()), torch.from_numpy(b.copy()))
+                           for a, b in jax_dp["images"]],
+                "steps_per_epoch": SPE, "runs": R50_RUNS, "legs": legs2, "legs_model": TINY},
+               r50_inputs)
+    spawn("run_fsdp_steps", 2, (r50_inputs, out))
 
     def load(name, world):
         return [torch.load(os.path.join(out, f"{name}_rank{r}.pt"), weights_only=False)
                 for r in range(world)]
 
     runs = {name: load(name, WORLD) for name, _ in RUNS}
+    runs.update({name: load(name, 2) for name, _ in R50_RUNS})
     legs = {name: load(name, WORLD) for name, *_ in legs4}
     legs.update({name: load(name, 2) for name, *_ in legs2})
     return dict(runs=runs, legs=legs, ck_dp=ck_dp, ck_fsdp=ck_fsdp, tel=tel)
+
+
+def _r50_model():
+    from moco_tpu_torch.models.resnet import build_resnet
+    from moco_tpu_torch.v3_step import V3Model
+
+    return V3Model(build_resnet(R50["resnet"], num_classes=None), embed_dim=R50["embed_dim"],
+                   hidden_dim=R50["hidden_dim"])
 
 
 def _losses(rank: dict) -> list[float]:
@@ -184,6 +208,39 @@ def test_bit_for_bit_with_dp(port, name, ref):
     # every rank ends with the same models
     for r in range(1, WORLD):
         assert _differ(runs[name][r], runs[name][0]) == []
+
+
+@pytest.mark.parametrize("name,ref", [("fsdp_chunks2", "fsdp"),
+                                      ("fsdp_tp_chunks2", "fsdp_tp")])
+def test_collective_chunks_bit_for_bit(port, name, ref):
+    """fsdp and fsdp_tp with the keys' all-gather in 2 chunks equal the
+    same modes in one, bit for bit on every rank. It takes the place of
+    `tests/test_fsdp.py::test_fsdp_chunked_gather_bitwise`, which fails
+    under jax 0.9 at `moco_tpu/parallel/gradsync.py:389`."""
+    runs = port["runs"]
+    for r in range(WORLD):
+        assert _differ(runs[name][r], runs[ref][r]) == [], (name, r)
+
+
+def test_r50_leg_fsdp_bit_for_bit_with_dp(port):
+    """The R50 leg's structure (a resnet_tiny backbone and the heads) at 2
+    ranks: fsdp splits the backbone's and the heads' BN parameters, the
+    step averages the BN running statistics over the group
+    (`v3_step.py`'s `mean_tensors_` of `bn_buffers`), and the run equals
+    dp bit for bit on both ranks: losses, both models with their running
+    statistics, AdamW's state."""
+    runs = port["runs"]
+    dp, fsdp = runs["r50_dp"], runs["r50_fsdp"]
+    bn = {n: a for n, a in fsdp[0]["axes"]["model_q"].items() if ".bn" in n or "_bn" in n}
+    assert bn and all(a is not None for a in bn.values()), bn
+    assert all(a is None for a in dp[0]["axes"]["model_q"].values())
+    assert any("running_mean" in k for k in fsdp[0]["q"])
+    for r in range(2):
+        assert _differ(fsdp[r], dp[r]) == [], r
+    assert _differ(fsdp[1], fsdp[0]) == []
+    # the statistics moved from their initial values
+    assert any(not torch.equal(v, torch.zeros_like(v))
+               for k, v in fsdp[0]["q"].items() if k.endswith("running_mean"))
 
 
 def test_the_split(port):

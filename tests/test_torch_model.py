@@ -3,6 +3,8 @@ flax init -> `weights.params_from_jax` -> the port's modules, then the same
 numpy images through both, in train mode (batch statistics, running-stat
 update) and in eval mode."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,13 +30,27 @@ CASES = {
                               mlp_head=True),
         32,
     ),
+    # the horizon's encoder at its full width: ResNet-18, CIFAR stem, the
+    # 128-d head, 32 px
+    "resnet18_cifar": (
+        lambda: jresnet.ResNet18(num_classes=128, cifar_stem=True),
+        lambda: resnet.build_resnet("resnet18", num_classes=128, cifar_stem=True),
+        32,
+    ),
 }
 
 
-def _pair(name):
-    make_j, make_t, size = CASES[name]
+@functools.cache
+def _jax_init(name):
+    make_j, _, size = CASES[name]
     jmodel = make_j()
-    variables = jmodel.init(jax.random.key(0), jnp.zeros((2, size, size, 3)), train=False)
+    init = jax.jit(lambda key: jmodel.init(key, jnp.zeros((2, size, size, 3)), train=False))
+    return jmodel, init(jax.random.key(0))
+
+
+def _pair(name):
+    _, make_t, size = CASES[name]
+    jmodel, variables = _jax_init(name)
     tmodel = make_t()
     tmodel.load_state_dict(params_from_jax(
         jax.tree.map(np.asarray, variables["params"]),
@@ -70,6 +86,37 @@ def test_eval_forward_matches_flax(name):
     with torch.no_grad():
         out_t = tmodel(torch.from_numpy(images))
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_train_gradients_match_flax(name):
+    """One train-mode step's gradients: a fixed random projection of the
+    output, differentiated with respect to every parameter in both
+    frameworks, the flax gradients carried over by `params_from_jax`, each
+    tensor within 2% in relative L2 norm. f32 through the whole depth puts
+    a few ReLU inputs within rounding of 0, and a flipped ReLU moves its
+    channel's bias gradient by a whole upstream gradient: scaling the
+    images by 1 + 1e-6 moves flax's own ResNet-18 gradients by up to 0.4%
+    this way, and the port's differ from flax's by up to 0.9%."""
+    jmodel, variables, tmodel, images = _pair(name)
+    proj = np.random.RandomState(8).randn(len(images), CASES[name][0]().num_classes)
+    proj = proj.astype(np.float32)
+
+    def loss(params):
+        out, _ = jmodel.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                              jnp.asarray(images), train=True, mutable=["batch_stats"])
+        return jnp.sum(out * proj)
+
+    grads = params_from_jax(jax.tree.map(np.asarray,
+                                         jax.jit(jax.grad(loss))(variables["params"])))
+    tmodel.train()
+    (tmodel(torch.from_numpy(images)) * torch.from_numpy(proj)).sum().backward()
+    got = {n: p.grad.numpy() for n, p in tmodel.named_parameters()}
+    assert got.keys() == grads.keys()
+    for key, want in grads.items():
+        want = want.numpy()
+        err = np.linalg.norm(got[key] - want) / np.linalg.norm(want)
+        assert err < 2e-2, (key, err)
 
 
 def test_weight_layouts_are_carried_across():

@@ -537,12 +537,17 @@ def _run_v3_legs(v3: dict, group, out_dir: str) -> None:
 
 def _fsdp_model(spec: dict):
     """The tiny V3Model of `spec`: a ViT of `patch`, `width`, `depth` and
-    `heads` with the heads of `embed_dim` and `hidden_dim`."""
+    `heads`, or the ResNet `spec["resnet"]` (the R50 leg's structure at a
+    tiny width), with the heads of `embed_dim` and `hidden_dim`."""
+    from moco_tpu_torch.models.resnet import build_resnet
     from moco_tpu_torch.models.vit import ViT
     from moco_tpu_torch.v3_step import V3Model
 
-    backbone = ViT(patch_size=spec["patch"], width=spec["width"], depth=spec["depth"],
-                   num_heads=spec["heads"], image_size=spec["image_size"])
+    if "resnet" in spec:
+        backbone = build_resnet(spec["resnet"], num_classes=None)
+    else:
+        backbone = ViT(patch_size=spec["patch"], width=spec["width"], depth=spec["depth"],
+                       num_heads=spec["heads"], image_size=spec["image_size"])
     return V3Model(backbone, embed_dim=spec["embed_dim"], hidden_dim=spec["hidden_dim"])
 
 
@@ -557,7 +562,8 @@ def run_fsdp_steps(inputs: str, out_dir: str) -> None:
     state dict, this process's accumulators, its state bytes after each
     step, the bytes its query model's storage holds between steps, the
     gradient sync's `describe()` and the shard axes. Then the driver legs
-    of `inputs["legs"]` (`run_fsdp_driver`)."""
+    of `inputs["legs"]` (`run_fsdp_driver`, with `inputs["legs_model"]`
+    where given, else the runs' model)."""
     from moco_tpu_torch.config import PretrainConfig
     from moco_tpu_torch.parallel.fsdp import place_state, state_bytes_per_device, \
         state_shardings
@@ -605,7 +611,7 @@ def run_fsdp_steps(inputs: str, out_dir: str) -> None:
                     "optimizer_class": type(state.optimizer).__name__},
                    _out(out_dir, name))
     if data.get("legs"):
-        run_fsdp_driver(data["legs"], out_dir, data["model"])
+        run_fsdp_driver(data["legs"], out_dir, data.get("legs_model", data["model"]))
 
 
 def run_fsdp_driver(legs: list, out_dir: str, model: dict | None = None) -> None:
