@@ -1,14 +1,15 @@
-"""The JAX driver's initial state for the onset probe's `jax_init` variant
-(`tests/onset_probe.py`), built on the CPU.
+"""The JAX driver's initial state for the onset pair tool's `jax_init`
+variant (`tests/onset_cpu_pair.py`, `port+jax_init`), built on the CPU.
 
 For each seed: the state `moco_tpu.train.train` starts from with the
-horizon tool's config (`tools/_horizon_run.py`: resnet18 with the CIFAR
-stem, 32 px, B=256, K=4096, embed 128, bf16), made with the driver's own
-init key, model and input shape, carried over to the port's names by
-`moco_tpu_torch/weights.py::params_from_jax` and written with the queue
-to `<out>/jax_init_seed<S>.npz` (about 47 MB each).
+horizon tool's config (`tools/_horizon_run.py`: the CIFAR stem, 32 px,
+K=4096, embed 128, bf16) at the rung's arch and batch (R4, the horizon's
+resnet18 at B=256, by default), made with the driver's own init key, model
+and input shape, carried over to the port's names by
+`moco_tpu_torch/weights.py::params_from_jax` and written with the queue to
+`<out>/jax_init_seed<S>.npz` (about 47 MB each at resnet18).
 
-    python tests/onset_jax_init.py --seeds 0,1,2 --out runs/_onset_init
+    python tests/onset_jax_init.py --rung R4 --seeds 0,1,2 --out runs/_onset_init
 """
 
 from __future__ import annotations
@@ -19,12 +20,14 @@ import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
+import onset_cpu_pair as pair  # noqa: E402
 from moco_tpu.config import get_preset  # noqa: E402
 from moco_tpu.train_state import create_train_state  # noqa: E402
 from moco_tpu.train_step import build_encoder, build_optimizer  # noqa: E402
@@ -57,10 +60,12 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--seeds", default="0,1,2")
     p.add_argument("--out", default="runs/_onset_init")
+    p.add_argument("--rung", choices=sorted(pair.RUNGS), default="R4")
     args = p.parse_args(argv)
+    rung = pair.RUNGS[args.rung]
     os.makedirs(args.out, exist_ok=True)
     for seed in [int(s) for s in args.seeds.split(",")]:
-        sd, queue = initial_state(seed)
+        sd, queue = initial_state(seed, batch=rung.batch, arch=rung.arch)
         path = os.path.join(args.out, f"jax_init_seed{seed}.npz")
         np.savez(path, queue=queue, **{f"sd/{k}": v for k, v in sd.items()})
         print(path, len(sd), os.path.getsize(path), flush=True)

@@ -2,6 +2,8 @@
 package, it never runs on the CPU unless asked to, and each entry point sets
 the package's f32 precision policy (`utils/device.py`)."""
 
+import ast
+import os
 import pkgutil
 import subprocess
 import sys
@@ -15,7 +17,7 @@ from moco_tpu_torch import train
 
 # Runs in a fresh interpreter: block jax and moco_tpu at import, then import
 # every module of the port and check what got loaded.
-_PROBE = textwrap.dedent("""
+_BLOCK = textwrap.dedent("""
     import importlib, pkgutil, sys
 
     def banned(name):
@@ -29,6 +31,8 @@ _PROBE = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Block())
+""")
+_PROBE = _BLOCK + textwrap.dedent("""
     import moco_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(moco_tpu_torch.__path__, "moco_tpu_torch.")]
     for name in names:
@@ -83,6 +87,82 @@ def test_port_imports_no_jax_and_nothing_of_moco_tpu():
             "moco_tpu_torch.obsd"} <= {m.name for m in expected}
     # the learning horizon's entry point
     assert "moco_tpu_torch.horizon" in {m.name for m in expected}
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _banned(name: str) -> bool:
+    return (name == "jax" or name.startswith(("jax.", "jaxlib", "flax", "optax"))
+            or name == "moco_tpu" or name.startswith("moco_tpu."))
+
+
+def _imported_names(node) -> list[str]:
+    """Every absolute module name an import statement under `node` names,
+    and every string handed to `importlib.import_module` / `__import__`."""
+    names = []
+    for n in ast.walk(node):
+        if isinstance(n, ast.Import):
+            names += [a.name for a in n.names]
+        elif isinstance(n, ast.ImportFrom) and n.level == 0:
+            names.append(n.module)
+        elif (isinstance(n, ast.Call) and n.args and isinstance(n.args[0], ast.Constant)
+              and isinstance(n.args[0].value, str)
+              and getattr(n.func, "attr", getattr(n.func, "id", None))
+              in ("import_module", "__import__")):
+            names.append(n.args[0].value)
+    return names
+
+
+def test_chip_smoke_imports_no_jax_and_nothing_of_moco_tpu():
+    # every import in the file, those inside the phases' functions too
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        names = _imported_names(ast.parse(f.read()))
+    assert "moco_tpu_torch" in {n.split(".")[0] for n in names}
+    assert not [n for n in names if _banned(n)]
+
+
+# the card side of the onset pair tool: its port runner and the `run` loop
+_PAIR_PROBE = _BLOCK + textwrap.dedent("""
+    sys.path.insert(0, "tests")
+    import onset_cpu_pair as pair
+    cfg = pair.port_config("R1", 0, "bfloat16")
+    import moco_tpu_torch.train, moco_tpu_torch.data.datasets
+    assert not [m for m in sys.modules if banned(m)]
+    print(cfg.arch, cfg.compute_dtype)
+""")
+
+
+def test_onset_pair_port_runner_needs_no_jax():
+    with open(os.path.join(ROOT, "tests", "onset_cpu_pair.py")) as f:
+        tree = ast.parse(f.read())
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    # the module itself imports only the stdlib; only the JAX runner and the
+    # JAX config import the JAX package
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert not [n for n in _imported_names(ast.Module(body=top, type_ignores=[]))
+                if n.split(".")[0] in ("torch", "numpy", "jax", "moco_tpu", "moco_tpu_torch")]
+    for name in ("run_port", "apply_variant", "port_config", "run", "command", "summarize",
+                 "main"):
+        assert not [n for n in _imported_names(funcs[name]) if _banned(n)], name
+    assert any(_banned(n) for n in _imported_names(funcs["run_jax"]))
+    proc = subprocess.run([sys.executable, "-c", _PAIR_PROBE], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["resnet_tiny", "bfloat16"]
+
+
+def test_onset_state_parity_card_mode_needs_no_jax():
+    # the port-on-the-card-against-the-CPU mode runs where there is no JAX:
+    # only the JAX reference's function imports the JAX package
+    with open(os.path.join(ROOT, "tests", "onset_state_parity.py")) as f:
+        tree = ast.parse(f.read())
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert not [n for n in _imported_names(ast.Module(body=top, type_ignores=[]))
+                if _banned(n)]
+    for name, func in funcs.items():
+        assert any(_banned(n) for n in _imported_names(func)) == (name == "jax_reference"), name
 
 
 def test_span_layer_imports_without_torch_or_numpy():

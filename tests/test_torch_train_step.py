@@ -14,6 +14,7 @@ the same JAX step: off the TPU the JAX ResNet does not fuse
 
 import jax
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -86,9 +87,12 @@ def runs(request):
     for im_q, im_k in images:
         jstate, m = jstep(jstate, im_q, im_k)
         jmetrics.append({k: float(v) for k, v in m.items()})
+    trace = [t for t in jax.tree.leaves(jstate.opt_state, is_leaf=lambda t: isinstance(
+        t, optax.TraceState)) if isinstance(t, optax.TraceState)]
     jfinal = {"q": params_from_jax(_tree_np(jstate.params_q), _tree_np(jstate.batch_stats_q)),
               "k": params_from_jax(_tree_np(jstate.params_k), _tree_np(jstate.batch_stats_k)),
-              "queue": np.array(jstate.queue)}
+              "queue": np.array(jstate.queue),
+              "momentum": params_from_jax(_tree_np(trace[0].trace))}
 
     sd = params_from_jax(init[0], init[1])
     state, tmetrics = _port_run(tcfg, tmodel, sd, init[2], images)
@@ -149,3 +153,22 @@ def test_enqueued_keys_and_updated_state_match_jax(runs):
             floor = np.abs(got - sd2[key].numpy()).max()
             diff = np.abs(got - ref.numpy()).max()
             assert diff <= 4 * floor + 2e-5, (which, key, diff, floor)
+
+
+def test_momentum_buffers_match_jax(runs):
+    """SGD's momentum buffer of every query parameter after three steps:
+    the gradients with the weight decay folded in, BN's scales and shifts
+    and the biases included (optax's `trace` after `add_decayed_weights`,
+    torch's `momentum_buffer`). A decay that one side leaves out of a
+    parameter moves its buffer by `wd * p` a step; the bound is the state
+    test's: 4x what the nudge moved the buffer, plus 2e-5."""
+    _name, _jm, jf, _tm, state, nudged = runs
+    names = {p: n for n, p in state.model_q.named_parameters()}
+    names2 = {n: p for n, p in nudged.model_q.named_parameters()}
+    got = {names[p]: s["momentum_buffer"].numpy() for p, s in state.optimizer.state.items()}
+    got2 = {n: nudged.optimizer.state[names2[n]]["momentum_buffer"].numpy() for n in got}
+    assert got.keys() == jf["momentum"].keys()
+    for key, ref in jf["momentum"].items():
+        floor = np.abs(got[key] - got2[key]).max()
+        diff = np.abs(got[key] - ref.numpy()).max()
+        assert diff <= 4 * floor + 2e-5, (key, diff, floor)
